@@ -1,0 +1,18 @@
+"""naf_torch: NAF zero-shot feature upsampling in PyTorch, with hand-written
+CUDA kernels for NVIDIA Hopper (H100).
+
+The port of ``naf_tpu`` (JAX/Pallas), module by module under the same names:
+
+- ``naf_torch.ops``      resize, pooling, window math, the attention oracle
+- ``naf_torch.nn``       conv encoder, RoPE, cross-scale attention
+- ``naf_torch.kernels``  the CUDA kernels (``csrc/``), built with nvcc at
+                         first use, each beside its plain PyTorch version
+- ``naf_torch.models``   NAF
+- ``naf_torch.api``      ``naf``, ``load_naf_params``, ``NAFUpsampler``
+
+Importing the package builds and loads nothing.
+"""
+
+__version__ = "0.1.0"
+
+from naf_torch.api import NAFUpsampler, load_naf_params, naf  # noqa: F401

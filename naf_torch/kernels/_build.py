@@ -1,0 +1,81 @@
+"""Build and load the port's CUDA kernels.
+
+Each ``csrc/<name>.cu`` is one shared library with a plain C interface,
+compiled by ``nvcc`` for Hopper (``sm_90a``) at first use into
+``build/naf_torch/`` at the repository root and loaded with ``ctypes``. The
+file name carries a hash of the sources and flags, so an edit rebuilds.
+Nothing here runs at import time; the CPU tests never build.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+__all__ = ["build", "load", "SOURCES"]
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "naf_torch"
+SOURCES = ("encoder_fused", "na2d_fused_q")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
+)
+
+
+def _nvcc() -> str:
+    for cand in (
+        os.environ.get("CUDA_HOME", "") and os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"),
+        shutil.which("nvcc"),
+        "/usr/local/cuda/bin/nvcc",
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels are built on a machine "
+                       "with the CUDA toolkit")
+
+
+def _target(name: str) -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in sorted(CSRC.iterdir()):
+        if f.suffix in (".cu", ".cuh"):
+            h.update(f.name.encode())
+            h.update(f.read_bytes())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
+
+
+def build(names=SOURCES) -> dict[str, float]:
+    """Compile the named sources that are not built yet, one ``nvcc`` each,
+    all started together. Returns {name: seconds} for what was compiled."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    t0 = time.perf_counter()
+    for name in names:
+        out = _target(name)
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True), tmp, out)
+    times = {}
+    for name, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+        (BUILD_DIR / f"{name}.ptxas.log").write_text(log)
+        os.replace(tmp, out)
+        times[name] = time.perf_counter() - t0
+    return times
+
+
+def load(name: str) -> ctypes.CDLL:
+    """Load the library for ``csrc/<name>.cu``, building it first if needed."""
+    build((name,))
+    return ctypes.CDLL(str(_target(name)))
