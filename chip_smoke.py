@@ -21,8 +21,24 @@ Builds the CUDA kernels from ``naf_torch/kernels/csrc`` with nvcc (into
    a torch.profiler breakdown of device time per forward by kernel;
    one gradient of each wrapper is held against autograd of its plain
    version (2e-3); per-forward time and the forward's own peak memory;
-4. the time of each kernel at the production shape (K2 also at 2048^2)
-   beside its plain version's, a library yardstick and the card's bound.
+4. K3 (cross-scale NA forward) and K4 (its recompute-P backward) against
+   their plain versions at the training shape (4, 32^2 <- 16^2, 4 heads,
+   d 64, dv 192) and at 448^2 <- 28^2 (d 64, dv 96), k 9: f32 forward
+   atol = rtol = 2e-4 and gradients 2e-3, bf16 cosine > 0.9995 against the
+   f32 plain versions; the K2 gradient check of phase 3 also shows that its
+   backward ran K3 and K4;
+5. the training path: ``train_upsampler`` on the production configuration
+   (NAF dim 256, 4 + 4 heads, k 9, 2 layers, rope_rescale 2; AdamW 2e-4;
+   batch 4; random ViT-B/14 DINOv2 backbone; img_size 448; bf16) for 20
+   steps on seeded synthetic images, with 8 K1, 1 K3 and 1 K4 launches per
+   step, finite losses, the last below 1.5x the first, a checkpoint written,
+   reloaded and stepped once more, one step with use_checkpointing (2 K3
+   launches), and one f32 step at batch 1 held against the same step on the
+   CPU (loss rtol 1e-3, gradient cosine > 0.999); ms per step, a step's peak
+   memory and a torch.profiler split of its device time;
+6. the time of each kernel at the production shape (K2 also at 2048^2, K3
+   and K4 at both shapes of phase 4) beside its plain version's, a library
+   yardstick and the card's bound.
 
 Prints a JSON line of per-kernel numbers, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``. Exits non-zero on any failure,
@@ -35,6 +51,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -58,7 +75,7 @@ def _peaks(name: str):
 
 
 def _cos(a, b) -> float:
-    a, b = a.double().flatten(), b.double().flatten()
+    a, b = a.detach().double().flatten(), b.detach().double().flatten()
     return float((a @ b) / (a.norm() * b.norm()))
 
 
@@ -75,6 +92,7 @@ def _time_ms(fn, iters: int = 10) -> float:
 
 
 def _check_close(name, got, want, tol):
+    got, want = got.detach(), want.detach()
     err = (got.double() - want.double()).abs()
     bad = err > tol + tol * want.double().abs()
     if bool(bad.any()):
@@ -257,6 +275,7 @@ def _profile(fn, label, reps=3):
 
 def phase_grads(dev):
     from naf_torch.kernels.encoder_fused import gn_silu_conv_fused, gn_silu_conv_ref
+    from naf_torch.kernels.na2d_fused import cross_scale_na2d_fused
     from naf_torch.kernels.na2d_fused_q import (
         naf_upsample_attention,
         naf_upsample_attention_ref,
@@ -288,12 +307,313 @@ def phase_grads(dev):
     rt, ct = torch.cat([cos_r, sin_r], -1), torch.cat([cos_c, sin_c], -1)
     cot = torch.randn(1, 64, 64, 96, generator=gen, device=dev)
     grads = []
+    before = (cross_scale_na2d_fused.launches, cross_scale_na2d_fused.bwd_launches)
     for fn in (naf_upsample_attention, naf_upsample_attention_ref):
         o = fn(enc, keys, values, rt, ct, 64, num_heads=2, kernel_size=9)
         grads.append(torch.autograd.grad((o * cot).sum(), (enc, keys, values)))
+    after = (cross_scale_na2d_fused.launches, cross_scale_na2d_fused.bwd_launches)
+    if after != (before[0] + 1, before[1] + 1):
+        raise AssertionError(f"K2's backward did not run K3 and K4 once each: {before} -> {after}")
     for a, r in zip(*grads):
         _check_close("K2 gradient", a, r, 2e-3)
-    print("gradients of K1 and K2 match autograd of their plain versions (2e-3)", flush=True)
+    print("gradients of K1 and K2 match autograd of their plain versions (2e-3); K2's "
+          "backward ran K3 and K4", flush=True)
+
+
+# (B, Hq, Hk, n, d, dv): the training step's attention and the K2 twin's 448^2 <- 28^2
+K34_SHAPES = {"train": (4, 32, 16, 4, 64, 192), "448": (1, 448, 28, 4, 64, 96)}
+
+
+def _k34_inputs(dev, gen, shape):
+    b, hq, hk, n, d, dv = shape
+    q = torch.randn(b, hq, hq, n, d, generator=gen, device=dev)
+    k = torch.randn(b, hk, hk, n, d, generator=gen, device=dev)
+    v = torch.randn(b, hk, hk, n, dv, generator=gen, device=dev)
+    g = torch.randn(b, hq, hq, n, dv, generator=gen, device=dev)
+    return q, k, v, g
+
+
+def phase_k34(dev):
+    from naf_torch.kernels.na2d_fused import (
+        cross_scale_na2d_fused,
+        cross_scale_na2d_fused_bwd_ref,
+        cross_scale_na2d_fused_ref,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    errs = {"k3": 0.0, "k4": 0.0}
+    for label, shape in K34_SHAPES.items():
+        q, k, v, g = _k34_inputs(dev, gen, shape)
+        want = cross_scale_na2d_fused_ref(q, k, v, 9)
+        want_g = cross_scale_na2d_fused_bwd_ref(q, k, v, g, 9)
+        for dt in (torch.float32, torch.bfloat16):
+            ins = [t.to(dt).requires_grad_() for t in (q, k, v)]
+            out = cross_scale_na2d_fused(*ins, 9)
+            got_g = torch.autograd.grad(out, ins, g.to(dt))
+            torch.cuda.synchronize()
+            if dt == torch.float32:
+                e3 = _check_close(f"K3 f32 {label}", out, want, 2e-4)
+                e4 = max(_check_close(f"K4 f32 {label} d{n}", a, w, 2e-3)
+                         for a, w, n in zip(got_g, want_g, "qkv"))
+                errs["k3"], errs["k4"] = max(errs["k3"], e3), max(errs["k4"], e4)
+            else:
+                c3 = _check_cos(f"K3 bf16 {label}", out.float(), want, 0.9995)
+                c4 = [_check_cos(f"K4 bf16 {label} d{n}", a.float(), w, 0.9995)
+                      for a, w, n in zip(got_g, want_g, "qkv")]
+            del out, got_g, ins
+        print(f"K3/K4 {label} {tuple(shape)}: f32 max_abs_err K3 {e3:.3e} K4 {e4:.3e}; "
+              f"bf16 cos K3 {c3:.6f} K4 dq/dk/dv " + "/".join(f"{c:.6f}" for c in c4),
+              flush=True)
+        del q, k, v, g, want, want_g
+        torch.cuda.empty_cache()
+    return errs
+
+
+PROD_NAF = dict(dim=256, heads_attn=4, heads_rope=4, kernel_size=9, use_encoder=True,
+                img_layers=2, rope_rescale=2.0)
+BACKBONE = "vit_base_patch14_dinov2.lvd142m"
+IMG_SIZE, BATCH, STEPS = 448, 4, 20
+
+
+def _images(batch, size, seed):
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    while True:
+        yield rng.rand(batch, size, size, 3).astype(np.float32)
+
+
+def _counts():
+    from naf_torch.kernels.encoder_fused import gn_silu_conv_fused
+    from naf_torch.kernels.na2d_fused import cross_scale_na2d_fused
+
+    return (gn_silu_conv_fused.launches, cross_scale_na2d_fused.launches,
+            cross_scale_na2d_fused.bwd_launches)
+
+
+def _zero_counts():
+    from naf_torch.kernels.encoder_fused import gn_silu_conv_fused
+    from naf_torch.kernels.na2d_fused import cross_scale_na2d_fused
+    from naf_torch.kernels.na2d_fused_q import naf_upsample_attention
+
+    gn_silu_conv_fused.launches = naf_upsample_attention.launches = 0
+    cross_scale_na2d_fused.launches = cross_scale_na2d_fused.bwd_launches = 0
+
+
+def _step_inputs(backbone, img, dev):
+    from naf_torch.backbones.wrapper import IMAGENET_DEFAULT_MEAN, IMAGENET_DEFAULT_STD
+
+    x = torch.as_tensor(img, device=dev)
+    ups = ((x - torch.tensor(IMAGENET_DEFAULT_MEAN, device=dev))
+           / torch.tensor(IMAGENET_DEFAULT_STD, device=dev))
+    return ups, backbone.normalize(x)
+
+
+def phase_train(dev, card, workdir):
+    import numpy as np
+
+    from naf_torch.backbones import PretrainedViTWrapper
+    from naf_torch.models.naf import NAF
+    from naf_torch.train.trainer import (
+        TrainConfig,
+        load_checkpoint,
+        make_optimizer,
+        make_train_step,
+        train_upsampler,
+    )
+
+    # the bf16 run as users run it: PyTorch's default lets cuDNN use TF32
+    # for the f32 convolutions (K1's plain backward); the f32 check below
+    # turns it off again
+    torch.backends.cudnn.allow_tf32 = True
+    backbone = PretrainedViTWrapper(BACKBONE, dtype=torch.bfloat16, device=dev, seed=0)
+    cfg = TrainConfig(train_steps=STEPS, img_size=IMG_SIZE, lr=2e-4, weight_decay=1e-5,
+                      batch_size=BATCH, use_bf16=True, log_every=1, ckpt_every=STEPS,
+                      viz_every=0, log_dir=os.path.join(workdir, "train"), seed=0)
+    marks, events = [], []
+
+    def counted(data):
+        for batch in data:
+            marks.append(_counts())
+            events.append(torch.cuda.Event(enable_timing=True))
+            events[-1].record()
+            yield batch
+
+    torch.cuda.synchronize()
+    _zero_counts()
+    model = train_upsampler(NAF(**PROD_NAF), backbone, counted(_images(BATCH, IMG_SIZE, 0)),
+                            cfg, device=dev)
+    torch.cuda.synchronize()
+    marks.append(_counts())
+    per_step = {tuple(b - a for a, b in zip(m0, m1)) for m0, m1 in zip(marks, marks[1:])}
+    if len(marks) != STEPS + 1 or per_step != {(8, 1, 1)}:
+        raise AssertionError(f"launches per step (K1, K3, K4) {per_step} over {len(marks) - 1} "
+                             "steps, want (8, 1, 1) each")
+    launches = dict(zip(("k1", "k3", "k4"), marks[-1]))
+    loop_ms = [a.elapsed_time(b) for a, b in zip(events[1:], events[2:])]
+    run = os.path.join(cfg.log_dir, "version_0")
+    losses = [json.loads(line)["loss"] for line in open(os.path.join(run, "metrics.jsonl"))]
+    if len(losses) != STEPS or not all(np.isfinite(losses)):
+        raise AssertionError(f"losses {losses}")
+    if not losses[-1] < 1.5 * losses[0]:
+        raise AssertionError(f"loss diverged: first {losses[0]}, last {losses[-1]}")
+    print(f"train: {STEPS} bf16 steps, batch {BATCH}, {IMG_SIZE}^2; launches per step K1 8, "
+          f"K3 1, K4 1 (totals {launches}); loss {losses[0]:.5f} -> {losses[-1]:.5f}; loop "
+          f"(loss read every step) median {sorted(loop_ms)[len(loop_ms) // 2]:.3f} ms/step",
+          flush=True)
+
+    # checkpoint written, reloaded into a fresh model, stepped once more
+    saved = load_checkpoint(os.path.join(run, f"ckpt_{STEPS}.pt"))
+    cfg2 = TrainConfig(**{**cfg.__dict__, "train_steps": STEPS + 1, "ckpt_every": STEPS + 1})
+    resumed = train_upsampler(NAF(**PROD_NAF), backbone, _images(BATCH, IMG_SIZE, 1), cfg2,
+                              params=saved["params"], opt_state=saved["opt_state"],
+                              start_step=saved["step"], device=dev)
+    rec = [json.loads(line) for line in
+           open(os.path.join(cfg.log_dir, "version_1", "metrics.jsonl"))]
+    if [r["step"] for r in rec] != [STEPS] or not np.isfinite(rec[0]["loss"]):
+        raise AssertionError(f"resumed run logged {rec}")
+    if not os.path.exists(os.path.join(cfg.log_dir, "version_1", f"ckpt_{STEPS + 1}.pt")):
+        raise AssertionError("the resumed run wrote no checkpoint")
+    del resumed
+    print(f"train: checkpoint ckpt_{STEPS}.pt reloaded and stepped once more, loss "
+          f"{rec[0]['loss']:.5f}", flush=True)
+
+    # steady-state step time, a step's peak memory, the device split
+    opt = make_optimizer(model, cfg)
+    step = make_train_step(model, backbone, opt, use_bf16=True, seed=0)
+    ups, back = _step_inputs(backbone, next(_images(BATCH, IMG_SIZE, 2)), dev)
+    args = ((IMG_SIZE // 2,) * 2, (IMG_SIZE // 14,) * 2, (min(224, 4 * IMG_SIZE // 14),) * 2)
+    step_ms = _time_ms(lambda: step(ups, back, 0, *args), iters=10)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    step(ups, back, 0, *args)
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+    split = _profile_step(lambda: step(ups, back, 0, *args))
+    print(f"train step bf16 batch {BATCH} {IMG_SIZE}^2: {step_ms:.3f} ms/step (10 steps, CUDA "
+          f"events), peak {peak:.1f} MiB above the {base / 2**20:.1f} MiB held before it "
+          f"({card})", flush=True)
+    print("train step split, torch.profiler device time: "
+          + "; ".join(f"{k} {v:.3f} ms" for k, v in split.items() if k not in ("top", "kernels"))
+          + f"; {split['kernels']:.0f} kernels per step; device busy "
+          f"{100 * split['device_total'] / step_ms:.1f}% of the step time", flush=True)
+    print("  top kernels: " + "; ".join(f"{k[:50]} {v:.3f} ms" for k, v in split["top"]),
+          flush=True)
+
+    # use_checkpointing recomputes the forward: K3 twice
+    step_ck = make_train_step(model, backbone, opt, use_bf16=True, use_checkpointing=True)
+    before = _counts()
+    loss_ck = float(step_ck(ups, back, 0, *args))
+    delta = tuple(b - a for a, b in zip(before, _counts()))
+    if delta != (16, 2, 1) or not np.isfinite(loss_ck):
+        raise AssertionError(f"use_checkpointing step: launches (K1, K3, K4) {delta}, loss "
+                             f"{loss_ck}")
+    print(f"train: use_checkpointing step launched K1 16, K3 2, K4 1; loss {loss_ck:.5f}",
+          flush=True)
+    del model, opt, step, step_ck
+    torch.cuda.empty_cache()
+    torch.backends.cudnn.allow_tf32 = False
+    agree = _card_vs_cpu_step(dev)
+    split.pop("top")
+    return launches, dict(step_ms=step_ms, loop_ms=loop_ms, peak_mib=peak, split=split,
+                          losses=losses, **agree)
+
+
+def _profile_step(fn, reps=3):
+    """torch.profiler split of one train step's device time: the kernels
+    launched under the trainer's naf.backbone / naf.forward / naf.optimizer
+    ranges (their CPU-side annotations), and the rest, launched from
+    autograd's device thread, as the backward. The device-side spans of the
+    ranges are not kernels and are left out of the sums."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / reps * 1e3
+    ev = prof.key_averages()
+    kernels = [e for e in ev if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+    total = sum(e.self_device_time_total for e in kernels) / reps / 1e3
+    if not total > 0:
+        raise AssertionError("torch.profiler recorded no device time")
+    names = ("naf.backbone", "naf.forward", "naf.optimizer")
+    ranges = {e.key: e.device_time_total / reps / 1e3 for e in ev
+              if e.device_type == DeviceType.CPU and e.key in names}
+    split = {k.split(".")[1]: ranges.get(k, 0.0) for k in names}
+    split["backward"] = total - sum(split.values())
+    split["device_total"] = total
+    split["wall"] = wall
+    split["kernels"] = sum(e.count for e in kernels) / reps
+    split["top"] = sorted(((e.key, e.self_device_time_total / reps / 1e3) for e in kernels),
+                          key=lambda kv: -kv[1])[:6]
+    return split
+
+
+def _card_vs_cpu_step(dev):
+    """One f32 step of the production configuration at batch 1 on the card
+    (K1, K3, K4) and on the CPU (plain code), from the same weights, image and
+    rescale draw: the loss and the flattened gradients."""
+    import numpy as np
+
+    from naf_torch.api import _init_weights
+    from naf_torch.backbones import PretrainedViTWrapper
+    from naf_torch.models.naf import NAF
+    from naf_torch.nn.rope import RopeDraws
+    from naf_torch.train.trainer import make_train_step
+
+    src = NAF(**PROD_NAF)
+    _init_weights(src, 5)
+    img = next(_images(1, IMG_SIZE, 3))
+    args = ((IMG_SIZE // 2,) * 2, (IMG_SIZE // 14,) * 2, (min(224, 4 * IMG_SIZE // 14),) * 2)
+    res = {}
+    for where in ("cpu", dev):
+        model = NAF(**PROD_NAF)
+        model.load_state_dict(src.state_dict())
+        model.to(where)
+        backbone = PretrainedViTWrapper(BACKBONE, dtype=torch.float32, device=where, seed=0)
+        opt = torch.optim.AdamW(model.parameters(), lr=0.0)  # the gradients are compared
+        step = make_train_step(model, backbone, opt, use_bf16=False)
+        ups, back = _step_inputs(backbone, img, where)
+        before = _counts()
+        loss = float(step(ups, back, 0, *args, draws=RopeDraws(rescale=1.37)))
+        delta = tuple(b - a for a, b in zip(before, _counts()))
+        res[str(where)] = (loss, torch.cat([p.grad.flatten().cpu() for p in model.parameters()]),
+                           delta)
+    (l_cpu, g_cpu, d_cpu), (l_gpu, g_gpu, d_gpu) = res["cpu"], res[str(dev)]
+    if d_cpu != (0, 0, 0) or d_gpu != (8, 1, 1):
+        raise AssertionError(f"launches (K1, K3, K4): CPU step {d_cpu}, card step {d_gpu}")
+    if not abs(l_gpu - l_cpu) <= 1e-3 * abs(l_cpu):
+        raise AssertionError(f"card f32 loss {l_gpu} vs CPU {l_cpu}")
+    c = _check_cos("card vs CPU f32 gradients", g_gpu, g_cpu, 0.999)
+    print(f"train: f32 step batch 1, card vs CPU: loss {l_gpu:.6f} vs {l_cpu:.6f} "
+          f"(rel {abs(l_gpu - l_cpu) / abs(l_cpu):.2e}); gradient cosine {c:.6f}", flush=True)
+    return dict(cpu_loss=l_cpu, card_loss=l_gpu, grad_cos=c)
+
+
+def _masked_sdpa_inputs(q, k, v, ks):
+    """(B, n, Hq*Wq, d) queries over all (B, n, hk*wk, d) keys with a
+    boolean mask of each query's k x k window: the library yardstick of K3."""
+    from naf_torch.ops.window import cross_scale_lr_indices
+
+    b, hq, wq, n, d = q.shape
+    hk, wk = k.shape[1], k.shape[2]
+    ih = torch.from_numpy(cross_scale_lr_indices(hq, hk, ks)).to(q.device)
+    iw = torch.from_numpy(cross_scale_lr_indices(wq, wk, ks)).to(q.device)
+    rows = torch.zeros(hq, hk, dtype=torch.bool, device=q.device)
+    cols = torch.zeros(wq, wk, dtype=torch.bool, device=q.device)
+    rows[torch.arange(hq, device=q.device)[:, None], ih] = True
+    cols[torch.arange(wq, device=q.device)[:, None], iw] = True
+    mask = (rows[:, None, :, None] & cols[None, :, None, :]).reshape(hq * wq, hk * wk)
+    flat = lambda t: t.flatten(1, 2).transpose(1, 2)
+    return flat(q), flat(k), flat(v), mask
+
 
 
 def phase_timing(dev, card):
@@ -350,6 +670,57 @@ def phase_timing(dev, card):
                                 else "operations")
         print(f"K2 bf16 448^2 -> {out}^2 <- 28^2x384: {ms:.4f} ms; plain {plain:.4f} ms; "
               f"bound {bound:.4f} ms ({card})", flush=True)
+
+    from naf_torch.kernels.na2d_fused import (
+        _launch_bwd,
+        _launch_fwd,
+        cross_scale_na2d_fused_bwd_ref,
+        cross_scale_na2d_fused_ref,
+    )
+
+    def bound_of(nbytes, flops):
+        return (max(nbytes / bw_peak, flops / fl_peak) * 1e3,
+                "bytes" if nbytes / bw_peak > flops / fl_peak else "operations")
+
+    for label, shape in K34_SHAPES.items():
+        b, hq, hk, n, d, dv = shape
+        q, k, v, g = (t.bfloat16() for t in _k34_inputs(dev, gen, shape))
+        sc = d ** -0.5
+        it = 10 if label == "train" else 3
+        ms3 = _time_ms(lambda: _launch_fwd(q, k, v, 9, sc), iters=it)
+        ms4 = _time_ms(lambda: _launch_bwd(q, k, v, g, 9, sc), iters=it)
+        plain3 = _time_ms(lambda: cross_scale_na2d_fused_ref(q, k, v, 9), iters=1)
+        plain4 = _time_ms(lambda: cross_scale_na2d_fused_bwd_ref(q, k, v, g, 9), iters=1)
+        # library yardstick: masked SDPA over all LR keys (integer ratio: no
+        # window holds a cell twice, so it computes K3's function)
+        sq, sk, sv, mask = _masked_sdpa_inputs(q, k, v, 9)
+        ref = _launch_fwd(q, k, v, 9, sc)
+        lib_out = F.scaled_dot_product_attention(sq, sk, sv, attn_mask=mask, scale=sc)
+        lib_cos = _check_cos(f"masked SDPA vs K3 {label}",
+                             lib_out.transpose(1, 2).reshape(ref.shape).float(), ref.float(),
+                             0.999)
+        lib3 = _time_ms(lambda: F.scaled_dot_product_attention(sq, sk, sv, attn_mask=mask,
+                                                               scale=sc), iters=it)
+        lq, lk, lv = (t.detach().requires_grad_() for t in (sq, sk, sv))
+        lo = F.scaled_dot_product_attention(lq, lk, lv, attn_mask=mask, scale=sc)
+        lg = g.flatten(1, 2).transpose(1, 2)
+        lib4 = _time_ms(lambda: torch.autograd.grad(lo, (lq, lk, lv), lg, retain_graph=True),
+                        iters=it)
+        pix, lr = b * hq * hq * n, b * hk * hk * n
+        b3, by3 = bound_of(2 * (pix * (d + dv) + lr * (d + dv)), 2 * pix * 81 * (d + dv))
+        b4, by4 = bound_of(2 * (pix * (2 * d + dv) + 2 * lr * (d + dv)),
+                           2 * pix * 81 * (3 * d + 2 * dv))
+        res[f"k3_{label}"] = dict(ms=ms3, plain_ms=plain3, library_ms=lib3, bound_ms=b3,
+                                  bound_by=by3)
+        res[f"k4_{label}"] = dict(ms=ms4, plain_ms=plain4, library_ms=lib4, bound_ms=b4,
+                                  bound_by=by4)
+        print(f"K3 bf16 {label} {tuple(shape)}: {ms3:.4f} ms; plain {plain3:.4f} ms; masked "
+              f"SDPA {lib3:.4f} ms (cos vs K3 {lib_cos:.6f}); bound {b3:.4f} ms ({by3}) ({card})",
+              flush=True)
+        print(f"K4 bf16 {label} {tuple(shape)}: {ms4:.4f} ms; plain {plain4:.4f} ms; masked "
+              f"SDPA backward {lib4:.4f} ms; bound {b4:.4f} ms ({by4}) ({card})", flush=True)
+        del q, k, v, g, sq, sk, sv, mask, lq, lk, lv, lo, lg, lib_out, ref
+        torch.cuda.empty_cache()
     return res
 
 
@@ -376,6 +747,9 @@ def main() -> int:
     k2_err = phase_k2(dev)
     launches, stats = phase_main(dev, card)
     phase_grads(dev)
+    k34_err = phase_k34(dev)
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(os.path.abspath(__file__))) as work:
+        train_launches, train = phase_train(dev, card, work)
     timing = phase_timing(dev, card)
 
     k1, k1b = timing["k1_k3"], timing["k1_k1"]
@@ -392,12 +766,25 @@ def main() -> int:
              max_abs_err=k2_err, **timing["k2_448"],
              ms_2048=timing["k2_2048"]["ms"], plain_ms_2048=timing["k2_2048"]["plain_ms"],
              bound_ms_2048=timing["k2_2048"]["bound_ms"]),
+        # K3/K4: launches from the training path, times at its shape
+        dict(name="cross_scale_na2d_fused", route="cuda",
+             source="naf_torch/kernels/csrc/na2d_fused.cu",
+             replaces="naf_tpu/kernels/na2d_fused.py:834", launches=train_launches["k3"],
+             max_abs_err=k34_err["k3"], **timing["k3_train"],
+             **{f"{k}_448": v for k, v in timing["k3_448"].items() if k != "bound_by"}),
+        dict(name="cross_scale_na2d_fused_bwd", route="cuda",
+             source="naf_torch/kernels/csrc/na2d_fused.cu",
+             replaces="naf_tpu/kernels/na2d_fused.py:760", launches=train_launches["k4"],
+             max_abs_err=k34_err["k4"], **timing["k4_train"],
+             **{f"{k}_448": v for k, v in timing["k4_448"].items() if k != "bound_by"}),
     ]
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
              "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{**{k: kd[k] for k in order}, **kd} for kd in kernels]
+    train_keys = ("step_ms", "peak_mib", "split", "losses", "cpu_loss", "card_loss", "grad_cos")
     print(json.dumps({"kernels": kernels, "forward_ms": {k: v[0] for k, v in stats.items()},
-                      "peak_mib": {k: v[1] for k, v in stats.items()}, "card": card}))
+                      "peak_mib": {k: v[1] for k, v in stats.items()},
+                      "train": {k: train[k] for k in train_keys}, "card": card}))
     print(_card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

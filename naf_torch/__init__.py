@@ -1,5 +1,5 @@
-"""naf_torch: NAF zero-shot feature upsampling in PyTorch, with hand-written
-CUDA kernels for NVIDIA Hopper (H100).
+"""naf_torch: NAF zero-shot feature upsampling and its training in PyTorch,
+with hand-written CUDA kernels for NVIDIA Hopper (H100).
 
 The port of ``naf_tpu`` (JAX/Pallas), module by module under the same names:
 
@@ -9,6 +9,10 @@ The port of ``naf_tpu`` (JAX/Pallas), module by module under the same names:
                          first use, each beside its plain PyTorch version
 - ``naf_torch.models``   NAF
 - ``naf_torch.api``      ``naf``, ``load_naf_params``, ``NAFUpsampler``
+- ``naf_torch.backbones`` the DINOv2 ViT and its wrapper (distillation targets)
+- ``naf_torch.train``    self-distillation training (``python -m naf_torch.train``)
+- ``naf_torch.config``, ``naf_torch.data``, ``naf_torch.utils``  the CLI's
+                         config loader, image-folder data and PCA panels
 
 Importing the package builds and loads nothing.
 """

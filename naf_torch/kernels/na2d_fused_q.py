@@ -14,8 +14,10 @@ memory. The softmax scale is folded into the keys here, as the JAX wrapper
 does.
 
 The wrapper takes the plain version for CPU tensors only; for CUDA tensors
-it launches the kernel or raises. Its backward recomputes through the plain
-version (the training slice brings the backward kernels).
+it launches the kernel or raises. Its backward differentiates a twin, as the
+JAX package's ``_fused_q_twin`` does: pool-up and RoPE through torch
+autograd, then the attention through ``cross_scale_na2d_fused``, whose
+forward and backward are kernels K3 and K4 on CUDA tensors.
 """
 
 from __future__ import annotations
@@ -23,27 +25,22 @@ from __future__ import annotations
 import ctypes
 import functools
 
-import numpy as np
 import torch
 
 from naf_torch.kernels import _build
 from naf_torch.kernels.encoder_fused import _detached, _grads
+from naf_torch.kernels.na2d_fused import (
+    SMEM_BUDGET, SMEM_MAX, _plan, _scaled_keys, cross_scale_na2d_fused,
+)
 from naf_torch.nn.rope import rotate_half
 from naf_torch.ops.na2d import cross_scale_na2d
 from naf_torch.ops.pool import adaptive_avg_pool2d
-from naf_torch.ops.window import cross_scale_lr_indices
 
-__all__ = ["naf_upsample_attention", "naf_upsample_attention_ref"]
+__all__ = ["naf_upsample_attention", "naf_upsample_attention_ref", "fused_q_twin"]
 
 # Query tiles tried in order, largest first; the first whose K/V box fits
 # the shared-memory budget (two blocks per SM) is used.
 _TILES = ((8, 8), (4, 8), (4, 4), (2, 4), (2, 2), (1, 2), (1, 1))
-_SMEM_BUDGET = 100 * 1024
-_SMEM_MAX = 227 * 1024
-
-
-def _scaled_keys(keys, scale, dtype):
-    return (keys.float() * scale).to(dtype)
 
 
 def naf_upsample_attention_ref(enc, keys, values, rows_tab, cols_tab, rope_d_head=64, *,
@@ -72,32 +69,6 @@ def naf_upsample_attention_ref(enc, keys, values, rows_tab, cols_tab, rope_d_hea
         values.float().reshape(b, hk, wk, n, dv), kernel_size, scale=1.0,
     )
     return out.reshape(b, hq, wq, cv).to(enc.dtype)
-
-
-def _box(idx: np.ndarray, tile: int, lr: int):
-    """Per tile of ``tile`` queries on one axis: the first LR cell of a box
-    of ``ext`` cells holding every window cell of the tile."""
-    n_t = -(-idx.shape[0] // tile)
-    lo = np.array([idx[i * tile : (i + 1) * tile].min() for i in range(n_t)])
-    hi = np.array([idx[i * tile : (i + 1) * tile].max() for i in range(n_t)])
-    ext = int((hi - lo).max()) + 1
-    return np.minimum(lo, lr - ext).astype(np.int32), ext
-
-
-@functools.lru_cache(maxsize=64)
-def _plan(hq, wq, hk, wk, ks, d, dv, device):
-    """Tile size, K/V box and window tables (on ``device``) for one shape."""
-    lib = _lib()
-    idx_h = cross_scale_lr_indices(hq, hk, ks).astype(np.int32)
-    idx_w = cross_scale_lr_indices(wq, wk, ks).astype(np.int32)
-    for limit in (_SMEM_BUDGET, _SMEM_MAX):
-        for tqh, tqw in _TILES:
-            row_lo, urh = _box(idx_h, tqh, hk)
-            col_lo, urw = _box(idx_w, tqw, wk)
-            if lib.naf_fused_q_smem(d, dv, ks, urh, urw) <= limit:
-                to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
-                return (tqh, tqw, urh, urw, to(idx_h), to(idx_w), to(row_lo), to(col_lo))
-    raise ValueError(f"no query tile fits shared memory for d={d}, dv={dv}, k={ks}")
 
 
 @functools.cache
@@ -140,7 +111,8 @@ def _launch(enc, keys, values, rows_tab, cols_tab, rope_d_head, num_heads, kerne
     if scale is None:
         scale = d ** -0.5
     tqh, tqw, urh, urw, idx_h, idx_w, row_lo, col_lo = _plan(
-        hq, wq, hk, wk, kernel_size, d, dv, str(enc.device))
+        _lib, "naf_fused_q_smem", _TILES, (SMEM_BUDGET, SMEM_MAX), hq, wq, hk, wk, kernel_size,
+        d, dv, str(enc.device))
     k_scaled = _scaled_keys(keys, scale, enc.dtype).contiguous()
     rt = rows_tab.float().contiguous()
     ct = cols_tab.float().contiguous()
@@ -159,6 +131,27 @@ def _launch(enc, keys, values, rows_tab, cols_tab, rope_d_head, num_heads, kerne
     return out
 
 
+def fused_q_twin(enc, keys, values, rows_tab, cols_tab, rope_d_head=64, *,
+                 num_heads: int, kernel_size: int, scale=None):
+    """Differentiation twin of K2 (JAX ``_fused_q_twin``): pool-up -> RoPE
+    from the separable tables -> ``cross_scale_na2d_fused``. q is formed in
+    enc's dtype, as in the JAX twin."""
+    b, hi, wi, c = enc.shape
+    hq, wq = rows_tab.shape[0], cols_tab.shape[0]
+    _, hk, wk, cv = values.shape
+    n = num_heads
+    d, dv = c // n, cv // n
+    xu = adaptive_avg_pool2d(enc, (hq, wq))
+    rot = rotate_half(xu, rope_d_head)
+    cos = (rows_tab[:, None, :c] * cols_tab[None, :, :c]).to(xu.dtype)
+    sin = (rows_tab[:, None, c:] * cols_tab[None, :, c:]).to(xu.dtype)
+    q = xu * cos + rot * sin
+    out = cross_scale_na2d_fused(
+        q.reshape(b, hq, wq, n, d), keys.reshape(b, hk, wk, n, d),
+        values.reshape(b, hk, wk, n, dv), kernel_size, scale=scale)
+    return out.reshape(b, hq, wq, cv)
+
+
 class _FusedQ(torch.autograd.Function):
     @staticmethod
     def forward(ctx, enc, keys, values, rows_tab, cols_tab, rope_d_head, num_heads,
@@ -173,9 +166,8 @@ class _FusedQ(torch.autograd.Function):
         rope_d_head, num_heads, kernel_size, scale = ctx.meta
         inputs = _detached(ctx.saved_tensors, ctx)
         with torch.enable_grad():
-            out = naf_upsample_attention_ref(
-                *inputs, rope_d_head, num_heads=num_heads, kernel_size=kernel_size,
-                scale=scale)
+            out = fused_q_twin(*inputs, rope_d_head, num_heads=num_heads,
+                               kernel_size=kernel_size, scale=scale)
         return (*_grads((out,), (g,), inputs), None, None, None, None)
 
 

@@ -15,8 +15,13 @@ output by a bilinear downscale, pools to the output size and applies RoPE.
 Inference (no ``return_weights``) takes the fused path: both encoder stacks
 on kernel K1 into one packed buffer, the keys by the separable pooled-RoPE
 collapse, then kernel K2 (pool-up + RoPE + attention in one pass). On CPU
-tensors the same path runs the kernels' plain versions. ``return_weights``
-takes the modular path, whose attention is the plain oracle.
+tensors the same path runs the kernels' plain versions.
+
+Training (``train=True``) takes the modular path, as the JAX package does:
+the encoder (K1 on CUDA), pool to the output size, RoPE with the train-time
+coordinate rescale, pooled keys, then ``CrossScaleAttention``, whose "auto"
+implementation runs kernels K3 forward and K4 backward on CUDA tensors.
+``return_weights`` takes the modular path with the plain attention oracle.
 """
 
 from __future__ import annotations
@@ -30,7 +35,7 @@ from naf_torch.kernels.encoder_fused import encoder_stack_fused_packed
 from naf_torch.kernels.na2d_fused_q import naf_upsample_attention
 from naf_torch.nn.attention import CrossScaleAttention
 from naf_torch.nn.conv import Encoder
-from naf_torch.nn.rope import RoPE
+from naf_torch.nn.rope import RoPE, RopeDraws
 from naf_torch.ops.pool import adaptive_avg_pool2d
 from naf_torch.ops.resize import resize_bilinear
 
@@ -39,12 +44,15 @@ __all__ = ["NAF", "ImageEncoder"]
 
 class ImageEncoder(nn.Module):
     def __init__(self, out_channels: int = 256, heads_rope: int = 4,
-                 rope_base: float = 100.0, img_layers: int = 2):
+                 rope_base: float = 100.0, img_layers: int = 2, use_encoder: bool = True,
+                 rope_rescale: Optional[float] = None):
         super().__init__()
         hidden = out_channels // 2
-        self.encoder = Encoder(hidden, kernel_size=1, ks_res=1, num_layers=img_layers)
-        self.sem_encoder = Encoder(hidden, kernel_size=3, ks_res=3, num_layers=img_layers)
-        self.rope = RoPE(out_channels, heads_rope, base=rope_base)
+        self.use_encoder = use_encoder
+        if use_encoder:
+            self.encoder = Encoder(hidden, kernel_size=1, ks_res=1, num_layers=img_layers)
+            self.sem_encoder = Encoder(hidden, kernel_size=3, ks_res=3, num_layers=img_layers)
+        self.rope = RoPE(out_channels, heads_rope, base=rope_base, rescale_coords=rope_rescale)
 
     def encode(self, x: torch.Tensor) -> torch.Tensor:
         """Both conv stacks, no pooling or RoPE. CUDA tensors run every
@@ -52,7 +60,10 @@ class ImageEncoder(nn.Module):
         run the modules' own forward (``nn.GroupNorm``), as the JAX package
         does off the TPU, and not the fused-layer math of K1's plain version:
         the CPU model is the independent check that the card's output is
-        held against."""
+        held against. Without the encoder (``use_encoder=False``) the input
+        passes through unchanged, as in the JAX package."""
+        if not self.use_encoder:
+            return x
         if x.device.type == "cuda":
             return encoder_stack_fused_packed(self.encoder, self.sem_encoder, x)
         return torch.cat([self.encoder(x), self.sem_encoder(x)], dim=-1)
@@ -74,43 +85,56 @@ class ImageEncoder(nn.Module):
             return (min(h, 4 * oh, 4 * ow), min(w, 4 * ow, 4 * oh))
         return (h, w)
 
-    def forward(self, x: torch.Tensor, output_size: Tuple[int, int]) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, output_size: Tuple[int, int], train: bool = False,
+                generator: Optional[torch.Generator] = None,
+                draws: Optional[RopeDraws] = None) -> torch.Tensor:
         oh, ow = int(output_size[0]), int(output_size[1])
         x = self.encode_guarded(x, (oh, ow))
-        return self.rope(adaptive_avg_pool2d(x, (oh, ow)))
+        return self.rope(adaptive_avg_pool2d(x, (oh, ow)), train, generator, draws)
 
 
 class NAF(nn.Module):
     """Flagship upsampler: ``forward(image, features, output_size)``, NHWC.
 
-    Defaults are the reference's (src/model/naf.py:73-84): dim 256, 4
-    attention heads, 4 RoPE heads, kernel 9, 2 encoder layers. The train-time
-    RoPE rescale comes with the training slice.
+    Defaults are the reference's (src/model/naf.py:73-84, config/model/naf.yaml):
+    dim 256, 4 attention heads, 4 RoPE heads, kernel 9, 2 encoder layers, a
+    train-time RoPE rescale bound of 2. ``na_impl`` is the attention
+    implementation ("auto" | "pallas" | "xla" | "fused_q", as in the JAX
+    package): "xla" also keeps inference on the modular path with the plain
+    oracle; the others take the fused path for inference.
     """
 
     def __init__(self, dim: int = 256, heads_attn: int = 4, heads_rope: int = 4,
-                 kernel_size: int = 9, rope_base: float = 100.0,
-                 img_layers: int = 2):
+                 kernel_size: int = 9, use_encoder: bool = True, rope_base: float = 100.0,
+                 rope_rescale: Optional[float] = 2.0, img_layers: int = 2,
+                 na_impl: str = "auto"):
         super().__init__()
+        if na_impl not in ("auto", "pallas", "xla", "fused_q"):
+            raise ValueError(f"unknown na_impl {na_impl!r}")
         self.heads_attn = heads_attn
         self.kernel_size = kernel_size
-        self.image_encoder = ImageEncoder(dim, heads_rope, rope_base, img_layers)
-        self.upsampler = CrossScaleAttention(dim, heads_attn, kernel_size)
+        self.na_impl = na_impl
+        self.image_encoder = ImageEncoder(dim, heads_rope, rope_base, img_layers, use_encoder,
+                                          rope_rescale)
+        self.upsampler = CrossScaleAttention(
+            dim, heads_attn, kernel_size, impl="auto" if na_impl == "fused_q" else na_impl)
 
     def forward(self, image: torch.Tensor, features: torch.Tensor,
                 output_size: Tuple[int, int], return_weights: bool = False,
-                train: bool = False, band_rows: Optional[int] = None):
-        if band_rows is not None:
+                train: bool = False, band_rows: Optional[int] = None,
+                generator: Optional[torch.Generator] = None,
+                draws: Optional[RopeDraws] = None):
+        """``train`` applies the RoPE coordinate augmentation given in
+        ``draws`` or drawn from ``generator`` (none without either, as the
+        JAX package does without an rng)."""
+        if band_rows is not None and not return_weights and not train:
             raise NotImplementedError("band_rows (streamed outputs) comes with the "
                                       "streamed slice")
-        if train:
-            raise NotImplementedError("training (RoPE augmentations, backward kernels) "
-                                      "comes with the training slice")
-        if not return_weights:
+        if not train and not return_weights and self.na_impl != "xla":
             return self._fused_q(image, features, output_size)
-        x = self.image_encoder(image, output_size)
-        keys = adaptive_avg_pool2d(x, features.shape[1:3])
-        return self.upsampler(x, keys, features, return_weights=True)
+        x = self.image_encoder(image, output_size, train, generator, draws)
+        keys = adaptive_avg_pool2d(x, features.shape[1:3])  # KeyEncoder
+        return self.upsampler(x, keys, features, return_weights=return_weights)
 
     def _fused_q(self, image, features, output_size):
         oh, ow = int(output_size[0]), int(output_size[1])

@@ -5,17 +5,19 @@ Queries live on the output (H, W) grid, keys/values on the low-res (h, w)
 feature grid; windows are k x k LR-cell neighbourhoods gathered straight
 from the LR grid (``naf_torch.ops.na2d``).
 
-Implementations:
-- "xla" / "auto": the plain gather + einsum oracle (any ratio, supports
-  ``return_weights``). The name "xla" is kept from the JAX package.
-- "pallas": the fused NA kernel with its backward, which comes with the
-  training slice; asking for it raises.
+Implementations (names kept from the JAX package):
+- "pallas": ``kernels.na2d_fused.cross_scale_na2d_fused``, kernels K3 forward
+  and K4 backward on CUDA tensors, their plain versions on CPU tensors;
+- "xla": the plain gather + einsum oracle (any ratio, ``return_weights``);
+- "auto": "pallas" for CUDA tensors, as the JAX package picks Pallas on the
+  TPU, else "xla". ``return_weights`` always takes the oracle.
 """
 
 from __future__ import annotations
 
 from torch import nn
 
+from naf_torch.kernels.na2d_fused import cross_scale_na2d_fused
 from naf_torch.ops.na2d import cross_scale_na2d
 
 __all__ = ["CrossScaleAttention"]
@@ -35,11 +37,6 @@ class CrossScaleAttention(nn.Module):
         self.impl = impl
 
     def forward(self, q, k, v, return_weights: bool = False):
-        if self.impl == "pallas":
-            raise NotImplementedError(
-                "the fused cross-scale NA kernel (naf_tpu/kernels/na2d_fused.py) "
-                "is ported with the training slice; use impl='auto'"
-            )
         if self.dim % self.num_heads != 0:
             raise ValueError("dim must be divisible by num_heads")
         if v.shape[-1] % self.num_heads != 0:
@@ -52,6 +49,12 @@ class CrossScaleAttention(nn.Module):
         qh = q.reshape(b, hq, wq, n, d)
         kh = k.reshape(b, hk, wk, n, d)
         vh = v.reshape(b, hk, wk, n, dv)
+        impl = self.impl
+        if impl == "auto":
+            impl = "pallas" if q.device.type == "cuda" else "xla"
+        if impl == "pallas" and not return_weights:
+            out = cross_scale_na2d_fused(qh, kh, vh, self.kernel_size, scale=d ** -0.5)
+            return out.reshape(b, hq, wq, n * dv)
         res = cross_scale_na2d(qh, kh, vh, self.kernel_size, scale=d ** -0.5,
                                return_weights=return_weights)
         if return_weights:

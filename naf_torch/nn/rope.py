@@ -8,21 +8,29 @@ table with ones in the other axis's slots (:meth:`RoPE.tables`).
 
 The ``periods`` buffer carries the reference state-dict name
 (``image_encoder.rope.periods``) and stays float32 across ``module.to(dtype)``:
-rounding it to bf16 would change every angle. Train-time coordinate
-augmentations (shift / jitter / rescale) come with the training slice.
+rounding it to bf16 would change every angle.
+
+Train-time coordinate augmentations (shift / jitter / rescale, reference
+rope.py:107-124) act per axis, so they compose with the separable tables.
+Their draws come from an explicit ``torch.Generator`` (:meth:`RoPE.draw`), or
+are given as numbers (a ``RopeDraws``), so that a test can feed the draws the
+JAX package made with ``jax.random``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import math
+from typing import Optional, Tuple
+
 import numpy as np
 import torch
 from torch import nn
 
 from naf_torch.ops.pool import _pool_matrix, adaptive_avg_pool2d
 
-__all__ = ["RoPE", "rope_periods", "rotate_half"]
+__all__ = ["RoPE", "RopeDraws", "rope_periods", "rotate_half"]
 
 
 def rope_periods(d_head: int, base: float = 100.0) -> np.ndarray:
@@ -60,16 +68,35 @@ def rotate_half(x: torch.Tensor, d_head: int) -> torch.Tensor:
     return torch.stack([-xh[..., 1, :], xh[..., 0, :]], dim=-2).reshape(shape)
 
 
-class RoPE(nn.Module):
-    """Applies axial RoPE to an NHWC feature map, per attention head."""
+@dataclasses.dataclass(frozen=True)
+class RopeDraws:
+    """One step's coordinate augmentation: ``shift`` added to the (row, col)
+    coordinates, then ``jitter`` and ``rescale`` multiplying them. None
+    leaves that augmentation out."""
 
-    def __init__(self, embed_dim: int, num_heads: int, base: float = 100.0):
+    shift: Optional[Tuple[float, float]] = None
+    jitter: Optional[Tuple[float, float]] = None
+    rescale: Optional[float] = None
+
+
+class RoPE(nn.Module):
+    """Applies axial RoPE to an NHWC feature map, per attention head.
+
+    shift_coords / jitter_coords / rescale_coords are the train-time
+    augmentation bounds of the reference constructor (None disables each)."""
+
+    def __init__(self, embed_dim: int, num_heads: int, base: float = 100.0,
+                 shift_coords: Optional[float] = None, jitter_coords: Optional[float] = None,
+                 rescale_coords: Optional[float] = None):
         super().__init__()
         if embed_dim % (4 * num_heads) != 0:
             raise ValueError("embed_dim must be divisible by 4 * num_heads")
         self.embed_dim = embed_dim
         self.num_heads = num_heads
         self.d_head = embed_dim // num_heads
+        self.shift_coords = shift_coords
+        self.jitter_coords = jitter_coords
+        self.rescale_coords = rescale_coords
         self.register_buffer("periods", torch.from_numpy(rope_periods(self.d_head, base)))
 
     def _apply(self, fn, recurse=True):
@@ -79,13 +106,46 @@ class RoPE(nn.Module):
         self.periods = periods.to(self.periods.device)
         return out
 
-    def _angles(self, coords: np.ndarray) -> torch.Tensor:
-        c = torch.from_numpy(coords).to(self.periods.device)
+    def _angles(self, coords) -> torch.Tensor:
+        c = torch.as_tensor(coords, dtype=torch.float32).to(self.periods.device)
         return (2.0 * math.pi) * c[:, None] / self.periods.float()
 
-    def tables(self, h: int, w: int):
-        """f32 (sin_r, cos_r) of shape (h, C) and (sin_c, cos_c) of shape (w, C)."""
-        ch, cw = _axis_coords(h, w)
+    def draw(self, generator: Optional[torch.Generator] = None) -> RopeDraws:
+        """Sample one step's augmentation from ``generator`` (on the CPU):
+        shift uniform in [-s, s] per axis, jitter and rescale log-uniform in
+        [1/j, j] per axis and [1/r, r] for both axes (reference rope.py:107-124)."""
+        def uniform(n, bound):
+            u = torch.rand(n, generator=generator, dtype=torch.float64)
+            return ((2.0 * u - 1.0) * bound).tolist()
+
+        shift = jitter = rescale = None
+        if self.shift_coords is not None:
+            shift = tuple(uniform(2, self.shift_coords))
+        if self.jitter_coords is not None:
+            jitter = tuple(math.exp(a) for a in uniform(2, math.log(self.jitter_coords)))
+        if self.rescale_coords is not None:
+            rescale = math.exp(uniform(1, math.log(self.rescale_coords))[0])
+        return RopeDraws(shift, jitter, rescale)
+
+    def tables(self, h: int, w: int, train: bool = False,
+               generator: Optional[torch.Generator] = None,
+               draws: Optional[RopeDraws] = None):
+        """f32 (sin_r, cos_r) of shape (h, C) and (sin_c, cos_c) of shape (w, C).
+
+        With ``train``, the axis coordinates take the augmentation given in
+        ``draws``, or drawn from ``generator``; with neither, none (as the
+        JAX package does without an rng)."""
+        ch, cw = (torch.from_numpy(a) for a in _axis_coords(h, w))
+        if train and draws is None and generator is not None:
+            draws = self.draw(generator)
+        if train and draws is not None:
+            f32 = lambda a: torch.tensor(a, dtype=torch.float32)
+            if draws.shift is not None:
+                ch, cw = ch + f32(draws.shift[0]), cw + f32(draws.shift[1])
+            if draws.jitter is not None:
+                ch, cw = ch * f32(draws.jitter[0]), cw * f32(draws.jitter[1])
+            if draws.rescale is not None:
+                ch, cw = ch * f32(draws.rescale), cw * f32(draws.rescale)
         au, av = self._angles(ch), self._angles(cw)
         one_u, one_v = torch.ones_like(au), torch.ones_like(av)
         n = self.num_heads
@@ -101,11 +161,14 @@ class RoPE(nn.Module):
             self.periods.device, dtype
         )
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None,
+                draws: Optional[RopeDraws] = None) -> torch.Tensor:
         b, h, w, c = x.shape
         if c != self.embed_dim:
             raise ValueError(f"expected {self.embed_dim} channels, got {c}")
-        sin_r, cos_r, sin_c, cos_c = (t.to(x.dtype) for t in self.tables(h, w))
+        sin_r, cos_r, sin_c, cos_c = (
+            t.to(x.dtype) for t in self.tables(h, w, train, generator, draws))
         rot = rotate_half(x, self.d_head)
         return (x * cos_r[:, None] * cos_c[None]
                 + rot * sin_r[:, None] * sin_c[None])

@@ -7,6 +7,8 @@ skip here, and ``chip_smoke.py`` holds each kernel against its plain version
 at the production shapes.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -21,14 +23,22 @@ from naf_torch.kernels.encoder_fused import (
     gn_silu_conv_fused,
     gn_silu_conv_ref,
 )
-from naf_torch.kernels.na2d_fused_q import (
+from naf_torch.kernels.na2d_fused import (
     _box,
+    _plan,
+    cross_scale_na2d_fused,
+    cross_scale_na2d_fused_bwd_ref,
+    cross_scale_na2d_fused_ref,
+)
+from naf_torch.kernels.na2d_fused_q import (
+    fused_q_twin,
     naf_upsample_attention,
     naf_upsample_attention_ref,
 )
 from naf_torch.nn import Encoder
 from naf_torch.ops.window import cross_scale_lr_indices
 from naf_tpu.kernels import encoder_fused as j_enc
+from naf_tpu.kernels.na2d_fused import cross_scale_na2d_fused as j_fused_na
 from naf_tpu.kernels.na2d_fused_q import naf_upsample_attention as j_fused_q
 from naf_tpu.nn import Encoder as JEncoder
 from naf_tpu.nn import RoPE as JRoPE
@@ -130,6 +140,86 @@ def test_kv_box_holds_every_window_cell(hq, hk, k, tile):
         assert (cells >= l0).all() and (cells < l0 + ext).all()
 
 
+class _FakeLib:
+    """Stands in for a kernel library: shared memory = 4 B per box cell."""
+
+    @staticmethod
+    def smem(d, dv, ks, rows, cols):
+        return 4 * rows * cols
+
+
+def test_plan_takes_the_first_tile_whose_box_fits():
+    """The shared planner of K2-K4, on the CPU with a stand-in library: it
+    tries the limits in order and the tiles largest first, and raises where
+    nothing fits."""
+    lib = functools.cache(lambda: _FakeLib)
+    tiles = ((8, 8), (4, 4), (1, 1))
+    args = (64, 64, 16, 16, 9, 16, 16, "cpu")
+    box8 = _box(cross_scale_lr_indices(64, 16, 9), 8, 16)[1]
+    box4 = _box(cross_scale_lr_indices(64, 16, 9), 4, 16)[1]
+    assert box8 > box4
+    tqh, tqw, urh, urw, idx_h, _, row_lo, _ = _plan(lib, "smem", tiles, (4 * box8 ** 2,), *args)
+    assert (tqh, tqw, urh, urw) == (8, 8, box8, box8)
+    np.testing.assert_array_equal(idx_h.numpy(), cross_scale_lr_indices(64, 16, 9))
+    assert row_lo.shape == (8,)
+    got = _plan(lib, "smem", tiles, (4 * box4 ** 2, 4 * box8 ** 2), *args)[:4]
+    assert got == (4, 4, box4, box4)
+    with pytest.raises(ValueError, match="no query tile fits shared memory by smem"):
+        _plan(lib, "smem", tiles, (3,), *args)
+
+
+def _qkv(hq, hk, n=2, d=16, dv=24, seed=10, b=1):
+    rng = np.random.RandomState(seed)
+    return tuple(rng.randn(b, h, h, n, c).astype(np.float32)
+                 for h, c in ((hq, d), (hk, d), (hk, dv)))
+
+
+@pytest.mark.parametrize("hq,hk,k", [(48, 12, 5), (26, 13, 9)])
+def test_fused_na_ref_matches_pallas(hq, hk, k):
+    q, kk, v = _qkv(hq, hk)
+    want = j_fused_na(jnp.asarray(q), jnp.asarray(kk), jnp.asarray(v), k, interpret=True)
+    args = [torch.from_numpy(a) for a in (q, kk, v)]
+    got = cross_scale_na2d_fused_ref(*args, k)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    # on CPU tensors the wrapper is the plain version
+    torch.testing.assert_close(cross_scale_na2d_fused(*args, k), got)
+
+
+def test_fused_na_backward_matches_pallas_backward():
+    """The plain K4 and autograd of the wrapper on CPU tensors against
+    jax.grad of the interpret-mode kernel, which runs the TPU backward
+    kernel interpreted (2e-3)."""
+    q, kk, v = _qkv(24, 12, b=2)
+    dout = np.random.RandomState(11).randn(2, 24, 24, 2, 24).astype(np.float32)
+    _, vjp = jax.vjp(lambda *a: j_fused_na(*a, 5, interpret=True),
+                     jnp.asarray(q), jnp.asarray(kk), jnp.asarray(v))
+    want = vjp(jnp.asarray(dout))
+    args = [torch.from_numpy(a).requires_grad_() for a in (q, kk, v)]
+    got = cross_scale_na2d_fused_bwd_ref(*(a.detach() for a in args), torch.from_numpy(dout), 5)
+    auto = torch.autograd.grad(cross_scale_na2d_fused(*args, 5), args, torch.from_numpy(dout))
+    for g, a, w in zip(got, auto, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=2e-3, rtol=2e-3)
+        np.testing.assert_allclose(a.numpy(), np.asarray(w), atol=2e-3, rtol=2e-3)
+
+
+def test_fused_q_twin_gradients_match_jax():
+    """K2's backward (the twin: pool-up, RoPE, then K3/K4's plain versions)
+    against jax.grad of naf_upsample_attention (2e-3)."""
+    enc, keys, values, rows, cols, dh = _fused_q_inputs(32, 64)
+    cot = np.random.RandomState(12).randn(1, 64, 64, 96).astype(np.float32)
+    _, vjp = jax.vjp(
+        lambda e, k, v: j_fused_q(e, k, v, jnp.asarray(rows), jnp.asarray(cols), dh,
+                                  num_heads=2, kernel_size=9, interpret=True),
+        jnp.asarray(enc), jnp.asarray(keys), jnp.asarray(values))
+    want = vjp(jnp.asarray(cot))
+    args = [torch.from_numpy(a).requires_grad_() for a in (enc, keys, values)]
+    out = fused_q_twin(*args, torch.from_numpy(rows), torch.from_numpy(cols), dh,
+                       num_heads=2, kernel_size=9)
+    got = torch.autograd.grad(out, args, torch.from_numpy(cot))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=2e-3, rtol=2e-3)
+
+
 def test_wrappers_raise_off_cpu_and_cuda():
     """A tensor on neither CPU nor CUDA gets no quiet fallback."""
     x = torch.zeros(1, 8, 8, 16, device="meta")
@@ -141,11 +231,15 @@ def test_wrappers_raise_off_cpu_and_cuda():
         naf_upsample_attention(x, x, x, torch.zeros(8, 32, device="meta"),
                                torch.zeros(8, 32, device="meta"), 8, num_heads=2,
                                kernel_size=3)
+    q = torch.zeros(1, 8, 8, 2, 8, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        cross_scale_na2d_fused(q, q[:, :4, :4], q[:, :4, :4], 3)
 
 
 def test_build_paths_are_keyed_on_the_sources():
     names = {p.name for p in _build.CSRC.iterdir()}
     assert {f"{n}.cu" for n in _build.SOURCES} <= names
+    assert {"encoder_fused", "na2d_fused_q", "na2d_fused"} <= set(_build.SOURCES)
     t = _build._target("encoder_fused")
     assert t.parent == _build.BUILD_DIR and t.name.startswith("libencoder_fused_")
     assert t == _build._target("encoder_fused")
@@ -179,3 +273,20 @@ def test_k2_kernel_matches_plain_on_card(cuda_device, hi, out):
     got = naf_upsample_attention(*args, dh, num_heads=2, kernel_size=9)
     want = naf_upsample_attention_ref(*args, dh, num_heads=2, kernel_size=9)
     torch.testing.assert_close(got, want, **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hq,hk,k", [(48, 12, 5), (26, 13, 9), (16, 8, 9)])
+def test_k3_k4_kernels_match_plain_on_card(cuda_device, hq, hk, k):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, kk, v = (torch.from_numpy(a).to(cuda_device).requires_grad_() for a in _qkv(hq, hk))
+    dout = torch.randn(1, hq, hq, 2, 24, device=cuda_device)
+    launches = cross_scale_na2d_fused.launches, cross_scale_na2d_fused.bwd_launches
+    out = cross_scale_na2d_fused(q, kk, v, k)
+    got = torch.autograd.grad(out, (q, kk, v), dout)
+    assert (cross_scale_na2d_fused.launches, cross_scale_na2d_fused.bwd_launches) == (
+        launches[0] + 1, launches[1] + 1)
+    torch.testing.assert_close(out, cross_scale_na2d_fused_ref(q, kk, v, k), **TOL)
+    want = cross_scale_na2d_fused_bwd_ref(q.detach(), kk.detach(), v.detach(), dout, k)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=2e-3, rtol=2e-3)

@@ -122,12 +122,64 @@ def test_bf16_model_keeps_f32_periods_and_runs():
 
 
 def test_later_slices_raise():
+    """Streamed outputs are a later slice; training is this one, and the
+    JAX package ignores band_rows when training."""
     model = NAF(**SMALL)
     x, f = torch.zeros(1, 32, 32, 3), torch.zeros(1, 16, 16, 64)
     with pytest.raises(NotImplementedError, match="streamed"):
         model(x, f, (32, 32), band_rows=8)
-    with pytest.raises(NotImplementedError, match="training"):
-        model(x, f, (32, 32), train=True)
+    out = model(x, f, (32, 32), train=True, band_rows=8)
+    assert out.shape == (1, 32, 32, 64)
+    with pytest.raises(ValueError, match="na_impl"):
+        NAF(na_impl="other")
+
+
+@pytest.mark.parametrize("na_impl", ["xla", "pallas"])
+def test_train_forward_matches_jax(na_impl):
+    """NAF(train=True) with a given rescale draw against the JAX model fed
+    the same draw through its rng (modular path; "pallas" runs the fused NA
+    wrapper's plain version here)."""
+    image, feats, out = _rand(10, 1, 32, 32, 3), _rand(11, 1, 16, 16, 64), (32, 32)
+    jm, params, _ = _pair(SMALL, image, feats, out)
+    model = NAF(**SMALL, na_impl=na_impl)
+    model.load_state_dict(state_dict_from_jax_params(params, heads_rope=SMALL["heads_rope"]))
+    key = jax.random.PRNGKey(7)
+    want = jm.apply({"params": params}, jnp.asarray(image), jnp.asarray(feats), out,
+                    train=True, rng=key)
+    _, _, kr = jax.random.split(key, 3)
+    rm = np.log(2.0)
+    rescale = float(jnp.exp(jax.random.uniform(kr, (1,), minval=-rm, maxval=rm))[0])
+    from naf_torch.nn.rope import RopeDraws
+
+    with torch.no_grad():
+        got = model(torch.from_numpy(image), torch.from_numpy(feats), out, train=True,
+                    draws=RopeDraws(rescale=rescale))
+        plain = model(torch.from_numpy(image), torch.from_numpy(feats), out)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    assert not np.allclose(got.numpy(), plain.numpy(), atol=1e-3)  # the draw mattered
+
+
+@pytest.mark.parametrize("train", [False, True], ids=["infer", "train"])
+def test_naf_without_encoder_matches_jax(train):
+    """use_encoder=False passes the input, of `dim` channels, straight to the
+    pool and RoPE, as the JAX model does (inference on the fused path, and
+    training on the modular one)."""
+    kw = dict(dim=16, heads_attn=2, heads_rope=2, kernel_size=5, use_encoder=False)
+    image, feats, out = _rand(12, 1, 16, 16, 16), _rand(13, 1, 8, 8, 24), (16, 16)
+    jm = JNAF(na_impl="xla", **kw)
+    key = jax.random.PRNGKey(3)
+    want = jm.apply({}, jnp.asarray(image), jnp.asarray(feats), out, train=train, rng=key)
+    _, _, kr = jax.random.split(key, 3)
+    rm = np.log(2.0)
+    rescale = float(jnp.exp(jax.random.uniform(kr, (1,), minval=-rm, maxval=rm))[0])
+    from naf_torch.nn.rope import RopeDraws
+
+    model = NAF(**kw).eval()
+    assert not any(True for _ in model.parameters())
+    with torch.no_grad():
+        got = model(torch.from_numpy(image), torch.from_numpy(feats), out, train=train,
+                    draws=RopeDraws(rescale=rescale) if train else None)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
 def test_no_cuda_and_no_device_raises(monkeypatch):

@@ -8,6 +8,7 @@ import torch
 
 from naf_torch.convert import encoder_state_dict_from_jax
 from naf_torch.nn import CrossScaleAttention, Encoder, RoPE, rotate_half
+from naf_torch.nn.rope import RopeDraws
 from naf_tpu.nn import CrossScaleAttention as JCrossScaleAttention
 from naf_tpu.nn import Encoder as JEncoder
 from naf_tpu.nn import RoPE as JRoPE
@@ -96,7 +97,55 @@ def test_cross_scale_attention_matches_flax(hq, hk, k):
 
 
 def test_cross_scale_attention_pallas_impl_raises():
+    """impl="pallas" runs the fused NA wrapper: on CPU tensors its plain
+    version (equal to the oracle), on a tensor on neither CPU nor CUDA it
+    raises rather than fall back."""
     att = CrossScaleAttention(16, 2, 3, impl="pallas")
-    x = torch.zeros(1, 8, 8, 16)
-    with pytest.raises(NotImplementedError, match="training slice"):
+    q, k, v = _rand(8, 1, 16, 16, 16), _rand(9, 1, 8, 8, 16), _rand(10, 1, 8, 8, 8)
+    got = att(*(torch.from_numpy(a) for a in (q, k, v)))
+    want = CrossScaleAttention(16, 2, 3, impl="xla")(*(torch.from_numpy(a) for a in (q, k, v)))
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
+    x = torch.zeros(1, 8, 8, 16, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
         att(x, x[:, :4, :4], x[:, :4, :4])
+
+
+def _jax_draws(seed, shift, jitter, rescale):
+    """The draws JAX's RoPE._augment_axes makes from PRNGKey(seed)."""
+    import math
+
+    ks, kj, kr = jax.random.split(jax.random.PRNGKey(seed), 3)
+    sh = jax.random.uniform(ks, (2,), minval=-shift, maxval=shift)
+    jm, rm = math.log(jitter), math.log(rescale)
+    ji = jnp.exp(jax.random.uniform(kj, (2,), minval=-jm, maxval=jm))
+    re = jnp.exp(jax.random.uniform(kr, (1,), minval=-rm, maxval=rm))
+    return RopeDraws(shift=tuple(float(a) for a in sh), jitter=tuple(float(a) for a in ji),
+                     rescale=float(re[0]))
+
+
+@pytest.mark.parametrize("h,w", [(6, 10), (16, 16)])
+def test_rope_train_augmentation_matches_flax(h, w):
+    aug = dict(shift_coords=0.3, jitter_coords=1.5, rescale_coords=2.0)
+    jr = JRoPE(embed_dim=64, num_heads=2, **aug)
+    jp = jr.init(jax.random.PRNGKey(0), jnp.zeros((1, 4, 4, 64)))
+    key = jax.random.PRNGKey(5)
+    want = jr.apply(jp, h, w, train=True, rng=key, method=jr.tables)
+    rope = RoPE(64, 2, **aug)
+    draws = _jax_draws(5, 0.3, 1.5, 2.0)
+    for got, ref in zip(rope.tables(h, w, train=True, draws=draws), want):
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
+    x = _rand(11, 1, h, w, 64)
+    np.testing.assert_allclose(
+        rope(torch.from_numpy(x), train=True, draws=draws).numpy(),
+        np.asarray(jr.apply(jp, jnp.asarray(x), train=True, rng=key)), **TOL)
+    # the port's own draws: within the bounds, reproducible from the generator
+    d1 = rope.draw(torch.Generator().manual_seed(3))
+    assert d1 == rope.draw(torch.Generator().manual_seed(3))
+    assert all(abs(s) <= 0.3 for s in d1.shift)
+    assert all(1 / 1.5 <= j <= 1.5 for j in d1.jitter) and 0.5 <= d1.rescale <= 2.0
+    # not training, or training with neither draws nor a generator: no augmentation
+    plain = rope.tables(h, w)
+    for a, b in zip(rope.tables(h, w, draws=draws), plain):
+        torch.testing.assert_close(a, b)
+    for a, b in zip(rope.tables(h, w, train=True), plain):
+        torch.testing.assert_close(a, b)
