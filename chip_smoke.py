@@ -36,9 +36,25 @@ Builds the CUDA kernels from ``naf_torch/kernels/csrc`` with nvcc (into
    launches), and one f32 step at batch 1 held against the same step on the
    CPU (loss rtol 1e-3, gradient cosine > 0.999); ms per step, a step's peak
    memory and a torch.profiler split of its device time;
-6. the time of each kernel at the production shape (K2 also at 2048^2, K3
-   and K4 at both shapes of phase 4) beside its plain version's, a library
-   yardstick and the card's bound.
+6. K5 (FeatUp's spatially varying conv) against its plain version at
+   FeatUp's last stage (1, 454, 454, 384) k 7, at JBU's (1, 458, 458, 3) k 11
+   and at a ragged (2, 41, 57, 100) k 5: f32 atol = rtol = 2e-4, bf16 cosine
+   > 0.9995 against the f32 plain version, and one gradient of
+   ``adaptive_conv`` against autograd of the plain version (2e-3);
+7. the baselines path: ``ModelWrapper`` with seeded random f32 weights serves
+   FeatUp, JBU, AnyUp, JAFAR, JBF, Bilinear, Nearest and NAF at the reference
+   sweep's defaults (448^2 image, 28^2 x 384 features, 448^2 output, ratio
+   16), with launch counts per forward (FeatUp 4 K5, JBU 1 K5, AnyUp 1 K3 and
+   0 K4, NAF 8 K1 and 1 K2, the others none); each output held against an f32
+   copy of the model on the CPU (cosine > 0.999; AnyUp and JAFAR at a 224^2
+   output) and AnyUp's against its own plain attention on the card; ms per
+   forward over 10 forwards, the forward's own peak memory, and a
+   torch.profiler split of FeatUp's and JBU's device time into K5 and the
+   rest;
+8. the time of each kernel at the production shape (K2 also at 2048^2, K3
+   and K4 at both shapes of phase 4, K3 also at AnyUp's k 7 shape, K5 at
+   FeatUp's and JBU's) beside its plain version's, a library yardstick and
+   the card's bound.
 
 Prints a JSON line of per-kernel numbers, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``. Exits non-zero on any failure,
@@ -49,6 +65,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -58,6 +75,8 @@ import torch
 
 # H100 SXM / H200 SXM data-sheet peaks (dense): bytes/s and bf16 FLOP/s.
 _PEAKS = {"H200": (4.8e12, 989e12), "H100": (3.35e12, 989e12)}
+# f32 FLOP/s on the CUDA cores (no tensor cores), the same on both parts.
+F32_FLOPS = 67e12
 
 
 def _card_line() -> str:
@@ -191,8 +210,7 @@ def phase_main(dev, card):
               for im, lr, out in reqs]
     outs = []
     torch.cuda.synchronize()
-    gn_silu_conv_fused.launches = 0
-    naf_upsample_attention.launches = 0
+    _zero_counts()
     for image, feats, out in inputs:
         k1, k2 = gn_silu_conv_fused.launches, naf_upsample_attention.launches
         o = ups(image, feats, out)
@@ -243,7 +261,7 @@ def phase_main(dev, card):
         stats[label] = (ms, peak)
         print(f"forward 448^2 -> {label}^2 bf16: {ms:.3f} ms, peak {peak:.1f} MiB ({card})",
               flush=True)
-        _profile(lambda: ups(image, feats, out), label)
+        _profile(lambda: ups(image, feats, out), f"448^2 -> {label}^2")
     return launches, stats
 
 
@@ -268,7 +286,7 @@ def _profile(fn, label, reps=3):
             rows[e.key] = e.self_device_time_total / reps / 1e3
     busy = sum(rows.values())
     top = sorted(rows.items(), key=lambda kv: -kv[1])[:8]
-    print(f"profile 448^2 -> {label}^2: device busy {busy:.3f} of {wall:.3f} ms wall "
+    print(f"profile {label}: device busy {busy:.3f} of {wall:.3f} ms wall "
           f"({100 * busy / wall:.1f}%); top: "
           + "; ".join(f"{k[:60]} {v:.3f} ms" for k, v in top), flush=True)
 
@@ -292,11 +310,16 @@ def phase_grads(dev):
         1, 2, 128, generator=gen, device=dev) * 1e-2
     ins = (x, sc, sh, w, b)
     grads = []
+    # K1's backward recomputes its plain version, whose convolution backward
+    # cuDNN may sum in another order on each call (one element 3.4e-3 apart
+    # in one run): deterministic algorithms make the two comparable
+    torch.backends.cudnn.deterministic = True
     for fn in (gn_silu_conv_fused, gn_silu_conv_ref):
         y, ps = fn(*ins)
         grads.append(torch.autograd.grad((y * cy).sum() + (ps * cp).sum(), ins))
-    for a, r in zip(*grads):
-        _check_close("K1 gradient", a, r, 2e-3)
+    torch.backends.cudnn.deterministic = False
+    for a, r, n in zip(*grads, ("x", "scale", "shift", "weight", "bias")):
+        _check_close(f"K1 gradient d{n}", a, r, 2e-3)
 
     from naf_torch.nn.rope import RoPE
 
@@ -384,20 +407,31 @@ def _images(batch, size, seed):
 
 
 def _counts():
+    """(K1, K3, K4) launch counts: the training path's kernels."""
+    c = _all_counts()
+    return c["k1"], c["k3"], c["k4"]
+
+
+def _all_counts() -> dict:
+    from naf_torch.kernels.adaptive_conv_fused import adaptive_conv_fused
     from naf_torch.kernels.encoder_fused import gn_silu_conv_fused
     from naf_torch.kernels.na2d_fused import cross_scale_na2d_fused
+    from naf_torch.kernels.na2d_fused_q import naf_upsample_attention
 
-    return (gn_silu_conv_fused.launches, cross_scale_na2d_fused.launches,
-            cross_scale_na2d_fused.bwd_launches)
+    return {"k1": gn_silu_conv_fused.launches, "k2": naf_upsample_attention.launches,
+            "k3": cross_scale_na2d_fused.launches, "k4": cross_scale_na2d_fused.bwd_launches,
+            "k5": adaptive_conv_fused.launches}
 
 
 def _zero_counts():
+    from naf_torch.kernels.adaptive_conv_fused import adaptive_conv_fused
     from naf_torch.kernels.encoder_fused import gn_silu_conv_fused
     from naf_torch.kernels.na2d_fused import cross_scale_na2d_fused
     from naf_torch.kernels.na2d_fused_q import naf_upsample_attention
 
     gn_silu_conv_fused.launches = naf_upsample_attention.launches = 0
     cross_scale_na2d_fused.launches = cross_scale_na2d_fused.bwd_launches = 0
+    adaptive_conv_fused.launches = 0
 
 
 def _step_inputs(backbone, img, dev):
@@ -616,6 +650,215 @@ def _masked_sdpa_inputs(q, k, v, ks):
 
 
 
+# (B, H, W, C, k): FeatUp's last stage, JBU at 448^2, and a ragged shape
+K5_SHAPES = {"featup": (1, 448, 448, 384, 7), "jbu": (1, 448, 448, 3, 11),
+             "ragged": (2, 37, 53, 100, 5)}
+
+
+def _k5_inputs(dev, gen, shape):
+    """An f32 padded source and softmax-like per-pixel weights (positive,
+    each window summing to 1, as FeatUp's and JBU's are)."""
+    b, h, w, c, k = shape
+    src = torch.randn(b, h + k - 1, w + k - 1, c, generator=gen, device=dev)
+    ker = torch.rand(b, h, w, k, k, generator=gen, device=dev)
+    return src, ker / ker.sum(dim=(-2, -1), keepdim=True)
+
+
+def phase_k5(dev):
+    from naf_torch.kernels.adaptive_conv_fused import (
+        adaptive_conv_fused,
+        adaptive_conv_fused_ref,
+    )
+    from naf_torch.ops.adaptive_conv import adaptive_conv
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    errs = {}
+    for label, shape in K5_SHAPES.items():
+        src, ker = _k5_inputs(dev, gen, shape)
+        want = adaptive_conv_fused_ref(src, ker)
+        got = adaptive_conv_fused(src, ker)
+        torch.cuda.synchronize()
+        e = _check_close(f"K5 f32 {label}", got, want, 2e-4)
+        gb = adaptive_conv_fused(src.bfloat16(), ker.bfloat16())
+        torch.cuda.synchronize()
+        if gb.dtype != torch.bfloat16:
+            raise AssertionError(f"K5 bf16 output came back as {gb.dtype}")
+        cb = _check_cos(f"K5 bf16 {label}", gb.float(), want, 0.9995)
+        errs[label] = e
+        print(f"K5 {label} {shape}: f32 max_abs_err {e:.3e}; bf16 cos {cb:.6f}", flush=True)
+        del src, ker, want, got, gb
+
+    # one gradient: K5 forward + plain backward against autograd of the plain version
+    src, ker = (t.requires_grad_() for t in _k5_inputs(dev, gen, (2, 24, 40, 64, 7)))
+    cot = torch.randn(2, 24, 40, 64, generator=gen, device=dev)
+    grads = [torch.autograd.grad(fn(src, ker), (src, ker), cot)
+             for fn in (adaptive_conv, adaptive_conv_fused_ref)]
+    for a, r, n in zip(*grads, ("source", "kernel")):
+        _check_close(f"K5 gradient d{n}", a, r, 2e-3)
+    print("gradient of adaptive_conv (K5 forward) matches autograd of its plain version "
+          "(2e-3)", flush=True)
+    return max(errs.values())
+
+
+BASELINES = ("FeatUp", "JBU", "AnyUp", "JAFAR", "JBF", "Bilinear", "Nearest", "NAF")
+# launches per forward on the baselines path; every other count stays
+BASELINE_LAUNCHES = {"FeatUp": {"k5": 4}, "JBU": {"k5": 1}, "AnyUp": {"k3": 1},
+                     "NAF": {"k1": 8, "k2": 1}}
+RESTORERS = ("JBU", "JBF")  # forward(image_norm, image, output_size)
+
+
+def phase_baselines(dev, card):
+    from naf_torch.backbones.wrapper import IMAGENET_DEFAULT_MEAN, IMAGENET_DEFAULT_STD
+    from naf_torch.models.registry import ModelWrapper
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    image = torch.rand(1, 3, 448, 448, generator=gen, device=dev)
+    mean = torch.tensor(IMAGENET_DEFAULT_MEAN, device=dev)[:, None, None]
+    std = torch.tensor(IMAGENET_DEFAULT_STD, device=dev)[:, None, None]
+    image_norm = (image - mean) / std
+    feats = torch.randn(1, 384, 28, 28, generator=gen, device=dev)
+    out = (448, 448)
+
+    def args(name):
+        return (image_norm, image) if name in RESTORERS else (image_norm, feats)
+
+    wrappers = {name: ModelWrapper(name, seed=0, device=dev) for name in BASELINES}
+    outs = {}
+    torch.cuda.synchronize()
+    _zero_counts()
+    for name in BASELINES:
+        before = _all_counts()
+        o = wrappers[name](*args(name), out)
+        after = _all_counts()
+        delta = {k: after[k] - before[k] for k in after}
+        want = {k: BASELINE_LAUNCHES.get(name, {}).get(k, 0) for k in after}
+        if delta != want:
+            raise AssertionError(f"{name}: launches per forward {delta}, want {want}")
+        c = 3 if name in RESTORERS else 384
+        if o.shape != (1, c, *out) or o.dtype != torch.float32 or not bool(o.isfinite().all()):
+            raise AssertionError(f"{name}: bad output {tuple(o.shape)} {o.dtype}")
+        outs[name] = o
+    torch.cuda.synchronize()
+    launches = _all_counts()
+    print(f"baselines path: {', '.join(BASELINES)} served 448^2 <- 28^2 x 384 in f32; "
+          f"launches {launches}", flush=True)
+
+    # AnyUp at 448^2 against its own plain attention on the card
+    wrappers["AnyUp"].model.attention.impl = "xla"
+    c_xla = _check_cos("AnyUp K3 vs plain attention at 448^2",
+                       outs["AnyUp"], wrappers["AnyUp"](*args("AnyUp"), out), 0.999)
+    wrappers["AnyUp"].model.attention.impl = "auto"
+
+    stats = {}
+    for name in BASELINES:
+        size = (224, 224) if name in ("AnyUp", "JAFAR") else out
+        got = outs.pop(name) if size == out else wrappers[name](*args(name), size)
+        want = ModelWrapper(name, seed=0, device="cpu")(*(a.cpu() for a in args(name)), size)
+        cos = _check_cos(f"{name} card vs CPU f32 at {size[0]}^2", got.cpu(), want, 0.999)
+        del got, want
+        fwd = lambda: wrappers[name](*args(name), out)
+        ms = _time_ms(fwd, iters=10)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fwd()
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+        stats[name] = dict(ms=ms, peak_mib=peak, cos_cpu=cos)
+        print(f"{name} f32 448^2: {ms:.3f} ms per forward, peak {peak:.1f} MiB; card vs CPU "
+              f"cos {cos:.6f} at {size[0]}^2 ({card})", flush=True)
+        torch.cuda.empty_cache()
+    print(f"AnyUp K3 vs plain attention on the card at 448^2: cos {c_xla:.6f}", flush=True)
+    splits = {}
+    for name in ("FeatUp", "JBU"):
+        split = _split_k5(lambda: wrappers[name](*args(name), out))
+        print(f"{name} profile per forward: K5 {split['k5']:.3f} ms ({split['k5_launches']:.0f} "
+              f"launches), other kernels {split['other']:.3f} ms, device busy "
+              f"{split['k5'] + split['other']:.3f} of {split['wall']:.3f} ms wall; top: "
+              + "; ".join(f"{k[:50]} {v:.3f} ms" for k, v in split.pop("top")), flush=True)
+        splits[name] = split
+    for name in ("AnyUp", "JAFAR"):
+        _profile(lambda: wrappers[name](*args(name), out), f"{name} f32 448^2")
+    stats["AnyUp"]["cos_xla_448"] = c_xla
+    return launches, stats, splits
+
+
+def _split_k5(fn, reps=3):
+    """torch.profiler device time per forward of a model that runs K5: K5's
+    kernel against every other kernel (the glue)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / reps * 1e3
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+    if not kernels:
+        raise AssertionError("torch.profiler recorded no device time")
+    k5 = [e for e in kernels if "adaptive_conv_kernel" in e.key]
+    if not k5:
+        raise AssertionError("the profile shows no K5 kernel")
+    t_k5 = sum(e.self_device_time_total for e in k5) / reps / 1e3
+    total = sum(e.self_device_time_total for e in kernels) / reps / 1e3
+    return dict(k5=t_k5, other=total - t_k5, wall=wall,
+                k5_launches=sum(e.count for e in k5) / reps,
+                top=sorted(((e.key, e.self_device_time_total / reps / 1e3) for e in kernels),
+                           key=lambda kv: -kv[1])[:5])
+
+
+def _time_k5(dev, card, bw_peak):
+    """K5 at FeatUp's last stage and at JBU's shape, f32 (the sweep's dtype)."""
+    from naf_torch.kernels.adaptive_conv_fused import (
+        adaptive_conv_fused,
+        adaptive_conv_fused_ref,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(8)
+    res = {}
+    for label in ("featup", "jbu"):
+        b, h, w, c, k = K5_SHAPES[label]
+        src, ker = _k5_inputs(dev, gen, K5_SHAPES[label])
+        ms = _time_ms(lambda: adaptive_conv_fused(src, ker), iters=20)
+        plain = _time_ms(lambda: adaptive_conv_fused_ref(src, ker), iters=3)
+        nbytes = 4 * (src.numel() + ker.numel() + b * h * w * c)
+        flops = 2 * b * h * w * c * k * k
+        bound = max(nbytes / bw_peak, flops / F32_FLOPS) * 1e3
+        by = "bytes" if nbytes / bw_peak > flops / F32_FLOPS else "operations"
+        res[label] = dict(ms=ms, plain_ms=plain, library_ms=None, bound_ms=bound, bound_by=by)
+        print(f"K5 f32 {label} src {tuple(src.shape)} k {k}: {ms:.4f} ms; plain {plain:.4f} ms; "
+              f"bound {bound:.4f} ms ({by}, {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP) "
+              f"({card})", flush=True)
+        del src, ker
+    return res
+
+
+def _time_k3_anyup(dev, card, bw_peak):
+    """K3 at AnyUp's shape: q (1, 448, 448, 8, 32) <- k (1, 28, 28, 8, 32),
+    v (1, 28, 28, 8, 48), k 7, f32; checked against its plain version."""
+    from naf_torch.kernels.na2d_fused import _launch_fwd, cross_scale_na2d_fused_ref
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+    q, k, v, _ = _k34_inputs(dev, gen, (1, 448, 28, 8, 32, 48))
+    sc = 32 ** -0.5
+    err = _check_close("K3 f32 AnyUp shape", _launch_fwd(q, k, v, 7, sc),
+                       cross_scale_na2d_fused_ref(q, k, v, 7, sc), 2e-4)
+    ms = _time_ms(lambda: _launch_fwd(q, k, v, 7, sc), iters=10)
+    plain = _time_ms(lambda: cross_scale_na2d_fused_ref(q, k, v, 7, sc), iters=1)
+    nbytes = 4 * (q.numel() + k.numel() + v.numel() + 448 * 448 * 8 * 48)
+    flops = 2 * 448 * 448 * 8 * 49 * (32 + 48)
+    bound = max(nbytes / bw_peak, flops / F32_FLOPS) * 1e3
+    by = "bytes" if nbytes / bw_peak > flops / F32_FLOPS else "operations"
+    print(f"K3 f32 AnyUp (1,448,448,8,32) <- 28^2, dv 48, k 7: {ms:.4f} ms; plain {plain:.4f} ms; "
+          f"bound {bound:.4f} ms ({by}); f32 max_abs_err {err:.3e} ({card})", flush=True)
+    return dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by, max_abs_err=err)
+
+
 def phase_timing(dev, card):
     import torch.nn.functional as F
 
@@ -721,6 +964,8 @@ def phase_timing(dev, card):
               f"SDPA backward {lib4:.4f} ms; bound {b4:.4f} ms ({by4}) ({card})", flush=True)
         del q, k, v, g, sq, sk, sv, mask, lq, lk, lv, lo, lg, lib_out, ref
         torch.cuda.empty_cache()
+    res["k3_anyup"] = _time_k3_anyup(dev, card, bw_peak)
+    res.update({f"k5_{k}": v for k, v in _time_k5(dev, card, bw_peak).items()})
     return res
 
 
@@ -742,6 +987,12 @@ def main() -> int:
     built = _build.build()
     print(f"nvcc build {time.perf_counter() - t0:.1f} s: "
           + ", ".join(f"{k} {v:.1f} s" for k, v in built.items()), flush=True)
+    for name in built:
+        log = (_build.BUILD_DIR / f"{name}.ptxas.log").read_text()
+        regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
+        spills = [int(r) for r in re.findall(r"(\d+) bytes spill stores", log)]
+        print(f"ptxas {name}: {len(regs)} kernels, {min(regs)}-{max(regs)} registers, "
+              f"spill stores up to {max(spills, default=0)} bytes", flush=True)
 
     k1_err = phase_k1(dev)
     k2_err = phase_k2(dev)
@@ -750,6 +1001,8 @@ def main() -> int:
     k34_err = phase_k34(dev)
     with tempfile.TemporaryDirectory(dir=os.path.dirname(os.path.abspath(__file__))) as work:
         train_launches, train = phase_train(dev, card, work)
+    k5_err = phase_k5(dev)
+    base_launches, baselines, k5_splits = phase_baselines(dev, card)
     timing = phase_timing(dev, card)
 
     k1, k1b = timing["k1_k3"], timing["k1_k1"]
@@ -777,14 +1030,24 @@ def main() -> int:
              replaces="naf_tpu/kernels/na2d_fused.py:760", launches=train_launches["k4"],
              max_abs_err=k34_err["k4"], **timing["k4_train"],
              **{f"{k}_448": v for k, v in timing["k4_448"].items() if k != "bound_by"}),
+        # K5: launches from the baselines path (FeatUp 4, JBU 1), times at
+        # FeatUp's last stage and at JBU's shape
+        dict(name="adaptive_conv_fused", route="cuda",
+             source="naf_torch/kernels/csrc/adaptive_conv.cu",
+             replaces="naf_tpu/kernels/adaptive_conv_fused.py:76", launches=base_launches["k5"],
+             max_abs_err=k5_err, **timing["k5_featup"],
+             **{f"{k}_jbu": v for k, v in timing["k5_jbu"].items() if k != "library_ms"}),
     ]
+    kernels[2].update({"launches_anyup": base_launches["k3"],
+                       **{f"{k}_anyup": v for k, v in timing["k3_anyup"].items()}})
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
              "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{**{k: kd[k] for k in order}, **kd} for kd in kernels]
     train_keys = ("step_ms", "peak_mib", "split", "losses", "cpu_loss", "card_loss", "grad_cos")
     print(json.dumps({"kernels": kernels, "forward_ms": {k: v[0] for k, v in stats.items()},
                       "peak_mib": {k: v[1] for k, v in stats.items()},
-                      "train": {k: train[k] for k in train_keys}, "card": card}))
+                      "train": {k: train[k] for k in train_keys},
+                      "baselines": baselines, "k5_splits": k5_splits, "card": card}))
     print(_card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

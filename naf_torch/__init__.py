@@ -3,11 +3,14 @@ with hand-written CUDA kernels for NVIDIA Hopper (H100).
 
 The port of ``naf_tpu`` (JAX/Pallas), module by module under the same names:
 
-- ``naf_torch.ops``      resize, pooling, window math, the attention oracle
+- ``naf_torch.ops``      resize, pooling, window math, the attention oracle,
+                         the spatially varying conv
 - ``naf_torch.nn``       conv encoder, RoPE, cross-scale attention
 - ``naf_torch.kernels``  the CUDA kernels (``csrc/``), built with nvcc at
                          first use, each beside its plain PyTorch version
-- ``naf_torch.models``   NAF
+- ``naf_torch.models``   NAF, and the baselines (FeatUp, JBU, JBF, AnyUp,
+                         JAFAR, Bilinear, Nearest) behind
+                         ``models.registry.ModelWrapper``
 - ``naf_torch.api``      ``naf``, ``load_naf_params``, ``NAFUpsampler``
 - ``naf_torch.backbones`` the DINOv2 ViT and its wrapper (distillation targets)
 - ``naf_torch.train``    self-distillation training (``python -m naf_torch.train``)

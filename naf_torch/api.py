@@ -37,11 +37,12 @@ def _device(device) -> torch.device:
 
 @torch.no_grad()
 def _init_weights(model: nn.Module, seed: int) -> None:
-    """torch's default Conv2d init (uniform +-1/sqrt(fan_in) for weight and
-    bias), drawn from a generator seeded with ``seed``; GroupNorm keeps 1 / 0."""
+    """torch's default Conv2d / Linear init (uniform +-1/sqrt(fan_in) for
+    weight and bias), drawn on the CPU from a generator seeded with ``seed``;
+    norms and other parameters keep their constructors' values."""
     gen = torch.Generator().manual_seed(seed)
     for m in model.modules():
-        if isinstance(m, nn.Conv2d):
+        if isinstance(m, (nn.Conv2d, nn.Linear)):
             bound = 1.0 / math.sqrt(m.weight[0].numel())
             for p in (m.weight, m.bias):
                 if p is not None:

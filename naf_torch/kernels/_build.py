@@ -21,7 +21,7 @@ __all__ = ["build", "load", "SOURCES"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "naf_torch"
-SOURCES = ("encoder_fused", "na2d_fused_q", "na2d_fused")
+SOURCES = ("encoder_fused", "na2d_fused_q", "na2d_fused", "adaptive_conv")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-lineinfo",

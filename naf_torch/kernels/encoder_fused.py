@@ -206,6 +206,8 @@ def _stack_params(encoder):
 
 
 def _stack_spec(encoder):
+    if encoder.residual or encoder[0].bias is None:
+        raise ValueError("K1 runs NAF's encoder stacks: no residual, convs with biases")
     return (encoder.num_layers, encoder.num_groups, encoder.eps)
 
 

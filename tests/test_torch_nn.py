@@ -36,6 +36,33 @@ def test_encoder_matches_flax(ks):
     np.testing.assert_allclose(got, want, **TOL)
 
 
+def test_residual_encoder_without_bias_matches_flax():
+    """JAFAR's stacks: residual blocks, convs without biases."""
+    x = _rand(2, 1, 10, 12, 3)
+    jenc = JEncoder(32, kernel_size=1, ks_res=1, num_layers=2, use_bias=False, residual=True)
+    params = jenc.init(jax.random.PRNGKey(4), jnp.asarray(x))["params"]
+    want = np.asarray(jenc.apply({"params": params}, jnp.asarray(x)))
+    enc = Encoder(32, kernel_size=1, ks_res=1, num_layers=2, bias=False, residual=True)
+    enc.load_state_dict(encoder_state_dict_from_jax(params, 2))
+    np.testing.assert_allclose(enc(torch.from_numpy(x)).detach().numpy(), want, **TOL)
+
+
+def test_enc_block_conv_shortcut_matches_flax():
+    from naf_torch.nn import EncBlock
+    from naf_tpu.nn.conv import EncBlock as JEncBlock
+
+    x = _rand(3, 1, 9, 11, 16)
+    jblk = JEncBlock(16, 16, kernel_size=3, use_conv_shortcut=True, residual=True)
+    params = jblk.init(jax.random.PRNGKey(5), jnp.asarray(x))["params"]
+    rng = np.random.RandomState(6)
+    params = jax.tree.map(lambda a: a + 0.1 * rng.randn(*a.shape).astype(np.float32), params)
+    want = np.asarray(jblk.apply({"params": params}, jnp.asarray(x)))
+    blk = EncBlock(16, 3, residual=True, conv_shortcut=True)
+    state = encoder_state_dict_from_jax({"stem": params["conv1"], "block0": params}, 1)
+    blk.load_state_dict({k[2:]: v for k, v in state.items() if k.startswith("1.")})
+    np.testing.assert_allclose(blk(torch.from_numpy(x)).detach().numpy(), want, **TOL)
+
+
 def _ropes(c=64, heads=2):
     jr = JRoPE(embed_dim=c, num_heads=heads)
     return jr, jr.init(jax.random.PRNGKey(0), jnp.zeros((1, 4, 4, c))), RoPE(c, heads)

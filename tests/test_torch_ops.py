@@ -12,7 +12,7 @@ import torch.nn.functional as F
 
 from naf_torch.ops.na2d import cross_scale_na2d, na2d
 from naf_torch.ops.pool import adaptive_avg_pool2d
-from naf_torch.ops.resize import resize_bilinear
+from naf_torch.ops.resize import resize_bicubic, resize_bilinear, resize_nearest_exact
 from naf_torch.ops import window as t_window
 from naf_tpu.ops.na2d import cross_scale_na2d as j_cross_scale_na2d
 from naf_tpu.ops.na2d import na2d as j_na2d
@@ -74,6 +74,36 @@ def test_resize_bilinear_matches_jax_and_torch(src, dst):
     ref = F.interpolate(torch.from_numpy(x).permute(0, 3, 1, 2), size=dst, mode="bilinear",
                         align_corners=False)
     np.testing.assert_allclose(got, ref.permute(0, 2, 3, 1).numpy(), **TOL)
+
+
+@pytest.mark.parametrize("src,dst", [
+    ((9, 11), (27, 33)),    # integer upsample
+    ((28, 28), (56, 56)),   # FeatUp's first stage
+    ((9, 11), (18, 23)),    # ragged upsample
+    ((20, 30), (7, 11)),    # downsample
+    ((6, 6), (6, 6)),       # identity
+])
+def test_resize_nearest_exact_and_bicubic_match_jax(src, dst):
+    x = _rand(11, 2, *src, 5)
+    got_n = resize_nearest_exact(torch.from_numpy(x), dst).numpy()
+    np.testing.assert_array_equal(
+        got_n, np.asarray(j_resize.resize_nearest_exact(jnp.asarray(x), dst)))
+    got_c = resize_bicubic(torch.from_numpy(x), dst).numpy()
+    np.testing.assert_allclose(got_c, np.asarray(j_resize.resize_bicubic(jnp.asarray(x), dst)),
+                               atol=1e-5, rtol=1e-5)
+
+
+def test_resize_keeps_leading_axes_and_int_dtypes():
+    x = _rand(12, 2, 3, 7, 9, 4)
+    got = resize_bicubic(torch.from_numpy(x), (14, 5))
+    np.testing.assert_allclose(
+        got.numpy(), np.asarray(j_resize.resize_bicubic(jnp.asarray(x), (14, 5))),
+        atol=1e-5, rtol=1e-5)
+    xi = (np.abs(x) * 50).astype(np.int32)
+    gi = resize_bicubic(torch.from_numpy(xi), (14, 5))
+    assert gi.dtype == torch.int32
+    np.testing.assert_array_equal(
+        gi.numpy(), np.asarray(j_resize.resize_bicubic(jnp.asarray(xi), (14, 5))))
 
 
 @pytest.mark.parametrize("hq,wq,hk,wk,k", [
