@@ -53,8 +53,32 @@ Builds the CUDA kernels from ``naf_torch/kernels/csrc`` with nvcc (into
    rest;
 8. the time of each kernel at the production shape (K2 also at 2048^2, K3
    and K4 at both shapes of phase 4, K3 also at AnyUp's k 7 shape, K5 at
-   FeatUp's and JBU's) beside its plain version's, a library yardstick and
-   the card's bound.
+   FeatUp's and JBU's, K6 beside the K1 1x1 + 3x3 pair on the same halves)
+   beside its plain version's, a library yardstick and the card's bound.
+
+Phases 9-12 run after phase 4:
+
+9. K6 (both encoder stacks' layer over the packed [pix|sem] buffer) against
+   its plain version at the production layer (1, 448, 448, 256), C = 128 per
+   stack, and once at batch 2: f32 atol = rtol = 2e-4, bf16 cosine > 0.9995
+   against the f32 plain version;
+10. the banded variants against their plain versions at one interior band:
+   K2 at 448^2 -> 2048^2 <- 128^2 (a slab, and ``out_acc`` + ``enc_banded``
+   leaving every other row untouched) and K3 at 448^2 <- 28^2, same bars,
+   and their bf16 times beside the plain versions';
+11. the dual route: ``DUAL_ROUTE`` on, ``NAFUpsampler`` (bf16, production
+   config) serves 3 x 448^2, one 448^2 -> 2048^2 and one 2048^2 + 128^2 x 384
+   -> 2048^2 request with 4 K6, 0 K1 and 1 K2 launches per forward, each at
+   cosine > 0.999 to the default route; ms per forward of both routes, in
+   turns, and each forward's own peak memory;
+12. the banded paths, each against the unbanded forward on the card (cosine
+   > 0.999) with its launch counts, time and own peak memory beside the
+   unbanded forward's: ``NAF(band_rows=256)`` at 448^2 + 128^2 x 384 ->
+   2048^2 (8 K1, 8 K2); ``naf_streamed`` at 512^2 + 256^2 x 384 -> 4096^2,
+   ``band_rows`` 512 (8 K1, 8 K2); ``naf_streamed`` at 2048^2 + 128^2 x 384 ->
+   2048^2, ``band_rows`` 256, whose banded encoder turns on by itself (224
+   K1: per stack 48 in the stats sweep, 32 in the keys sweep, 32 in the
+   attention sweep; 8 K2), with a lower peak than the unbanded forward.
 
 Prints a JSON line of per-kernel numbers, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``. Exits non-zero on any failure,
@@ -93,9 +117,17 @@ def _peaks(name: str):
     return _PEAKS["H100"]
 
 
-def _cos(a, b) -> float:
-    a, b = a.detach().double().flatten(), b.detach().double().flatten()
-    return float((a @ b) / (a.norm() * b.norm()))
+def _cos(a, b, chunk: int = 1 << 24) -> float:
+    """Cosine of two tensors in float64, a chunk of elements at a time (a
+    4096^2 x 384 output would take 52 GB in float64 at once)."""
+    a, b = a.detach().flatten(), b.detach().flatten()
+    dot = na = nb = 0.0
+    for i in range(0, a.numel(), chunk):
+        x, y = a[i : i + chunk].double(), b[i : i + chunk].double()
+        dot += float(x @ y)
+        na += float(x @ x)
+        nb += float(y @ y)
+    return dot / (na * nb) ** 0.5
 
 
 def _time_ms(fn, iters: int = 10) -> float:
@@ -110,14 +142,22 @@ def _time_ms(fn, iters: int = 10) -> float:
     return t0.elapsed_time(t1) / iters
 
 
-def _check_close(name, got, want, tol):
-    got, want = got.detach(), want.detach()
-    err = (got.double() - want.double()).abs()
-    bad = err > tol + tol * want.double().abs()
-    if bool(bad.any()):
-        raise AssertionError(f"{name}: {int(bad.sum())} elements outside atol=rtol={tol}, "
-                             f"max abs err {float(err.max()):.3e}")
-    return float(err.max())
+def _check_close(name, got, want, tol, chunk: int = 1 << 26):
+    """Max abs error, raising unless every element is within atol = rtol =
+    tol; in float64, a chunk of elements at a time."""
+    if got.shape != want.shape:
+        raise AssertionError(f"{name}: shape {tuple(got.shape)}, want {tuple(want.shape)}")
+    got, want = got.detach().flatten(), want.detach().flatten()
+    n_bad, worst = 0, 0.0
+    for i in range(0, got.numel(), chunk):
+        w = want[i : i + chunk].double()
+        err = (got[i : i + chunk].double() - w).abs()
+        n_bad += int((err > tol + tol * w.abs()).sum())
+        worst = max(worst, float(err.max()))
+    if n_bad:
+        raise AssertionError(f"{name}: {n_bad} elements outside atol=rtol={tol}, "
+                             f"max abs err {worst:.3e}")
+    return worst
 
 
 def _check_cos(name, got, want, bar):
@@ -132,8 +172,10 @@ def phase_k1(dev):
 
     gen = torch.Generator(device=dev).manual_seed(0)
     errs = {}
-    for b, k in ((1, 1), (1, 3), (2, 3)):
-        h = w = 448
+    # the main path's 448^2 layers, and one 3x3 layer on the 2048-wide rows
+    # of a 2048^2 guide (the dual route's and the banded encoder's width)
+    for b, k, h in ((1, 1, 448), (1, 3, 448), (2, 3, 448), (1, 3, 2048)):
+        w = h
         c = f = 128
         x = torch.randn(b, h, w, c, generator=gen, device=dev)
         scale = torch.rand(b, c, generator=gen, device=dev) * 0.5 + 0.75
@@ -150,10 +192,12 @@ def phase_k1(dev):
         torch.cuda.synchronize()
         cy = _check_cos(f"K1 bf16 y b={b} k={k}", yb.float(), y_ref, 0.9995)
         cp = _check_cos(f"K1 bf16 psums b={b} k={k}", psb, ps_ref, 0.9995)
-        errs[(b, k)] = e
-        print(f"K1 b={b} k={k}: f32 max_abs_err {e:.3e}; bf16 cos y {cy:.6f} psums {cp:.6f}",
-              flush=True)
-    return errs[(1, 3)]
+        errs[(b, k, h)] = e
+        print(f"K1 b={b} k={k} {h}^2: f32 max_abs_err {e:.3e}; bf16 cos y {cy:.6f} psums "
+              f"{cp:.6f}", flush=True)
+        del x, y, ps, yb, psb, y_ref, ps_ref
+    torch.cuda.empty_cache()
+    return errs[(1, 3, 448)]
 
 
 def _k2_inputs(dev, gen, hi, out=448, hk=28, c=256, cv=384, heads=4):
@@ -414,24 +458,24 @@ def _counts():
 
 def _all_counts() -> dict:
     from naf_torch.kernels.adaptive_conv_fused import adaptive_conv_fused
-    from naf_torch.kernels.encoder_fused import gn_silu_conv_fused
+    from naf_torch.kernels.encoder_fused import gn_silu_conv_dual_fused, gn_silu_conv_fused
     from naf_torch.kernels.na2d_fused import cross_scale_na2d_fused
     from naf_torch.kernels.na2d_fused_q import naf_upsample_attention
 
     return {"k1": gn_silu_conv_fused.launches, "k2": naf_upsample_attention.launches,
             "k3": cross_scale_na2d_fused.launches, "k4": cross_scale_na2d_fused.bwd_launches,
-            "k5": adaptive_conv_fused.launches}
+            "k5": adaptive_conv_fused.launches, "k6": gn_silu_conv_dual_fused.launches}
 
 
 def _zero_counts():
     from naf_torch.kernels.adaptive_conv_fused import adaptive_conv_fused
-    from naf_torch.kernels.encoder_fused import gn_silu_conv_fused
+    from naf_torch.kernels.encoder_fused import gn_silu_conv_dual_fused, gn_silu_conv_fused
     from naf_torch.kernels.na2d_fused import cross_scale_na2d_fused
     from naf_torch.kernels.na2d_fused_q import naf_upsample_attention
 
     gn_silu_conv_fused.launches = naf_upsample_attention.launches = 0
     cross_scale_na2d_fused.launches = cross_scale_na2d_fused.bwd_launches = 0
-    adaptive_conv_fused.launches = 0
+    adaptive_conv_fused.launches = gn_silu_conv_dual_fused.launches = 0
 
 
 def _step_inputs(backbone, img, dev):
@@ -859,6 +903,49 @@ def _time_k3_anyup(dev, card, bw_peak):
     return dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by, max_abs_err=err)
 
 
+def _time_k6(dev, card, bw_peak, fl_peak):
+    """K6 at the production layer (1, 448, 448, 256) packed, bf16, beside its
+    plain version, the K1 pair (1x1 + 3x3) on the same halves, and cuDNN's
+    1x1 + 3x3 convs on the activated halves; and K6 in f32."""
+    import torch.nn.functional as F
+
+    from naf_torch.kernels.encoder_fused import (
+        gn_silu_conv_dual_fused,
+        gn_silu_conv_dual_ref,
+        gn_silu_conv_fused,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(14)
+    x, sc, sh, wp, ws, bp, bs = _k6_inputs(dev, gen, 1)
+    b, h, w, c2 = x.shape
+    c = c2 // 2
+    xb, wpb, wsb = x.bfloat16(), wp.bfloat16(), ws.bfloat16()
+    ms = _time_ms(lambda: gn_silu_conv_dual_fused(xb, sc, sh, wpb, wsb, bp, bs))
+    ms_f32 = _time_ms(lambda: gn_silu_conv_dual_fused(x, sc, sh, wp, ws, bp, bs))
+    plain = _time_ms(lambda: gn_silu_conv_dual_ref(xb, sc, sh, wpb, wsb, bp, bs), iters=3)
+    xp, xs = xb[..., :c].contiguous(), xb[..., c:].contiguous()
+    pair = _time_ms(lambda: (gn_silu_conv_fused(xp, sc[:, :c], sh[:, :c], wpb, bp),
+                             gn_silu_conv_fused(xs, sc[:, c:], sh[:, c:], wsb, bs)))
+    z = F.silu(xb.float() * sc[:, None, None] + sh[:, None, None]).bfloat16().permute(0, 3, 1, 2)
+    zp = z[:, :c].contiguous(memory_format=torch.channels_last)
+    zs = F.pad(z[:, c:], (1, 1, 1, 1), mode="reflect").contiguous(
+        memory_format=torch.channels_last)
+    wpl = wpb.contiguous(memory_format=torch.channels_last)
+    wsl = wsb.contiguous(memory_format=torch.channels_last)
+    lib = _time_ms(lambda: (F.conv2d(zp, wpl), F.conv2d(zs, wsl)))
+    flops = 2 * b * h * w * c * c * (1 + 9)
+    nbytes = 2 * (b * h * w * 2 * c2 + 10 * c * c) + 4 * (2 * b * c2 + c2 + 2 * b * c2)
+    bound = max(nbytes / bw_peak, flops / fl_peak) * 1e3
+    by = "bytes" if nbytes / bw_peak > flops / fl_peak else "operations"
+    bound_f32 = max(2 * nbytes / bw_peak, flops / F32_FLOPS) * 1e3
+    print(f"K6 bf16 (1,448,448,256) packed: {ms:.4f} ms; plain {plain:.4f} ms; K1 1x1 + 3x3 on "
+          f"the halves {pair:.4f} ms; F.conv2d 1x1 + 3x3 {lib:.4f} ms; bound {bound:.4f} ms ({by}, "
+          f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.1f} GFLOP); f32 {ms_f32:.4f} ms, bound "
+          f"{bound_f32:.4f} ms ({card})", flush=True)
+    return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound, bound_by=by,
+                k1_pair_ms=pair, ms_f32=ms_f32, bound_ms_f32=bound_f32)
+
+
 def phase_timing(dev, card):
     import torch.nn.functional as F
 
@@ -965,8 +1052,304 @@ def phase_timing(dev, card):
         del q, k, v, g, sq, sk, sv, mask, lq, lk, lv, lo, lg, lib_out, ref
         torch.cuda.empty_cache()
     res["k3_anyup"] = _time_k3_anyup(dev, card, bw_peak)
+    res["k6"] = _time_k6(dev, card, bw_peak, fl_peak)
     res.update({f"k5_{k}": v for k, v in _time_k5(dev, card, bw_peak).items()})
     return res
+
+
+def _k6_inputs(dev, gen, b, h=448, w=448, c=128):
+    """A packed (b, h, w, 2c) layer input, per-sample GroupNorm affines and
+    both stacks' weights at NAF's scale."""
+    x = torch.randn(b, h, w, 2 * c, generator=gen, device=dev)
+    scale = torch.rand(b, 2 * c, generator=gen, device=dev) * 0.5 + 0.75
+    shift = torch.randn(b, 2 * c, generator=gen, device=dev) * 0.1
+    wp = torch.randn(c, c, 1, 1, generator=gen, device=dev) * c ** -0.5
+    ws = torch.randn(c, c, 3, 3, generator=gen, device=dev) * (9 * c) ** -0.5
+    bp = torch.randn(c, generator=gen, device=dev) * 0.1
+    bs = torch.randn(c, generator=gen, device=dev) * 0.1
+    return x, scale, shift, wp, ws, bp, bs
+
+
+def phase_k6(dev):
+    from naf_torch.kernels.encoder_fused import gn_silu_conv_dual_fused, gn_silu_conv_dual_ref
+
+    gen = torch.Generator(device=dev).manual_seed(10)
+    errs = {}
+    # the production layer at batch 1 and 2, and the dual route's 2048^2 guide
+    for b, h in ((1, 448), (2, 448), (1, 2048)):
+        x, sc, sh, wp, ws, bp, bs = _k6_inputs(dev, gen, b, h, h)
+        hw = x.shape[1] * x.shape[2]
+        y_ref, ps_ref = gn_silu_conv_dual_ref(x, sc, sh, wp, ws, bp, bs)
+        y, ps = gn_silu_conv_dual_fused(x, sc, sh, wp, ws, bp, bs)
+        torch.cuda.synchronize()
+        e = _check_close(f"K6 f32 y b={b}", y, y_ref, 2e-4)
+        _check_close(f"K6 f32 psums b={b}", ps / hw, ps_ref / hw, 2e-4)
+        del y, ps
+        yb, psb = gn_silu_conv_dual_fused(x.bfloat16(), sc, sh, wp.bfloat16(), ws.bfloat16(),
+                                          bp, bs)
+        torch.cuda.synchronize()
+        if yb.dtype != torch.bfloat16:
+            raise AssertionError(f"K6 bf16 output came back as {yb.dtype}")
+        cy = _check_cos(f"K6 bf16 y b={b}", yb.float(), y_ref, 0.9995)
+        cp = _check_cos(f"K6 bf16 psums b={b}", psb, ps_ref, 0.9995)
+        errs[(b, h)] = e
+        print(f"K6 ({b}, {h}, {h}, 256) packed, C 128 per stack: f32 max_abs_err {e:.3e}; "
+              f"bf16 cos y {cy:.6f} psums {cp:.6f}", flush=True)
+        del x, yb, psb, y_ref, ps_ref
+    torch.cuda.empty_cache()
+    return errs[(1, 448)]
+
+
+def phase_banded_kernels(dev):
+    """K2's banded variants and K3's banded forward against their plain
+    versions at one interior band."""
+    from naf_torch.kernels.na2d_fused import cross_scale_na2d_fused, cross_scale_na2d_fused_ref
+    from naf_torch.kernels.na2d_fused_q import (
+        naf_upsample_attention,
+        naf_upsample_attention_ref,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    kw = dict(num_heads=4, kernel_size=9)
+    # 448^2 -> 2048^2 <- 128^2: a band of 256 output rows (16 cell rows) at
+    # cell row 48; its encoder rows are [168, 224) of 448
+    enc, keys, values, rt, ct, dh = _k2_inputs(dev, gen, 448, out=2048, hk=128)
+    band = dict(row_cell0=48, band_cells=16)
+    y0, bh, e0, eh = 768, 256, 168, 56
+    want = naf_upsample_attention_ref(enc, keys, values, rt, ct, dh, **kw, **band)
+    got = naf_upsample_attention(enc, keys, values, rt, ct, dh, **kw, **band)
+    torch.cuda.synchronize()
+    e_slab = _check_close("K2 banded f32 slab", got, want, 2e-4)
+    buf = torch.full((1, 2048, 2048, 384), 7.0, device=dev)
+    naf_upsample_attention(enc[:, e0 : e0 + eh].contiguous(), keys, values, rt, ct, dh, **kw,
+                           **band, out_acc=buf, enc_banded=True)
+    torch.cuda.synchronize()
+    e_acc = _check_close("K2 banded f32 out_acc + enc_banded", buf[:, y0 : y0 + bh], want, 2e-4)
+    if not (bool((buf[:, :y0] == 7.0).all()) and bool((buf[:, y0 + bh :] == 7.0).all())):
+        raise AssertionError("K2 out_acc wrote rows outside its band")
+    del buf
+    bufb = torch.zeros((1, 2048, 2048, 384), dtype=torch.bfloat16, device=dev)
+    naf_upsample_attention(enc[:, e0 : e0 + eh].bfloat16().contiguous(), keys.bfloat16(),
+                           values.bfloat16(), rt, ct, dh, **kw, **band, out_acc=bufb,
+                           enc_banded=True)
+    torch.cuda.synchronize()
+    c2 = _check_cos("K2 banded bf16", bufb[:, y0 : y0 + bh].float(), want, 0.9995)
+    eb_, kb_, vb_ = enc[:, e0 : e0 + eh].bfloat16().contiguous(), keys.bfloat16(), values.bfloat16()
+    band_b = dict(**kw, **band, out_acc=bufb, enc_banded=True)
+    ms2 = _time_ms(lambda: naf_upsample_attention(eb_, kb_, vb_, rt, ct, dh, **band_b))
+    plain2 = _time_ms(lambda: naf_upsample_attention_ref(eb_, kb_, vb_, rt, ct, dh, **band_b),
+                      iters=1)
+    print(f"K2 banded 448^2 -> 2048^2 <- 128^2, cell rows [48, 64): f32 max_abs_err slab "
+          f"{e_slab:.3e}, out_acc + enc_banded {e_acc:.3e} (other rows untouched); bf16 cos "
+          f"{c2:.6f}; bf16 {ms2:.4f} ms, plain {plain2:.4f} ms", flush=True)
+    del enc, keys, values, want, got, bufb, eb_, kb_, vb_
+    # K3: 448^2 <- 28^2, the query rows of cell rows [8, 12)
+    q = torch.randn(1, 64, 448, 4, 64, generator=gen, device=dev)
+    k = torch.randn(1, 28, 28, 4, 64, generator=gen, device=dev)
+    v = torch.randn(1, 28, 28, 4, 96, generator=gen, device=dev)
+    b3 = dict(row_cell0=8, full_hq=448)
+    want = cross_scale_na2d_fused_ref(q, k, v, 9, **b3)
+    before = cross_scale_na2d_fused.launches
+    with torch.no_grad():
+        got = cross_scale_na2d_fused(q, k, v, 9, **b3)
+        gotb = cross_scale_na2d_fused(q.bfloat16(), k.bfloat16(), v.bfloat16(), 9, **b3)
+    torch.cuda.synchronize()
+    if cross_scale_na2d_fused.launches != before + 2:
+        raise AssertionError("banded K3 did not launch its kernel")
+    e3 = _check_close("K3 banded f32", got, want, 2e-4)
+    c3 = _check_cos("K3 banded bf16", gotb.float(), want, 0.9995)
+    qb, kb, vb = q.bfloat16(), k.bfloat16(), v.bfloat16()
+    with torch.no_grad():
+        ms3 = _time_ms(lambda: cross_scale_na2d_fused(qb, kb, vb, 9, **b3))
+        plain3 = _time_ms(lambda: cross_scale_na2d_fused_ref(qb, kb, vb, 9, **b3), iters=3)
+    print(f"K3 banded 448^2 <- 28^2, rows [128, 192): f32 max_abs_err {e3:.3e}; bf16 cos "
+          f"{c3:.6f}; bf16 {ms3:.4f} ms, plain {plain3:.4f} ms", flush=True)
+    return (dict(max_abs_err=max(e_slab, e_acc), ms=ms2, plain_ms=plain2),
+            dict(max_abs_err=e3, ms=ms3, plain_ms=plain3))
+
+
+def _nhwc_request(dev, gen, img, lr, cv=384):
+    image = torch.randn(1, img, img, 3, generator=gen, device=dev).bfloat16()
+    feats = torch.randn(1, lr, lr, cv, generator=gen, device=dev).bfloat16()
+    return image, feats
+
+
+def _peak_mib(fn) -> float:
+    """The call's own peak memory, MiB above what was allocated before it
+    (its result included)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 2**20
+
+
+def phase_dual(dev, card):
+    """The main path with DUAL_ROUTE on: every forward's encoder on K6 (4
+    launches) and no K1, held against the default route."""
+    import naf_torch.kernels.encoder_fused as ef
+    from naf_torch import NAFUpsampler
+
+    ups = NAFUpsampler(seed=0, device=dev, dtype=torch.bfloat16)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    reqs = [(448, 28, 448)] * 3 + [(448, 28, 2048), (2048, 128, 2048)]
+    inputs = [(torch.randn(1, 3, im, im, generator=gen, device=dev),
+               torch.randn(1, 384, lr, lr, generator=gen, device=dev), (out, out))
+              for im, lr, out in reqs]
+    dual = []
+    try:
+        ef.DUAL_ROUTE = True
+        torch.cuda.synchronize()
+        _zero_counts()
+        for image, feats, out in inputs:
+            before = _all_counts()
+            dual.append(ups(image, feats, out))
+            after = _all_counts()
+            delta = {k: after[k] - before[k] for k in after}
+            if (delta["k6"], delta["k1"], delta["k2"]) != (4, 0, 1):
+                raise AssertionError(f"dual route forward launched {delta}, want K6 4, K1 0, K2 1")
+        torch.cuda.synchronize()
+        launches = _all_counts()
+    finally:
+        ef.DUAL_ROUTE = False
+    print(f"dual route: 3 x 448^2, 448^2 -> 2048^2 and 2048^2 -> 2048^2 <- 128^2 served; "
+          f"launches {launches}", flush=True)
+    coss = []
+    for (image, feats, out), o in zip(inputs, dual):
+        o_def = ups(image, feats, out)
+        coss.append(_check_cos(f"dual vs default route {image.shape[-1]}^2 -> {out[0]}^2",
+                               o.float(), o_def.float(), 0.999))
+        del o_def
+    del dual
+
+    def timed(route, fn, iters):
+        ef.DUAL_ROUTE = route
+        try:
+            return _time_ms(fn, iters=iters)
+        finally:
+            ef.DUAL_ROUTE = False
+
+    def peak(route, fwd):
+        ef.DUAL_ROUTE = route
+        try:
+            return _peak_mib(fwd)
+        finally:
+            ef.DUAL_ROUTE = False
+
+    ms, peaks = {}, {}
+    for label, (image, feats, out), iters in (("448", inputs[0], 10), ("2048", inputs[4], 3)):
+        fwd = lambda: ups(image, feats, out)
+        # in turns: default, dual, dual, default
+        t = [timed(r, fwd, iters) for r in (False, True, True, False)]
+        ms[label] = {"default": (t[0] + t[3]) / 2, "dual": (t[1] + t[2]) / 2}
+        peaks[label] = {"default": peak(False, fwd), "dual": peak(True, fwd)}
+        print(f"forward {image.shape[-1]}^2 -> {out[0]}^2 bf16: default route "
+              f"{ms[label]['default']:.3f} ms ({t[0]:.3f}, {t[3]:.3f}), peak "
+              f"{peaks[label]['default']:.1f} MiB; dual route {ms[label]['dual']:.3f} ms "
+              f"({t[1]:.3f}, {t[2]:.3f}), peak {peaks[label]['dual']:.1f} MiB ({card})",
+              flush=True)
+    print("dual vs default route cosines: " + ", ".join(f"{c:.6f}" for c in coss), flush=True)
+    return launches, dict(ms=ms, peak_mib=peaks, cos=coss)
+
+
+def _k2_band_check(label, model, image, feats, out, band_rows, enc_banded, got):
+    """K2 against its plain version at the main path's own shape: on one
+    interior band, the plain version (f32) on the encoder output, keys and
+    features of the unbanded path is held against K2's rows of the banded
+    output ``got`` (bf16, cosine > 0.9995) and against K2 launched in f32 on
+    the same inputs with the same band arguments (2e-4). With ``enc_banded``
+    both take only the band's encoder rows."""
+    from naf_torch.kernels.na2d_fused_q import naf_upsample_attention, naf_upsample_attention_ref
+    from naf_torch.models.naf import band_cells
+
+    hk = feats.shape[1]
+    cpb = band_cells(out, hk, band_rows)
+    c0 = (hk // cpb // 2) * cpb
+    r_h = out // hk
+    y0, bh = c0 * r_h, cpb * r_h
+    enc, keys, rt, ct = model._fused_q_inputs(image, feats, (out, out))
+    if enc_banded:
+        hi = enc.shape[1]
+        enc = enc[:, c0 * r_h * hi // out : (c0 + cpb) * r_h * hi // out]
+    args = (enc.float().contiguous(), keys.float(), feats.float(), rt, ct,
+            model.image_encoder.rope.d_head)
+    kw = dict(num_heads=model.heads_attn, kernel_size=model.kernel_size, row_cell0=c0,
+              band_cells=cpb, enc_banded=enc_banded)
+    want = naf_upsample_attention_ref(*args, **kw)
+    e = _check_close(f"{label}: K2 f32 band", naf_upsample_attention(*args, **kw), want, 2e-4)
+    c = _check_cos(f"{label}: K2's rows of the bf16 output", got[:, y0 : y0 + bh].float(), want,
+                   0.9995)
+    print(f"{label}: K2 at cell rows [{c0}, {c0 + cpb}) of {hk}"
+          f"{', enc_banded' if enc_banded else ''} vs its plain version: f32 max_abs_err "
+          f"{e:.3e}; the banded output's rows cos {c:.6f}", flush=True)
+    return dict(max_abs_err=e, cos=c)
+
+
+def phase_banded(dev, card):
+    """NAF(band_rows), naf_streamed at the bench shape, and naf_streamed with
+    the banded encoder, each with its launch counts, against the unbanded
+    forward on the card and, on one interior band, K2 against its plain
+    version, with time and the call's own peak memory."""
+    from naf_torch import load_naf_params
+    from naf_torch.api import naf_streamed
+
+    model = load_naf_params(seed=0, device=dev, dtype=torch.bfloat16)
+    gen = torch.Generator(device=dev).manual_seed(13)
+    res = {}
+    cases = (
+        # (label, image, lr, out, band_rows, K1 and K2 launches, banded call)
+        ("band_rows", 448, 128, 2048, 256, (8, 8),
+         lambda im, ft, o, br: model(im, ft, (o, o), band_rows=br)),
+        ("streamed", 512, 256, 4096, 512, (8, 8),
+         lambda im, ft, o, br: naf_streamed(model, im, ft, (o, o), br)),
+        ("streamed_encoder", 2048, 128, 2048, 256, (224, 8),
+         lambda im, ft, o, br: naf_streamed(model, im, ft, (o, o), br)),
+    )
+    launches = {"k1": 0, "k2": 0}
+    for label, img, lr, out, br, want, banded in cases:
+        image, feats = _nhwc_request(dev, gen, img, lr)
+        with torch.inference_mode():
+            torch.cuda.synchronize()
+            _zero_counts()
+            got = banded(image, feats, out, br)
+            torch.cuda.synchronize()
+            c = _all_counts()
+            if (c["k1"], c["k2"]) != want or c["k6"] or c["k3"]:
+                raise AssertionError(f"{label}: launches {c}, want K1 {want[0]}, K2 {want[1]}")
+            launches["k1"] += c["k1"]
+            launches["k2"] += c["k2"]
+            if got.shape != (1, out, out, 384) or not bool(got.isfinite().all()):
+                raise AssertionError(f"{label}: bad output {tuple(got.shape)}")
+            full = model(image, feats, (out, out))
+            cos = _check_cos(f"{label} vs the unbanded forward", got, full, 0.999)
+            del full
+            band = _k2_band_check(label, model, image, feats, out, br,
+                                  label == "streamed_encoder", got)
+            del got
+            torch.cuda.empty_cache()
+            peak_b = _peak_mib(lambda: banded(image, feats, out, br))
+            peak_u = _peak_mib(lambda: model(image, feats, (out, out)))
+            ms_b = _time_ms(lambda: banded(image, feats, out, br), iters=1)
+            ms_u = _time_ms(lambda: model(image, feats, (out, out)), iters=1)
+            if label == "streamed_encoder":
+                # the encoder's (K1) and the attention's (K2) device time on
+                # both paths at a 2048^2 guide
+                _profile(lambda: model(image, feats, (out, out)), f"unbanded {img}^2 -> {out}^2",
+                         reps=1)
+                _profile(lambda: banded(image, feats, out, br), f"{label} {img}^2 -> {out}^2",
+                         reps=1)
+        res[label] = dict(ms=ms_b, ms_unbanded=ms_u, peak_mib=peak_b, peak_mib_unbanded=peak_u,
+                          cos=cos, launches_k1=want[0], launches_k2=want[1], k2_band=band)
+        print(f"{label}: {img}^2 + {lr}^2 x 384 -> {out}^2 bf16, band_rows {br}: launches K1 "
+              f"{want[0]}, K2 {want[1]}; cos vs unbanded {cos:.6f}; {ms_b:.3f} ms, peak "
+              f"{peak_b:.1f} MiB; unbanded {ms_u:.3f} ms, peak {peak_u:.1f} MiB ({card})",
+              flush=True)
+        del image, feats
+        torch.cuda.empty_cache()
+    if not res["streamed_encoder"]["peak_mib"] < res["streamed_encoder"]["peak_mib_unbanded"]:
+        raise AssertionError("the banded encoder did not lower the peak memory")
+    return launches, res
 
 
 def main() -> int:
@@ -999,6 +1382,10 @@ def main() -> int:
     launches, stats = phase_main(dev, card)
     phase_grads(dev)
     k34_err = phase_k34(dev)
+    k6_err = phase_k6(dev)
+    k2_band, k3_band = phase_banded_kernels(dev)
+    dual_launches, dual = phase_dual(dev, card)
+    band_launches, banded = phase_banded(dev, card)
     with tempfile.TemporaryDirectory(dir=os.path.dirname(os.path.abspath(__file__))) as work:
         train_launches, train = phase_train(dev, card, work)
     k5_err = phase_k5(dev)
@@ -1038,8 +1425,19 @@ def main() -> int:
              max_abs_err=k5_err, **timing["k5_featup"],
              **{f"{k}_jbu": v for k, v in timing["k5_jbu"].items() if k != "library_ms"}),
     ]
+    kernels.append(
+        # K6: launches from the dual-route main path (4 per forward), times at
+        # the production layer
+        dict(name="gn_silu_conv_dual_fused", route="cuda",
+             source="naf_torch/kernels/csrc/encoder_dual.cu",
+             replaces="naf_tpu/kernels/encoder_fused.py:272", launches=dual_launches["k6"],
+             max_abs_err=k6_err, **timing["k6"]))
+    kernels[0]["launches_banded_encoder"] = banded["streamed_encoder"]["launches_k1"]
+    kernels[1].update({"launches_banded": band_launches["k2"],
+                       **{f"{k}_banded": v for k, v in k2_band.items()}})
     kernels[2].update({"launches_anyup": base_launches["k3"],
-                       **{f"{k}_anyup": v for k, v in timing["k3_anyup"].items()}})
+                       **{f"{k}_anyup": v for k, v in timing["k3_anyup"].items()},
+                       **{f"{k}_banded": v for k, v in k3_band.items()}})
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
              "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{**{k: kd[k] for k in order}, **kd} for kd in kernels]
@@ -1047,7 +1445,8 @@ def main() -> int:
     print(json.dumps({"kernels": kernels, "forward_ms": {k: v[0] for k, v in stats.items()},
                       "peak_mib": {k: v[1] for k, v in stats.items()},
                       "train": {k: train[k] for k in train_keys},
-                      "baselines": baselines, "k5_splits": k5_splits, "card": card}))
+                      "baselines": baselines, "k5_splits": k5_splits, "dual_route": dual,
+                      "banded": banded, "card": card}))
     print(_card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

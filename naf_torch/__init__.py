@@ -11,7 +11,8 @@ The port of ``naf_tpu`` (JAX/Pallas), module by module under the same names:
 - ``naf_torch.models``   NAF, and the baselines (FeatUp, JBU, JBF, AnyUp,
                          JAFAR, Bilinear, Nearest) behind
                          ``models.registry.ModelWrapper``
-- ``naf_torch.api``      ``naf``, ``load_naf_params``, ``NAFUpsampler``
+- ``naf_torch.api``      ``naf``, ``load_naf_params``, ``NAFUpsampler``,
+                         ``naf_streamed`` (outputs above 2K, in row bands)
 - ``naf_torch.backbones`` the DINOv2 ViT and its wrapper (distillation targets)
 - ``naf_torch.train``    self-distillation training (``python -m naf_torch.train``)
 - ``naf_torch.config``, ``naf_torch.data``, ``naf_torch.utils``  the CLI's
@@ -22,4 +23,4 @@ Importing the package builds and loads nothing.
 
 __version__ = "0.1.0"
 
-from naf_torch.api import NAFUpsampler, load_naf_params, naf  # noqa: F401
+from naf_torch.api import NAFUpsampler, load_naf_params, naf, naf_streamed  # noqa: F401

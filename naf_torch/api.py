@@ -9,6 +9,10 @@ or the stateful wrapper, which runs under ``torch.inference_mode``:
     ups = NAFUpsampler()
     hr = ups(image, lr_feats, (H, W))
 
+Outputs above 2K, in row bands of the output (NHWC):
+
+    hr = naf_streamed(model, image, lr_feats, (4096, 4096), band_rows=512)
+
 Entry points run on CUDA unless the caller asks for another device
 (``device="cpu"`` runs the plain PyTorch path). Without CUDA and without a
 device, they raise rather than fall back to the CPU.
@@ -22,9 +26,9 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from naf_torch.models.naf import NAF
+from naf_torch.models.naf import NAF, band_cells
 
-__all__ = ["naf", "load_naf_params", "NAFUpsampler"]
+__all__ = ["naf", "load_naf_params", "NAFUpsampler", "naf_streamed"]
 
 
 def _device(device) -> torch.device:
@@ -102,3 +106,94 @@ class NAFUpsampler:
     def __call__(self, image, lr_feats, target_size, channels_last: bool = False):
         with torch.inference_mode():
             return naf(self.model, image, lr_feats, target_size, channels_last)
+
+
+@torch.inference_mode()
+def naf_streamed(model: NAF, image, lr_feats, target_size: Tuple[int, int], band_rows: int,
+                 stream_encoder: Optional[bool] = None) -> torch.Tensor:
+    """Upsample to a huge output (4096^2 and beyond) in row bands. NHWC in
+    and out: image (B, H_img, W_img, 3), lr_feats (B, h, w, C) ->
+    (B, *target_size, C); inference only.
+
+    The output buffer is allocated once and each band of ``band_rows`` output
+    rows is written into it in place by one K2 launch, so the peak memory is
+    the output, the encoder output and one band's working set.
+
+    ``stream_encoder`` also streams the encoder, for guide images whose
+    encoder output would not fit beside the output: the banded two-pass
+    GroupNorm encoder (``naf_torch.kernels.encoder_banded``) computes each
+    layer's statistics in banded sweeps, a second sweep sums the pooled keys
+    band by band (``RoPE.pooled`` is linear in the rows), and each attention
+    band recomputes only its own encoder rows, so the full-resolution encoder
+    output never exists. It turns on by itself above 1.5 GiB of encoder
+    output.
+    """
+    ref = next(model.parameters())
+    image = torch.as_tensor(image).to(ref.device, ref.dtype)
+    lr_feats = torch.as_tensor(lr_feats).to(ref.device, ref.dtype).contiguous()
+    oh, ow = int(target_size[0]), int(target_size[1])
+    hk = lr_feats.shape[1]
+    cells_per_band = band_cells(oh, hk, band_rows)
+    enc = model.image_encoder
+    hi, wi = enc.guard_size(image.shape[1], image.shape[2], oh, ow)
+    if stream_encoder is None:
+        enc_bytes = hi * wi * enc.rope.embed_dim * image.element_size()
+        stream_encoder = enc_bytes > 1.5 * 2**30
+    if stream_encoder:
+        return _naf_streamed_banded_encoder(model, image, lr_feats, oh, ow, hi, wi,
+                                            cells_per_band)
+    return model._fused_q_banded(image.contiguous(), lr_feats, (oh, ow), cells_per_band)
+
+
+def _naf_streamed_banded_encoder(model: NAF, image, lr_feats, oh: int, ow: int, hi: int,
+                                 wi: int, cells_per_band: int) -> torch.Tensor:
+    """:func:`naf_streamed` with the banded encoder: a stats sweep per
+    stack, a keys sweep, then the attention bands, each on its own encoder
+    rows (``enc_banded``). The encoder's last chain runs twice (keys and
+    attention); the compute is cheap at this scale, the memory is not."""
+    from naf_torch.kernels.encoder_banded import (
+        encoder_stack_banded_rows,
+        encoder_stack_stats,
+    )
+    from naf_torch.kernels.na2d_fused_q import naf_upsample_attention
+    from naf_torch.ops.resize import resize_bilinear
+
+    ienc = model.image_encoder
+    if not ienc.use_encoder:
+        raise ValueError("stream_encoder needs the image encoder (use_encoder=True)")
+    hk, wk = lr_feats.shape[1], lr_feats.shape[2]
+    r_h = oh // hk
+    if (cells_per_band * r_h * hi) % oh:
+        raise ValueError("an attention band does not map to whole encoder rows; adjust "
+                         "band_rows or the image size")
+    eb = cells_per_band * r_h * hi // oh  # encoder rows per band
+    if tuple(image.shape[1:3]) != (hi, wi):
+        image = resize_bilinear(image, (hi, wi))
+    image = image.contiguous()
+    stacks = (ienc.encoder, ienc.sem_encoder)
+    stats = [encoder_stack_stats(s, image, band_rows=eb) for s in stacks]
+    rope = ienc.rope
+    sin_r, cos_r, sin_c, cos_c = rope.tables(oh, ow)
+    rows_tab = torch.cat([cos_r, sin_r], dim=-1)
+    cols_tab = torch.cat([cos_c, sin_c], dim=-1)
+
+    def enc_band(r0):
+        return torch.cat([encoder_stack_banded_rows(s, image, r0, eb, st)
+                          for s, st in zip(stacks, stats)], dim=-1)
+
+    # sweep 1: the pooled keys, summed band by band in f32, cast once
+    keys = None
+    for r0 in range(0, hi, eb):
+        kb = rope.pooled(enc_band(r0), (oh, ow), (hk, wk), row0=r0, full_h=hi).float()
+        keys = kb if keys is None else keys + kb
+    keys = keys.to(image.dtype).contiguous()
+
+    # sweep 2: each attention band on its own encoder rows
+    out = torch.empty((image.shape[0], oh, ow, lr_feats.shape[-1]), dtype=image.dtype,
+                      device=image.device)
+    for c0 in range(0, hk, cells_per_band):
+        naf_upsample_attention(
+            enc_band(c0 * r_h * hi // oh), keys, lr_feats, rows_tab, cols_tab, rope.d_head,
+            num_heads=model.heads_attn, kernel_size=model.kernel_size, row_cell0=c0,
+            band_cells=cells_per_band, out_acc=out, enc_banded=True)
+    return out

@@ -28,8 +28,7 @@
 //    deterministic), and stores y at a channel offset of a wider output
 //    (out_total, out_off) so two stacks can share one packed buffer.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "encoder_common.cuh"
 
 namespace {
 
@@ -39,39 +38,6 @@ constexpr int FB = 64;    // output channels per block
 constexpr int CB = 16;    // input channels per shared-memory stage
 constexpr int THREADS = 256;
 constexpr int PX = TH * TW / 32;  // pixels per thread
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T> __device__ __forceinline__ float round_io(float v);
-template <> __device__ __forceinline__ float round_io<float>(float v) { return v; }
-template <> __device__ __forceinline__ float round_io<__nv_bfloat16>(float v) {
-  return __bfloat162float(__float2bfloat16(v));
-}
-
-__device__ __forceinline__ void store8(float* dst, const float* v) {
-  reinterpret_cast<float4*>(dst)[0] = make_float4(v[0], v[1], v[2], v[3]);
-  reinterpret_cast<float4*>(dst)[1] = make_float4(v[4], v[5], v[6], v[7]);
-}
-
-__device__ __forceinline__ unsigned pack_bf16x2(float a, float b) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-  return *reinterpret_cast<unsigned*>(&h);
-}
-
-__device__ __forceinline__ void store8(__nv_bfloat16* dst, const float* v) {
-  *reinterpret_cast<uint4*>(dst) =
-      make_uint4(pack_bf16x2(v[0], v[1]), pack_bf16x2(v[2], v[3]), pack_bf16x2(v[4], v[5]),
-                 pack_bf16x2(v[6], v[7]));
-}
-
-// torch's reflect rule; the clamp only matters for ragged-tile pixels whose
-// outputs are never stored.
-__device__ __forceinline__ int reflect(int i, int n) {
-  if (i < 0) i = -i;
-  if (i >= n) i = 2 * n - 2 - i;
-  return min(max(i, 0), n - 1);
-}
 
 template <typename T, int KK>
 __global__ void __launch_bounds__(THREADS)
@@ -121,9 +87,7 @@ gn_silu_conv_kernel(const T* __restrict__ x, const float* __restrict__ scale,
       const int gy = reflect(oy + hy - P, H);
       const int gx = reflect(ox + hx - P, W);
       const int c = c0 + cc;
-      float z = to_f(xb[((size_t)gy * W + gx) * C + c]) * sc[c] + sh[c];
-      z = z / (1.f + expf(-z));
-      zs[(cc * HH + hy) * HW + hx] = round_io<T>(z);
+      zs[(cc * HH + hy) * HW + hx] = affine_silu(xb[((size_t)gy * W + gx) * C + c], sc[c], sh[c]);
     }
     for (int e = tid; e < KK * KK * CB * FB; e += THREADS) {
       const int ff = e % FB;

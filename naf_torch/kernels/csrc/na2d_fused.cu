@@ -32,6 +32,10 @@
 //  - padded (ragged-edge) queries contribute nothing: their P, dL, q and dO
 //    are zeroed before any contraction.
 //
+// A band of query rows (the JAX kernel's row_cell0 / full_hq, inference
+// only) runs K3 unchanged: q and out hold only the band's rows, and the host
+// passes the band's rows of the global window tables and their boxes.
+//
 // K4's dk/dv are a scatter: every LR cell receives from the queries of many
 // windows, and blocks run in no order. It takes the deterministic route (a):
 //  1. per block, rounds of 8 queries (one per warp) compute P, dL and dq; then

@@ -30,6 +30,18 @@
 //  - the window comes from two int32 tables, idx_h (Hq, k) and idx_w (Wq, k),
 //    built on the host with natten's rule, so every ratio the plain oracle
 //    takes (integer, ragged, clamped) is covered without mask arithmetic.
+//
+// Banded launches (the JAX kernel's row_cell0 / band_cells / out_acc /
+// enc_banded) compute only the query rows [y0, y0 + band_h) of the Hq-row
+// grid, with the global window rule: idx_h then holds those rows' windows,
+// the RoPE row table and the pool rule stay global, and
+//  - enc may hold only the input rows from enc_row0 on of an hi_full-row
+//    encoder grid: query row y pools input rows [floor(y*hi_full/Hq),
+//    ceil((y+1)*hi_full/Hq)) less enc_row0;
+//  - the output is a buffer of out_rows rows whose row 0 is query row
+//    out_row0: the whole (B, Hq, Wq, Cv) output, written in place row by
+//    row (its band rows are not contiguous across the batch, so the kernel
+//    takes the buffer's batch stride, never a copied slab), or a band slab.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -58,7 +70,8 @@ fused_q_kernel(const T* __restrict__ enc, const T* __restrict__ keys,
                const float* __restrict__ cols_tab, const int* __restrict__ idx_h,
                const int* __restrict__ idx_w, const int* __restrict__ row_lo,
                const int* __restrict__ col_lo, T* __restrict__ out, int hi, int wi,
-               int Hq, int Wq, int hk, int wk, int C, int n, int Cv, int ks, int dh,
+               int hi_full, int enc_row0, int Hq, int Wq, int y0, int band_h, int out_rows,
+               int out_row0, int hk, int wk, int C, int n, int Cv, int ks, int dh,
                int tqh, int tqw, int urh, int urw, int tiles_w) {
   const int d = C / n;
   const int dv = Cv / n;
@@ -101,13 +114,14 @@ fused_q_kernel(const T* __restrict__ enc, const T* __restrict__ keys,
   const T* encb = enc + (size_t)b * hi * wi * C;
 
   for (int qi = warp; qi < tqh * tqw; qi += WARPS) {
-    const int y = tr * tqh + qi / tqw;
+    const int yl = tr * tqh + qi / tqw;  // row of the launch's band
     const int x = tc * tqw + qi % tqw;
-    if (y >= Hq || x >= Wq) continue;  // uniform across the warp
+    if (yl >= band_h || x >= Wq) continue;  // uniform across the warp
+    const int y = y0 + yl;                  // global query row
 
     // 1-2: pooled, RoPE'd query for this head
-    const int iy0 = (int)(((long long)y * hi) / Hq);
-    const int iy1 = (int)(((long long)(y + 1) * hi + Hq - 1) / Hq);
+    const int iy0 = (int)(((long long)y * hi_full) / Hq) - enc_row0;
+    const int iy1 = (int)(((long long)(y + 1) * hi_full + Hq - 1) / Hq) - enc_row0;
     const int ix0 = (int)(((long long)x * wi) / Wq);
     const int ix1 = (int)(((long long)(x + 1) * wi + Wq - 1) / Wq);
     const float inv = 1.f / (float)((iy1 - iy0) * (ix1 - ix0));
@@ -133,7 +147,7 @@ fused_q_kernel(const T* __restrict__ enc, const T* __restrict__ keys,
     // 3: logits over the k x k window
     float m = -CUDART_INF_F;
     for (int j = lane; j < kk2; j += 32) {
-      const int cell = (idx_h[y * ks + j / ks] - r0) * urw + (idx_w[x * ks + j % ks] - c0);
+      const int cell = (idx_h[yl * ks + j / ks] - r0) * urw + (idx_w[x * ks + j % ks] - c0);
       const float4* kr = reinterpret_cast<const float4*>(Ks + cell * dpad);
       const float4* qr = reinterpret_cast<const float4*>(q);
       float dot = 0.f;
@@ -162,7 +176,7 @@ fused_q_kernel(const T* __restrict__ enc, const T* __restrict__ keys,
     for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
     __syncwarp();
     const float inv_sum = 1.f / sum;
-    T* o = out + (((size_t)b * Hq + y) * Wq + x) * Cv + h * dv;
+    T* o = out + (((size_t)b * out_rows + y - out_row0) * Wq + x) * Cv + h * dv;
     for (int c = lane; c < dv; c += 32) {
       float acc = 0.f;
       for (int j = 0; j < kk2; ++j) acc = fmaf(p[j], Vs[sl[j] * dv + c], acc);
@@ -182,10 +196,11 @@ template <typename T>
 cudaError_t launch(const void* enc, const void* keys, const void* values, const void* rows_tab,
                    const void* cols_tab, const void* idx_h, const void* idx_w,
                    const void* row_lo, const void* col_lo, void* out, int B, int hi, int wi,
-                   int Hq, int Wq, int hk, int wk, int C, int n, int Cv, int ks, int dh, int tqh,
+                   int hi_full, int enc_row0, int Hq, int Wq, int y0, int band_h, int out_rows,
+                   int out_row0, int hk, int wk, int C, int n, int Cv, int ks, int dh, int tqh,
                    int tqw, int urh, int urw, cudaStream_t stream) {
   const int tiles_w = (Wq + tqw - 1) / tqw;
-  const int tiles = ((Hq + tqh - 1) / tqh) * tiles_w;
+  const int tiles = ((band_h + tqh - 1) / tqh) * tiles_w;
   const size_t smem = smem_bytes(C / n, Cv / n, ks, urh, urw);
   cudaError_t err = cudaFuncSetAttribute(fused_q_kernel<T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -196,7 +211,8 @@ cudaError_t launch(const void* enc, const void* keys, const void* values, const 
       static_cast<const float*>(rows_tab), static_cast<const float*>(cols_tab),
       static_cast<const int*>(idx_h), static_cast<const int*>(idx_w),
       static_cast<const int*>(row_lo), static_cast<const int*>(col_lo), static_cast<T*>(out), hi,
-      wi, Hq, Wq, hk, wk, C, n, Cv, ks, dh, tqh, tqw, urh, urw, tiles_w);
+      wi, hi_full, enc_row0, Hq, Wq, y0, band_h, out_rows, out_row0, hk, wk, C, n, Cv, ks, dh,
+      tqh, tqw, urh, urw, tiles_w);
   return cudaGetLastError();
 }
 
@@ -211,19 +227,26 @@ long long naf_fused_q_smem(int d, int dv, int ks, int urh, int urw) {
 
 // Shape rules the launch relies on (checked by the wrapper): C % n == 0,
 // (C/n) % 4 == 0, Cv % n == 0, dh even and dividing C, every window cell
-// inside its tile's [row_lo, row_lo+urh) x [col_lo, col_lo+urw) box.
+// inside its tile's [row_lo, row_lo+urh) x [col_lo, col_lo+urw) box, and,
+// for a band, every pooled input row of its query rows inside enc's
+// [enc_row0, enc_row0 + hi) and every query row inside the output buffer.
+// The full-grid call is hi_full = hi, enc_row0 = y0 = out_row0 = 0,
+// band_h = out_rows = Hq.
 int naf_fused_q(const void* enc, const void* keys, const void* values, const void* rows_tab,
                 const void* cols_tab, const void* idx_h, const void* idx_w, const void* row_lo,
-                const void* col_lo, void* out, int B, int hi, int wi, int Hq, int Wq, int hk,
-                int wk, int C, int n, int Cv, int ks, int dh, int tqh, int tqw, int urh,
-                int urw, int is_bf16, void* stream) {
+                const void* col_lo, void* out, int B, int hi, int wi, int hi_full, int enc_row0,
+                int Hq, int Wq, int y0, int band_h, int out_rows, int out_row0, int hk, int wk,
+                int C, int n, int Cv, int ks, int dh, int tqh, int tqw, int urh, int urw,
+                int is_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
     return launch<__nv_bfloat16>(enc, keys, values, rows_tab, cols_tab, idx_h, idx_w, row_lo,
-                                 col_lo, out, B, hi, wi, Hq, Wq, hk, wk, C, n, Cv, ks, dh, tqh,
-                                 tqw, urh, urw, s);
+                                 col_lo, out, B, hi, wi, hi_full, enc_row0, Hq, Wq, y0, band_h,
+                                 out_rows, out_row0, hk, wk, C, n, Cv, ks, dh, tqh, tqw, urh,
+                                 urw, s);
   return launch<float>(enc, keys, values, rows_tab, cols_tab, idx_h, idx_w, row_lo, col_lo, out,
-                       B, hi, wi, Hq, Wq, hk, wk, C, n, Cv, ks, dh, tqh, tqw, urh, urw, s);
+                       B, hi, wi, hi_full, enc_row0, Hq, Wq, y0, band_h, out_rows, out_row0, hk,
+                       wk, C, n, Cv, ks, dh, tqh, tqw, urh, urw, s);
 }
 
 }  // extern "C"

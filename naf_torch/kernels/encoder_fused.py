@@ -13,7 +13,10 @@ activations. The stem conv and the first channel sums stay torch glue.
 
 :func:`encoder_stack_fused_packed` runs the pixel (k=1) and semantic (k=3)
 stacks and has each stack's last layer write its half of one
-(B, H, W, 2*hidden) buffer, so the pix|sem concat never happens.
+(B, H, W, 2*hidden) buffer, so the pix|sem concat never happens. With
+:data:`DUAL_ROUTE` set it runs them as one packed stack instead: one merged
+stem conv, then one launch of kernel K6 (``csrc/encoder_dual.cu``) per layer
+computing both stacks' layers over the packed buffer.
 
 Every function has a plain PyTorch version beside it (``*_ref``). The
 wrappers take it for CPU tensors only; for CUDA tensors they launch the
@@ -32,8 +35,11 @@ import torch.nn.functional as F
 from naf_torch.kernels import _build
 
 __all__ = [
+    "DUAL_ROUTE",
     "gn_silu_conv_fused",
     "gn_silu_conv_ref",
+    "gn_silu_conv_dual_fused",
+    "gn_silu_conv_dual_ref",
     "encoder_stack_fused",
     "encoder_stack_fused_packed",
     "encoder_stack_ref",
@@ -195,6 +201,106 @@ def gn_silu_conv_fused(x, scale, shift, weight, bias):
 gn_silu_conv_fused.launches = 0
 
 
+def gn_silu_conv_dual_ref(x, scale, shift, wp, ws, bp, bs):
+    """Plain version of K6: one packed dual-stack layer. x (B,H,W,2C) is
+    [pix|sem]; scale/shift (B,2C) or (2C,) f32; wp (C,C,1,1) the pixel
+    stack's 1x1 weight, ws (C,C,3,3) the semantic stack's 3x3 weight; bp, bs
+    (C,). Returns (y (B,H,W,2C) in x's dtype, psums (B,2,2C) f32 of the f32 y)."""
+    c = x.shape[-1] // 2
+    z = x.float() * scale.float()[..., None, None, :] + shift.float()[..., None, None, :]
+    z = F.silu(z).to(x.dtype)  # the activated input rounds to the io dtype
+    y = torch.cat([_conv_nhwc(z[..., :c], wp, bp), _conv_nhwc(z[..., c:], ws, bs)], dim=-1)
+    return y.to(x.dtype), _channel_sums(y)
+
+
+def _dual_shape_error(x_shape, wp_shape, ws_shape):
+    """Why K6 cannot take these shapes, or None: 2C packed channels with
+    C % 16 == 0 (whole channel stages and 16-byte stores), a 1x1 pixel and a
+    3x3 semantic weight of C -> C, and H, W >= 2 (reflect padding)."""
+    if len(x_shape) != 4:
+        return "K6 takes an NHWC tensor"
+    _, h, w, c2 = x_shape
+    c = c2 // 2
+    if c2 % 2 or c % 16 or c == 0:
+        return f"K6 needs 2C packed channels with C % 16 == 0, got {c2}"
+    if tuple(wp_shape) != (c, c, 1, 1) or tuple(ws_shape) != (c, c, 3, 3):
+        return (f"weights {tuple(wp_shape)} / {tuple(ws_shape)} must be ({c}, {c}, 1, 1) / "
+                f"({c}, {c}, 3, 3)")
+    if min(h, w) < 2:
+        return "reflect padding needs H, W >= 2"
+    return None
+
+
+@functools.cache
+def _dual_lib():
+    lib = _build.load("encoder_dual")
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.naf_gn_silu_conv_dual_tiles.argtypes = [i32, i32]
+    lib.naf_gn_silu_conv_dual_tiles.restype = i32
+    lib.naf_gn_silu_conv_dual.argtypes = [ptr] * 8 + [i32] * 5 + [ptr]
+    lib.naf_gn_silu_conv_dual.restype = i32
+    return lib
+
+
+def _launch_dual(x, scale, shift, wp, ws, bp, bs):
+    """Launch K6 on CUDA tensors. Returns (y (B,H,W,2C), psums (B,2,2C))."""
+    if x.device.type != "cuda":
+        raise ValueError(f"K6 launches on CUDA tensors, got {x.device}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"K6 takes float32 or bfloat16, got {x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError("K6 takes a contiguous NHWC tensor")
+    err = _dual_shape_error(x.shape, wp.shape, ws.shape)
+    if err:
+        raise ValueError(err)
+    for t in (scale, shift, wp, ws, bp, bs):
+        if t.device != x.device:
+            raise ValueError("all K6 inputs must be on one device")
+    b, h, w, c2 = x.shape
+    c = c2 // 2
+    if bp.shape != (c,) or bs.shape != (c,):
+        raise ValueError(f"biases {tuple(bp.shape)} / {tuple(bs.shape)} must be ({c},)")
+    if scale.shape not in ((b, c2), (c2,)) or shift.shape not in ((b, c2), (c2,)):
+        raise ValueError(f"scale/shift must be ({b}, {c2}) or ({c2},)")
+    wp_t = wp.to(x.dtype).reshape(c, c).t().contiguous()  # (in, out)
+    ws_t = ws.to(x.dtype).permute(2, 3, 1, 0).reshape(9, c, c).contiguous()
+    bias = torch.cat([bp, bs]).float().contiguous()
+    sc = scale.float().expand(b, c2).contiguous()
+    sh = shift.float().expand(b, c2).contiguous()
+    lib = _dual_lib()
+    out = torch.empty_like(x)
+    part = torch.empty((b, lib.naf_gn_silu_conv_dual_tiles(h, w), 2, c2), dtype=torch.float32,
+                       device=x.device)
+    with torch.cuda.device(x.device):
+        err = lib.naf_gn_silu_conv_dual(
+            x.data_ptr(), sc.data_ptr(), sh.data_ptr(), wp_t.data_ptr(), ws_t.data_ptr(),
+            bias.data_ptr(), out.data_ptr(), part.data_ptr(), b, h, w, c,
+            int(x.dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream,
+        )
+    if err:
+        raise RuntimeError(f"encoder_dual kernel launch failed: cudaError {err}")
+    gn_silu_conv_dual_fused.launches += 1
+    return out, part.sum(dim=1)
+
+
+def gn_silu_conv_dual_fused(x, scale, shift, wp, ws, bp, bs):
+    """One packed dual-stack layer: (y (B,H,W,2C), psums (B,2,2C) f32),
+    arguments as in :func:`gn_silu_conv_dual_ref`. CPU tensors take the
+    plain version; CUDA tensors launch K6 (count in
+    ``gn_silu_conv_dual_fused.launches``), inference-only: the dual route's
+    gradient is the per-stack twin's (``_FusedStacks.backward``)."""
+    if x.device.type == "cpu":
+        return gn_silu_conv_dual_ref(x, scale, shift, wp, ws, bp, bs)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, scale, shift, wp, ws, bp, bs)):
+        raise NotImplementedError("K6 is inference-only; differentiate "
+                                  "encoder_stack_fused_packed instead")
+    return _launch_dual(x, scale, shift, wp, ws, bp, bs)
+
+
+gn_silu_conv_dual_fused.launches = 0
+
+
 def _stack_params(encoder):
     """Flat parameter list of an ``Encoder``: stem, then per block
     norm1, conv1, norm2, conv2 (weight, bias each)."""
@@ -249,14 +355,67 @@ def _stacks_ref(x, params, specs):
     return outs[0] if len(outs) == 1 else torch.cat(outs, dim=-1)
 
 
+# The packed route of the JAX package's encoder_fused.py: both stacks as one
+# packed stack on K6. Off by default, as there; the choice is made from the
+# shapes alone (:func:`_dual_applies`), before any launch.
+DUAL_ROUTE = False
+
+
+def _stem_dual_conv(x, wp, bp, ws, bs):
+    """Both stems as one 3x3 conv, 3 -> 2C: the pixel stack's 1x1 stem sits
+    at the centre tap (the zero taps add exact zeros to the f32 sum, which
+    only its order changes). Counterpart of ``_stem_dual_matmul``."""
+    return _stem_conv(x, torch.cat([F.pad(wp, (1, 1, 1, 1)), ws]), torch.cat([bp, bs]))
+
+
+def _dual_applies(x, params, specs) -> bool:
+    """Whether the packed pair of stacks takes the K6 route: DUAL_ROUTE is
+    set, the stacks are a 1x1 pixel and a 3x3 semantic stack of one width
+    and depth, and K6 takes the layer shape."""
+    if not DUAL_ROUTE or len(specs) != 2 or specs[0] != specs[1]:
+        return False
+    pix, sem = _split(params, specs)
+    c = pix[0].shape[0]
+    if sem[0].shape[0] != c or pix[0].shape[-1] != 1 or sem[0].shape[-1] != 3:
+        return False
+    b, h, w, _ = x.shape
+    return all(_dual_shape_error((b, h, w, 2 * c), wp.shape, ws.shape) is None
+               for wp, ws in zip(pix[4::4], sem[4::4]))
+
+
+def _run_dual(x, params, spec, layer):
+    """Merged stem + 2*num_layers packed layers, each both stacks' layer in
+    one call of ``layer`` (K6's launch or its plain version), with each
+    half's GroupNorm affine from its half of the channel sums."""
+    num_layers, num_groups, eps = spec
+    pix, sem = _split(params, (spec, spec))
+    c = pix[0].shape[0]
+    y = _stem_dual_conv(x, pix[0], pix[1], sem[0], sem[1])
+    ps = _channel_sums(y)
+    hw = x.shape[1] * x.shape[2]
+    for li in range(2 * num_layers):
+        gp, betap, wp, bp = pix[2 + 4 * li : 6 + 4 * li]
+        gs, betas, ws, bs = sem[2 + 4 * li : 6 + 4 * li]
+        sc_p, sh_p = _gn_affine(ps[:, :, :c], gp, betap, hw, num_groups, eps)
+        sc_s, sh_s = _gn_affine(ps[:, :, c:], gs, betas, hw, num_groups, eps)
+        y, ps = layer(y, torch.cat([sc_p, sc_s], dim=-1), torch.cat([sh_p, sh_s], dim=-1),
+                      wp, ws, bp, bs)
+    return y
+
+
 class _FusedStacks(torch.autograd.Function):
     """One or more encoder stacks on K1; with several, their outputs are
-    packed side by side in one buffer by the last layer of each."""
+    packed side by side in one buffer by the last layer of each. With
+    ``dual``, the pixel and semantic stacks run as one packed stack on K6.
+    The backward differentiates the plain per-stack twin on either route,
+    as the JAX package's ``_packed_vjp_bwd`` does."""
 
     @staticmethod
-    def forward(ctx, x, specs, *params):
+    def forward(ctx, x, specs, dual, *params):
         ctx.specs = specs
         ctx.save_for_backward(x, *params)
+        if dual:
+            return _run_dual(x, params, specs[0], _launch_dual)
         stacks = _split(params, specs)
         hidden = [p[0].shape[0] for p in stacks]  # stem weight (F, 3, k, k)
         b, h, w, _ = x.shape
@@ -270,12 +429,12 @@ class _FusedStacks(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         saved = ctx.saved_tensors
-        needs = (ctx.needs_input_grad[0],) + ctx.needs_input_grad[2:]
+        needs = (ctx.needs_input_grad[0],) + ctx.needs_input_grad[3:]
         inputs = [t.detach().requires_grad_(n) for t, n in zip(saved, needs)]
         with torch.enable_grad():
             out = _stacks_ref(inputs[0], inputs[1:], ctx.specs)
         grads = _grads((out,), (g,), inputs)
-        return (grads[0], None, *grads[1:])
+        return (grads[0], None, None, *grads[1:])
 
 
 def encoder_stack_ref(encoder, x):
@@ -289,15 +448,19 @@ def encoder_stack_fused(encoder, x):
     x (B,H,W,3) NHWC -> (B,H,W,hidden)."""
     if x.device.type == "cpu":
         return encoder_stack_ref(encoder, x)
-    return _FusedStacks.apply(x.contiguous(), (_stack_spec(encoder),),
+    return _FusedStacks.apply(x.contiguous(), (_stack_spec(encoder),), False,
                               *_stack_params(encoder))
 
 
 def encoder_stack_fused_packed(enc_pix, enc_sem, x):
     """Both image-encoder stacks into one packed (B,H,W,2*hidden) buffer,
-    pixel stack first (the reference's torch.cat order)."""
+    pixel stack first (the reference's torch.cat order): each stack on K1,
+    or, with DUAL_ROUTE where K6 takes the shapes, both on K6 per layer."""
     specs = (_stack_spec(enc_pix), _stack_spec(enc_sem))
     params = _stack_params(enc_pix) + _stack_params(enc_sem)
+    dual = _dual_applies(x, params, specs)
     if x.device.type == "cpu":
+        if dual:
+            return _run_dual(x, params, specs[0], gn_silu_conv_dual_ref)
         return _stacks_ref(x, params, specs)
-    return _FusedStacks.apply(x.contiguous(), specs, *params)
+    return _FusedStacks.apply(x.contiguous(), specs, dual, *params)

@@ -55,11 +55,34 @@ def _scale(q, scale):
     return q.shape[-1] ** -0.5 if scale is None else float(scale)
 
 
-def cross_scale_na2d_fused_ref(q, k, v, kernel_size: int, scale=None):
+def _band_rows(q, k, row_cell0: int, full_hq):
+    """(row0, full_hq) of a K3 call whose q holds the rows from LR cell row
+    ``row_cell0`` on of a ``full_hq``-row query grid; (0, Hq) unbanded. A
+    band must be whole cell rows of an integer row ratio."""
+    hq, hk = q.shape[1], k.shape[1]
+    if full_hq is None or (row_cell0 == 0 and full_hq == hq):
+        if row_cell0:
+            raise ValueError("row_cell0 needs full_hq")
+        return 0, hq
+    if full_hq % hk or hq % (full_hq // hk):
+        raise ValueError(f"a banded call needs full_hq % hk == 0 and whole cell rows: "
+                         f"full_hq {full_hq}, hk {hk}, band of {hq} rows")
+    row0 = row_cell0 * (full_hq // hk)
+    if row_cell0 < 0 or row0 + hq > full_hq:
+        raise ValueError(f"band rows [{row0}, {row0 + hq}) outside the {full_hq}-row grid")
+    return row0, full_hq
+
+
+def cross_scale_na2d_fused_ref(q, k, v, kernel_size: int, scale=None, row_cell0: int = 0,
+                               full_hq=None):
     """Plain version of K3: the oracle with the scale folded into the keys
-    (as the kernel gets them). f32 logits and softmax; q's dtype out."""
+    (as the kernel gets them). f32 logits and softmax; q's dtype out.
+    ``row_cell0``/``full_hq``: q holds the query rows from LR cell row
+    ``row_cell0`` on of a ``full_hq``-row grid (banded, windows global)."""
+    row0, full = _band_rows(q, k, row_cell0, full_hq)
     ks = _scaled_keys(k, _scale(q, scale), k.dtype)
-    out = cross_scale_na2d(q.float(), ks.float(), v.float(), kernel_size, scale=1.0)
+    out = cross_scale_na2d(q.float(), ks.float(), v.float(), kernel_size, scale=1.0,
+                           row0=row0, full_hq=full)
     return out.to(q.dtype)
 
 
@@ -120,14 +143,18 @@ def _box(idx: np.ndarray, tile: int, lr: int):
 
 
 @functools.lru_cache(maxsize=64)
-def _plan(lib, smem, tiles, limits, hq, wq, hk, wk, ks, d, dv, device):
+def _plan(lib, smem, tiles, limits, hq, wq, hk, wk, ks, d, dv, device, rows=None):
     """Tile size, K/V box and window tables (on ``device``) of one kernel at
     one shape: the first tile of ``tiles`` (largest first) whose box needs at
     most a limit of ``limits`` bytes of shared memory, trying the limits in
     order. ``lib`` loads the kernel's library, whose function named ``smem``
-    gives the bytes: ``smem(d, dv, ks, box_rows, box_cols)``."""
+    gives the bytes: ``smem(d, dv, ks, box_rows, box_cols)``. ``rows``
+    (y0, y1) plans a band: the row tables and boxes are those of the global
+    query rows [y0, y1) of the hq-row grid."""
     smem_bytes = getattr(lib(), smem)
     idx_h = cross_scale_lr_indices(hq, hk, ks).astype(np.int32)
+    if rows is not None:
+        idx_h = idx_h[rows[0] : rows[1]]
     idx_w = cross_scale_lr_indices(wq, wk, ks).astype(np.int32)
     for limit in limits:
         for tqh, tqw in tiles:
@@ -172,12 +199,15 @@ def _check(q, k, v, *more):
     return b, hq, wq, n, d, hk, wk, dv
 
 
-def _launch_fwd(q, k, v, kernel_size, scale):
-    """Launch K3 on CUDA tensors; returns (B, Hq, Wq, n, dv) in q's dtype."""
+def _launch_fwd(q, k, v, kernel_size, scale, row0: int = 0, full_hq=None):
+    """Launch K3 on CUDA tensors; returns (B, Hq, Wq, n, dv) in q's dtype.
+    A band (q = rows [row0, row0 + Hq) of a ``full_hq``-row grid) runs the
+    same kernel on the band's rows of the global window tables."""
     b, hq, wq, n, d, hk, wk, dv = _check(q, k, v)
+    full = hq if full_hq is None else full_hq
     tqh, tqw, urh, urw, idx_h, idx_w, row_lo, col_lo = _plan(
-        _lib, "naf_na_fwd_smem", _TILES, (SMEM_BUDGET, SMEM_MAX), hq, wq, hk, wk, kernel_size,
-        d, dv, str(q.device))
+        _lib, "naf_na_fwd_smem", _TILES, (SMEM_BUDGET, SMEM_MAX), full, wq, hk, wk, kernel_size,
+        d, dv, str(q.device), None if full == hq else (row0, row0 + hq))
     qc, kc, vc = q.contiguous(), _scaled_keys(k, scale, k.dtype).contiguous(), v.contiguous()
     out = torch.empty((b, hq, wq, n, dv), dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):
@@ -225,15 +255,18 @@ def _launch_bwd(q, k, v, dout, kernel_size, scale):
 
 class _FusedNA(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, kernel_size, scale):
+    def forward(ctx, q, k, v, kernel_size, scale, row_cell0, full_hq):
         ctx.meta = (kernel_size, scale)
+        ctx.banded = full_hq != q.shape[1] or row_cell0 != 0
         ctx.save_for_backward(q, k, v)
         if q.device.type == "cpu":
-            return cross_scale_na2d_fused_ref(q, k, v, kernel_size, scale)
-        return _launch_fwd(q, k, v, kernel_size, scale)
+            return cross_scale_na2d_fused_ref(q, k, v, kernel_size, scale, row_cell0, full_hq)
+        return _launch_fwd(q, k, v, kernel_size, scale, *_band_rows(q, k, row_cell0, full_hq))
 
     @staticmethod
     def backward(ctx, g):
+        if ctx.banded:
+            raise NotImplementedError("banded fused NA is inference-only")
         kernel_size, scale = ctx.meta
         q, k, v = ctx.saved_tensors
         g = g.to(q.dtype)
@@ -241,17 +274,24 @@ class _FusedNA(torch.autograd.Function):
             grads = cross_scale_na2d_fused_bwd_ref(q, k, v, g, kernel_size, scale)
         else:
             grads = _launch_bwd(q, k, v, g, kernel_size, scale)
-        return (*grads, None, None)
+        return (*grads, None, None, None, None)
 
 
-def cross_scale_na2d_fused(q, k, v, kernel_size: int, scale=None):
+def cross_scale_na2d_fused(q, k, v, kernel_size: int, scale=None, row_cell0: int = 0,
+                           full_hq=None):
     """Cross-scale NA, differentiable. q (B, Hq, Wq, n, d), k (B, hk, wk, n, d),
     v (B, hk, wk, n, dv) -> (B, Hq, Wq, n, dv) in q's dtype; scale defaults to
     d**-0.5. CUDA tensors launch K3 forward and K4 backward; CPU tensors run
-    the plain versions."""
+    the plain versions.
+
+    Banded execution (inference only; K4 raises, as the JAX package does):
+    q holds the query rows from LR cell row ``row_cell0`` on of a
+    ``full_hq``-row grid, and the windows follow the global grid."""
     if kernel_size % 2 != 1:
         raise ValueError(f"kernel size must be odd, got {kernel_size}")
-    return _FusedNA.apply(q, k, v, kernel_size, _scale(q, scale))
+    full = q.shape[1] if full_hq is None else int(full_hq)
+    _band_rows(q, k, row_cell0, full)
+    return _FusedNA.apply(q, k, v, kernel_size, _scale(q, scale), int(row_cell0), full)
 
 
 cross_scale_na2d_fused.launches = 0

@@ -13,6 +13,13 @@ the box of LR cells its windows touch, which the kernel stages in shared
 memory. The softmax scale is folded into the keys here, as the JAX wrapper
 does.
 
+Banded variants (the JAX kernel's ``row_cell0`` / ``band_cells`` /
+``out_acc`` / ``enc_banded``, inference only) compute only LR cell rows
+[row_cell0, row_cell0 + band_cells) of the output with the global window
+rule, optionally into a shared full-size output in place and from an
+encoder output that holds only the band's input rows: the streamed
+4096^2 path (``naf_torch.api.naf_streamed``).
+
 The wrapper takes the plain version for CPU tensors only; for CUDA tensors
 it launches the kernel or raises. Its backward differentiates a twin, as the
 JAX package's ``_fused_q_twin`` does: pool-up and RoPE through torch
@@ -34,7 +41,7 @@ from naf_torch.kernels.na2d_fused import (
 )
 from naf_torch.nn.rope import rotate_half
 from naf_torch.ops.na2d import cross_scale_na2d
-from naf_torch.ops.pool import adaptive_avg_pool2d
+from naf_torch.ops.pool import _pool_matrix, adaptive_avg_pool2d
 
 __all__ = ["naf_upsample_attention", "naf_upsample_attention_ref", "fused_q_twin"]
 
@@ -43,32 +50,95 @@ __all__ = ["naf_upsample_attention", "naf_upsample_attention_ref", "fused_q_twin
 _TILES = ((8, 8), (4, 8), (4, 4), (2, 4), (2, 2), (1, 2), (1, 1))
 
 
+def _band(enc_shape, hq: int, hk: int, row_cell0: int, band_cells, enc_banded: bool):
+    """(y0, band_h, hi_full, enc_row0) of a call: its first global query
+    row and number of rows, the input rows of the whole encoder grid, and
+    the first of them that enc holds. The full-grid call is (0, Hq, hi, 0).
+    Validated as the JAX kernel's banded calls are, without its cell-block
+    multiple: whole cell rows, and with ``enc_banded`` an encoder band of
+    whole input rows that holds exactly the band's pooled rows."""
+    hi = enc_shape[1]
+    if row_cell0 == 0 and band_cells is None and not enc_banded:
+        return 0, hq, hi, 0
+    if enc_banded and band_cells is None:
+        raise ValueError("enc_banded requires band_cells")
+    if hk <= 0 or hq % hk:
+        raise ValueError(f"a banded call needs whole cell rows: Hq {hq} % hk {hk} != 0")
+    if band_cells is None:
+        band_cells = hk - row_cell0
+    if row_cell0 < 0 or band_cells <= 0 or row_cell0 + band_cells > hk:
+        raise ValueError(f"cell rows [{row_cell0}, {row_cell0 + band_cells}) outside [0, {hk})")
+    r_h = hq // hk
+    y0, band_h = row_cell0 * r_h, band_cells * r_h
+    if not enc_banded:
+        return y0, band_h, hi, 0
+    if (hi * hq) % band_h:
+        raise ValueError(f"banded enc rows {hi} do not divide evenly into the band's {band_h} "
+                         f"output rows at ratio {hq}/{hi}")
+    hi_full = hi * hq // band_h
+    if (y0 * hi_full) % hq:
+        raise ValueError(f"the band's first output row {y0} maps to no whole encoder row "
+                         f"({hi_full} rows for {hq})")
+    return y0, band_h, hi_full, y0 * hi_full // hq
+
+
+def _check_out_acc(out_acc, enc, b, hq, wq, cv):
+    if (out_acc.shape != (b, hq, wq, cv) or out_acc.dtype != enc.dtype
+            or out_acc.device != enc.device or not out_acc.is_contiguous()):
+        raise ValueError(f"out_acc must be a contiguous {(b, hq, wq, cv)} {enc.dtype} tensor "
+                         f"on {enc.device}")
+
+
+def _pool_band(x, hq: int, wq: int, y0: int, band_h: int, hi_full: int, enc_row0: int):
+    """Adaptive pool of x to query rows [y0, y0 + band_h) of an (hq, wq)
+    grid, x holding input rows from enc_row0 on of an hi_full-row grid."""
+    if (y0, band_h, hi_full) == (0, hq, x.shape[1]):
+        return adaptive_avg_pool2d(x, (hq, wq))
+    ph = _pool_matrix(hi_full, hq)[y0 : y0 + band_h, enc_row0 : enc_row0 + x.shape[1]]
+    x = torch.einsum("oh,bhwc->bowc", torch.from_numpy(ph).to(x.device, x.dtype), x)
+    return adaptive_avg_pool2d(x, (band_h, wq))
+
+
 def naf_upsample_attention_ref(enc, keys, values, rows_tab, cols_tab, rope_d_head=64, *,
-                               num_heads: int, kernel_size: int, scale=None):
+                               num_heads: int, kernel_size: int, scale=None,
+                               row_cell0: int = 0, band_cells=None, out_acc=None,
+                               enc_banded: bool = False):
     """Plain version of K2.
 
     enc (B, hi, wi, C) encoder output (before pool-up and RoPE); keys
     (B, hk, wk, C) RoPE'd pooled keys; values (B, hk, wk, Cv);
     rows_tab (Hq, 2C) / cols_tab (Wq, 2C) cos|sin RoPE tables. Pool, RoPE,
     logits and softmax run in f32; returns (B, Hq, Wq, Cv) in enc's dtype.
+
+    Banded: ``row_cell0``/``band_cells`` compute only LR cell rows
+    [row_cell0, row_cell0 + band_cells) (global windows) and return that
+    (B, band_cells * Hq/hk, Wq, Cv) slab, or, with ``out_acc`` (B, Hq, Wq, Cv),
+    write those rows into it in place and return it (every other row is
+    left as it was). ``enc_banded``: enc holds only the band's input rows.
     """
     b, hi, wi, c = enc.shape
     hq, wq = rows_tab.shape[0], cols_tab.shape[0]
     _, hk, wk, cv = values.shape
+    y0, band_h, hi_full, enc_row0 = _band(enc.shape, hq, hk, row_cell0, band_cells, enc_banded)
+    if out_acc is not None:
+        _check_out_acc(out_acc, enc, b, hq, wq, cv)
     n = num_heads
     d, dv = c // n, cv // n
     if scale is None:
         scale = d ** -0.5
-    xu = adaptive_avg_pool2d(enc.float(), (hq, wq))
+    xu = _pool_band(enc.float(), hq, wq, y0, band_h, hi_full, enc_row0)
     rot = rotate_half(xu, rope_d_head)
-    rt, ct = rows_tab.float(), cols_tab.float()
+    rt, ct = rows_tab.float()[y0 : y0 + band_h], cols_tab.float()
     q = xu * (rt[:, None, :c] * ct[None, :, :c]) + rot * (rt[:, None, c:] * ct[None, :, c:])
     k = _scaled_keys(keys, scale, enc.dtype).float()
     out = cross_scale_na2d(
-        q.reshape(b, hq, wq, n, d), k.reshape(b, hk, wk, n, d),
-        values.float().reshape(b, hk, wk, n, dv), kernel_size, scale=1.0,
-    )
-    return out.reshape(b, hq, wq, cv).to(enc.dtype)
+        q.reshape(b, band_h, wq, n, d), k.reshape(b, hk, wk, n, d),
+        values.float().reshape(b, hk, wk, n, dv), kernel_size, scale=1.0, row0=y0, full_hq=hq,
+    ).reshape(b, band_h, wq, cv).to(enc.dtype)
+    if out_acc is None:
+        return out
+    out_acc[:, y0 : y0 + band_h] = out
+    return out_acc
 
 
 @functools.cache
@@ -77,14 +147,15 @@ def _lib():
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.naf_fused_q_smem.argtypes = [i32] * 5
     lib.naf_fused_q_smem.restype = ctypes.c_longlong
-    lib.naf_fused_q.argtypes = [ptr] * 10 + [i32] * 17 + [ptr]
+    lib.naf_fused_q.argtypes = [ptr] * 10 + [i32] * 23 + [ptr]
     lib.naf_fused_q.restype = i32
     return lib
 
 
 def _launch(enc, keys, values, rows_tab, cols_tab, rope_d_head, num_heads, kernel_size,
-            scale):
-    """Launch K2 on CUDA tensors; returns (B, Hq, Wq, Cv) in enc's dtype."""
+            scale, row_cell0=0, band_cells=None, out_acc=None, enc_banded=False):
+    """Launch K2 on CUDA tensors; returns (B, Hq, Wq, Cv) in enc's dtype, or
+    a banded call's slab or ``out_acc`` (see the plain version)."""
     tensors = (enc, keys, values, rows_tab, cols_tab)
     if any(t.device.type != "cuda" or t.device != enc.device for t in tensors):
         raise ValueError("K2 launches on CUDA tensors, all on one device")
@@ -110,19 +181,26 @@ def _launch(enc, keys, values, rows_tab, cols_tab, rope_d_head, num_heads, kerne
     d, dv = c // n, cv // n
     if scale is None:
         scale = d ** -0.5
+    y0, band_h, hi_full, enc_row0 = _band(enc.shape, hq, hk, row_cell0, band_cells, enc_banded)
     tqh, tqw, urh, urw, idx_h, idx_w, row_lo, col_lo = _plan(
         _lib, "naf_fused_q_smem", _TILES, (SMEM_BUDGET, SMEM_MAX), hq, wq, hk, wk, kernel_size,
-        d, dv, str(enc.device))
+        d, dv, str(enc.device), None if band_h == hq else (y0, y0 + band_h))
     k_scaled = _scaled_keys(keys, scale, enc.dtype).contiguous()
     rt = rows_tab.float().contiguous()
     ct = cols_tab.float().contiguous()
-    out = torch.empty((b, hq, wq, cv), dtype=enc.dtype, device=enc.device)
+    if out_acc is not None:
+        _check_out_acc(out_acc, enc, b, hq, wq, cv)
+        out, out_row0 = out_acc, 0
+    else:
+        out = torch.empty((b, band_h, wq, cv), dtype=enc.dtype, device=enc.device)
+        out_row0 = y0
     with torch.cuda.device(enc.device):
         err = _lib().naf_fused_q(
             enc.data_ptr(), k_scaled.data_ptr(), values.data_ptr(), rt.data_ptr(),
             ct.data_ptr(), idx_h.data_ptr(), idx_w.data_ptr(), row_lo.data_ptr(),
-            col_lo.data_ptr(), out.data_ptr(), b, hi, wi, hq, wq, hk, wk, c, n, cv,
-            kernel_size, rope_d_head, tqh, tqw, urh, urw, int(enc.dtype == torch.bfloat16),
+            col_lo.data_ptr(), out.data_ptr(), b, hi, wi, hi_full, enc_row0, hq, wq, y0,
+            band_h, out.shape[1], out_row0, hk, wk, c, n, cv, kernel_size, rope_d_head, tqh,
+            tqw, urh, urw, int(enc.dtype == torch.bfloat16),
             torch.cuda.current_stream().cuda_stream,
         )
     if err:
@@ -172,14 +250,27 @@ class _FusedQ(torch.autograd.Function):
 
 
 def naf_upsample_attention(enc, keys, values, rows_tab, cols_tab, rope_d_head=64, *,
-                           num_heads: int, kernel_size: int, scale=None):
+                           num_heads: int, kernel_size: int, scale=None, row_cell0: int = 0,
+                           band_cells=None, out_acc=None, enc_banded: bool = False):
     """Fused pool-up + RoPE + cross-scale NA (arguments as in the plain
     version). CPU tensors take the plain version; CUDA tensors launch K2
-    (count in ``naf_upsample_attention.launches``)."""
+    (count in ``naf_upsample_attention.launches``). The full-grid call is
+    differentiable; the banded variants are inference-only and raise if a
+    gradient is required, as the JAX package sends them straight to its
+    kernel."""
+    band = dict(row_cell0=row_cell0, band_cells=band_cells, out_acc=out_acc,
+                enc_banded=enc_banded)
+    banded = row_cell0 != 0 or band_cells is not None or out_acc is not None or enc_banded
+    if banded and torch.is_grad_enabled() and any(
+            t.requires_grad for t in (enc, keys, values, rows_tab, cols_tab)):
+        raise NotImplementedError("the banded variants of K2 are inference-only")
     if enc.device.type == "cpu":
         return naf_upsample_attention_ref(
             enc, keys, values, rows_tab, cols_tab, rope_d_head, num_heads=num_heads,
-            kernel_size=kernel_size, scale=scale)
+            kernel_size=kernel_size, scale=scale, **band)
+    if banded:
+        return _launch(enc, keys, values, rows_tab, cols_tab, rope_d_head, num_heads,
+                       kernel_size, scale, **band)
     return _FusedQ.apply(enc, keys, values, rows_tab, cols_tab, rope_d_head, num_heads,
                          kernel_size, scale)
 

@@ -22,6 +22,14 @@ the encoder (K1 on CUDA), pool to the output size, RoPE with the train-time
 coordinate rescale, pooled keys, then ``CrossScaleAttention``, whose "auto"
 implementation runs kernels K3 forward and K4 backward on CUDA tensors.
 ``return_weights`` takes the modular path with the plain attention oracle.
+
+``band_rows`` (inference) runs the attention in row bands of the output with
+the global window rule: the encoder, keys and RoPE tables once, then one K2
+launch per band, each writing its rows into one shared output in place. With
+``na_impl="xla"`` a band raises, as the JAX package's plain attention does
+(K2 takes every shape the port serves, so the JAX package's fallback through
+``CrossScaleAttention`` bands, for shapes its TPU kernel refuses, has no
+counterpart here). Training ignores ``band_rows``, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -39,7 +47,7 @@ from naf_torch.nn.rope import RoPE, RopeDraws
 from naf_torch.ops.pool import adaptive_avg_pool2d
 from naf_torch.ops.resize import resize_bilinear
 
-__all__ = ["NAF", "ImageEncoder"]
+__all__ = ["NAF", "ImageEncoder", "band_cells"]
 
 
 class ImageEncoder(nn.Module):
@@ -128,24 +136,66 @@ class NAF(nn.Module):
         ``draws`` or drawn from ``generator`` (none without either, as the
         JAX package does without an rng)."""
         if band_rows is not None and not return_weights and not train:
-            raise NotImplementedError("band_rows (streamed outputs) comes with the "
-                                      "streamed slice")
+            return self._banded(image, features, output_size, band_rows)
         if not train and not return_weights and self.na_impl != "xla":
             return self._fused_q(image, features, output_size)
         x = self.image_encoder(image, output_size, train, generator, draws)
         keys = adaptive_avg_pool2d(x, features.shape[1:3])  # KeyEncoder
         return self.upsampler(x, keys, features, return_weights=return_weights)
 
-    def _fused_q(self, image, features, output_size):
+    def _fused_q_inputs(self, image, features, output_size):
+        """Encoder output, pooled keys and the cos|sin row/column tables of
+        the fused path."""
         oh, ow = int(output_size[0]), int(output_size[1])
         hk, wk = features.shape[1], features.shape[2]
         enc = self.image_encoder.encode_guarded(image, (oh, ow))
         rope = self.image_encoder.rope
         keys = rope.pooled(enc, (oh, ow), (hk, wk))
         sin_r, cos_r, sin_c, cos_c = rope.tables(oh, ow)
-        rows_tab = torch.cat([cos_r, sin_r], dim=-1)
-        cols_tab = torch.cat([cos_c, sin_c], dim=-1)
+        return (enc.contiguous(), keys.contiguous(), torch.cat([cos_r, sin_r], dim=-1),
+                torch.cat([cos_c, sin_c], dim=-1))
+
+    def _fused_q(self, image, features, output_size):
+        enc, keys, rows_tab, cols_tab = self._fused_q_inputs(image, features, output_size)
         return naf_upsample_attention(
-            enc.contiguous(), keys.contiguous(), features.contiguous(), rows_tab, cols_tab,
-            rope.d_head, num_heads=self.heads_attn, kernel_size=self.kernel_size,
+            enc, keys, features.contiguous(), rows_tab, cols_tab,
+            self.image_encoder.rope.d_head, num_heads=self.heads_attn,
+            kernel_size=self.kernel_size,
         )
+
+    def _banded(self, image, features, output_size, band_rows: int):
+        """Row-banded attention (exact; inference only). The encoder runs at
+        full resolution (its GroupNorm statistics are global per image); the
+        attention runs per band of ``band_rows`` output rows with global
+        window indexing."""
+        cells_per_band = band_cells(int(output_size[0]), features.shape[1], band_rows)
+        if self.na_impl == "xla":
+            raise NotImplementedError("banded attention requires the pallas impl")
+        return self._fused_q_banded(image, features, output_size, cells_per_band)
+
+    @torch.no_grad()
+    def _fused_q_banded(self, image, features, output_size, cells_per_band: int):
+        """The fused path in bands: the encoder output, keys and tables once,
+        then one K2 launch per band, each writing its cell rows into the
+        shared output in place (the bands cover every row). Inference only:
+        the output carries no gradient."""
+        oh, ow = int(output_size[0]), int(output_size[1])
+        enc, keys, rows_tab, cols_tab = self._fused_q_inputs(image, features, output_size)
+        feats = features.contiguous()
+        out = torch.empty((image.shape[0], oh, ow, features.shape[-1]), dtype=enc.dtype,
+                          device=enc.device)
+        for c0 in range(0, features.shape[1], cells_per_band):
+            naf_upsample_attention(
+                enc, keys, feats, rows_tab, cols_tab, self.image_encoder.rope.d_head,
+                num_heads=self.heads_attn, kernel_size=self.kernel_size, row_cell0=c0,
+                band_cells=cells_per_band, out_acc=out)
+        return out
+
+
+def band_cells(out_h: int, lr_h: int, band_rows: int) -> int:
+    """LR cell rows per band of ``band_rows`` output rows; raises unless the
+    bands are whole cell rows that tile the output."""
+    if out_h % lr_h or out_h % band_rows or band_rows % (out_h // lr_h):
+        raise ValueError("band_rows must divide output height and be a multiple of the "
+                         "cell stride (output_height // lr_height)")
+    return band_rows // (out_h // lr_h)

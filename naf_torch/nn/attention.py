@@ -11,6 +11,11 @@ Implementations (names kept from the JAX package):
 - "xla": the plain gather + einsum oracle (any ratio, ``return_weights``);
 - "auto": "pallas" for CUDA tensors, as the JAX package picks Pallas on the
   TPU, else "xla". ``return_weights`` always takes the oracle.
+
+Banded execution (``row_cell0``/``full_hq``: q holds the query rows from LR
+cell row ``row_cell0`` on of a ``full_hq``-row grid) runs on the "pallas"
+implementation only; the "xla" one raises ``NotImplementedError``, as the
+JAX package's does.
 """
 
 from __future__ import annotations
@@ -36,7 +41,8 @@ class CrossScaleAttention(nn.Module):
         self.kernel_size = kernel_size
         self.impl = impl
 
-    def forward(self, q, k, v, return_weights: bool = False):
+    def forward(self, q, k, v, return_weights: bool = False, row_cell0: int = 0,
+                full_hq=None):
         if self.dim % self.num_heads != 0:
             raise ValueError("dim must be divisible by num_heads")
         if v.shape[-1] % self.num_heads != 0:
@@ -53,8 +59,11 @@ class CrossScaleAttention(nn.Module):
         if impl == "auto":
             impl = "pallas" if q.device.type == "cuda" else "xla"
         if impl == "pallas" and not return_weights:
-            out = cross_scale_na2d_fused(qh, kh, vh, self.kernel_size, scale=d ** -0.5)
+            out = cross_scale_na2d_fused(qh, kh, vh, self.kernel_size, scale=d ** -0.5,
+                                         row_cell0=row_cell0, full_hq=full_hq)
             return out.reshape(b, hq, wq, n * dv)
+        if row_cell0 != 0 or (full_hq is not None and full_hq != hq):
+            raise NotImplementedError("banded attention requires the pallas impl")
         res = cross_scale_na2d(qh, kh, vh, self.kernel_size, scale=d ** -0.5,
                                return_weights=return_weights)
         if return_weights:

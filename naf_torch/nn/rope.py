@@ -129,13 +129,17 @@ class RoPE(nn.Module):
 
     def tables(self, h: int, w: int, train: bool = False,
                generator: Optional[torch.Generator] = None,
-               draws: Optional[RopeDraws] = None):
+               draws: Optional[RopeDraws] = None, row_offset: int = 0,
+               full_h: Optional[int] = None):
         """f32 (sin_r, cos_r) of shape (h, C) and (sin_c, cos_c) of shape (w, C).
 
         With ``train``, the axis coordinates take the augmentation given in
         ``draws``, or drawn from ``generator``; with neither, none (as the
-        JAX package does without an rng)."""
-        ch, cw = (torch.from_numpy(a) for a in _axis_coords(h, w))
+        JAX package does without an rng). ``row_offset``/``full_h``: the h
+        rows are rows [row_offset, row_offset + h) of a ``full_h``-row grid
+        and take that slice of its row coordinates (banded execution)."""
+        ch, cw = _axis_coords(full_h or h, w)
+        ch, cw = torch.from_numpy(ch[row_offset : row_offset + h]), torch.from_numpy(cw)
         if train and draws is None and generator is not None:
             draws = self.draw(generator)
         if train and draws is not None:
@@ -163,17 +167,22 @@ class RoPE(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 generator: Optional[torch.Generator] = None,
-                draws: Optional[RopeDraws] = None) -> torch.Tensor:
+                draws: Optional[RopeDraws] = None, row_offset: int = 0,
+                full_h: Optional[int] = None) -> torch.Tensor:
+        """Apply RoPE; x may hold rows [row_offset, row_offset + h) of a
+        ``full_h``-row grid (banded execution)."""
         b, h, w, c = x.shape
         if c != self.embed_dim:
             raise ValueError(f"expected {self.embed_dim} channels, got {c}")
         sin_r, cos_r, sin_c, cos_c = (
-            t.to(x.dtype) for t in self.tables(h, w, train, generator, draws))
+            t.to(x.dtype) for t in self.tables(h, w, train, generator, draws, row_offset,
+                                               full_h))
         rot = rotate_half(x, self.d_head)
         return (x * cos_r[:, None] * cos_c[None]
                 + rot * sin_r[:, None] * sin_c[None])
 
-    def pooled(self, x: torch.Tensor, up_hw, down_hw) -> torch.Tensor:
+    def pooled(self, x: torch.Tensor, up_hw, down_hw, row0: int = 0,
+               full_h: Optional[int] = None) -> torch.Tensor:
         """``adaptive_pool(rope(adaptive_pool(x, up_hw)), down_hw)`` without
         materialising the up_hw grid: the NAF keys.
 
@@ -182,11 +191,17 @@ class RoPE(nn.Module):
         collapse to ``(Pd_r diag(cos_r[:, c]) Pu_r) x_c (Pd_c diag(cos_c[:, c]) Pu_c)^T``
         plus the same with sin and the rotated x. When x already has the
         up_hw size, RoPE then pool-down is exact and cheaper.
+
+        ``row0``/``full_h``: x holds rows [row0, row0 + hi) of a ``full_h``-row
+        encoder grid, and the return is that band's additive contribution to
+        the keys (the row pool is linear: the contributions of a partition
+        of the rows sum to the keys of the whole grid).
         """
         b, hi, wi, c = x.shape
+        fh = full_h or hi
         oh, ow = int(up_hw[0]), int(up_hw[1])
         kh, kw = int(down_hw[0]), int(down_hw[1])
-        if (hi, wi) == (oh, ow):
+        if (hi, wi) == (oh, ow) and full_h is None:
             return adaptive_avg_pool2d(self(x), (kh, kw))
         ch, cw = _axis_coords(oh, ow)
         nfreq = self.d_head // 4
@@ -218,7 +233,8 @@ class RoPE(nn.Module):
             return a_uniq[cos_map], a_uniq[sin_map]
 
         dt = x.dtype
-        ar_cos, ar_sin = (a.to(dt) for a in expand(axis_mats(kh, oh, hi, ch), True))
+        ar = axis_mats(kh, oh, fh, ch)[:, :, row0 : row0 + hi]
+        ar_cos, ar_sin = (a.to(dt) for a in expand(ar, True))
         ac_cos, ac_sin = (a.to(dt) for a in expand(axis_mats(kw, ow, wi, cw), False))
         rot = rotate_half(x, self.d_head)
         term_c = torch.einsum("ckj,bjwc->bkwc", ar_cos, x)

@@ -58,13 +58,15 @@ def na2d(q, k, v, kernel_size, dilation=(1, 1), scale=None, return_weights=False
 
 
 def cross_scale_na2d(q, k, v, kernel_size, scale=None, return_weights=False,
-                     row_block=None):
+                     row_block=None, row0: int = 0, full_hq=None):
     """Cross-scale neighborhood attention: HR queries over LR keys/values.
 
     Equal to nearest-exact upsampling K/V to Q's grid and running
     :func:`na2d` with dilation (H//h, W//w). Large query grids run in row
     blocks so the gathered windows stay under ~256 MB per block;
-    ``row_block=0`` turns blocking off.
+    ``row_block=0`` turns blocking off. ``row0``/``full_hq``: q holds rows
+    [row0, row0 + H) of a ``full_hq``-row query grid, and the windows follow
+    that global grid (banded execution).
 
     q: (B, H, W, heads, d); k: (B, h, w, heads, d); v: (B, h, w, heads, dv).
     Returns (B, H, W, heads, dv), and with ``return_weights`` also the scaled
@@ -76,7 +78,8 @@ def cross_scale_na2d(q, k, v, kernel_size, scale=None, return_weights=False,
     b, hq, wq = q.shape[:3]
     hk, wk = k.shape[1], k.shape[2]
     dev = q.device
-    idx_h = torch.from_numpy(cross_scale_lr_indices(hq, hk, kh)).to(dev)
+    idx_h = torch.from_numpy(
+        cross_scale_lr_indices(full_hq or hq, hk, kh)[row0 : row0 + hq]).to(dev)
     idx_w = torch.from_numpy(cross_scale_lr_indices(wq, wk, kw)).to(dev)
     if row_block is None:
         per_row = b * wq * kh * kw * q.shape[3] * (q.shape[4] + v.shape[4]) * 4

@@ -17,9 +17,12 @@ import torch
 
 from naf_torch.convert import encoder_state_dict_from_jax
 from naf_torch.kernels import _build
+from naf_torch.kernels import encoder_fused as t_enc
 from naf_torch.kernels.encoder_fused import (
     encoder_stack_fused,
     encoder_stack_fused_packed,
+    gn_silu_conv_dual_fused,
+    gn_silu_conv_dual_ref,
     gn_silu_conv_fused,
     gn_silu_conv_ref,
 )
@@ -100,6 +103,89 @@ def test_packed_stack_matches_pallas_packed_stack():
         np.testing.assert_allclose(
             encoder_stack_fused(ms, torch.from_numpy(x)).numpy(),
             ms(torch.from_numpy(x)).numpy(), **TOL)
+
+
+def _dual_inputs(b=1, c=128, hw=16):
+    """A packed (b, hw, hw, 2c) layer input, f32 affines, and both stacks'
+    weights in the JAX layout (HWIO)."""
+    rng = np.random.RandomState(20)
+    return (rng.randn(b, hw, hw, 2 * c).astype(np.float32),
+            (rng.rand(b, 2 * c) + 0.5).astype(np.float32),
+            (rng.randn(b, 2 * c) * 0.1).astype(np.float32),
+            (rng.randn(1, 1, c, c) * 0.09).astype(np.float32),
+            (rng.randn(3, 3, c, c) * 0.03).astype(np.float32),
+            (rng.randn(c) * 0.1).astype(np.float32), (rng.randn(c) * 0.1).astype(np.float32))
+
+
+def _dual_torch(x, sc, sh, wp, ws, bp, bs):
+    """The same inputs as torch tensors, weights as (out, in, kh, kw)."""
+    t = torch.from_numpy
+    return (t(x), t(sc), t(sh), t(wp).permute(3, 2, 0, 1), t(ws).permute(3, 2, 0, 1), t(bp),
+            t(bs))
+
+
+def test_dual_layer_ref_matches_pallas():
+    """K6's plain version against the TPU dual kernel in interpret mode."""
+    args = _dual_inputs()
+    want_y, want_ps = j_enc.gn_silu_conv_dual_fused(*map(jnp.asarray, args), interpret=True)
+    got_y, got_ps = gn_silu_conv_dual_ref(*_dual_torch(*args))
+    np.testing.assert_allclose(got_y.numpy(), np.asarray(want_y), **TOL)
+    np.testing.assert_allclose(got_ps.numpy() / 256, np.asarray(want_ps) / 256, **TOL)
+    # on CPU tensors the wrapper is the plain version
+    y, ps = gn_silu_conv_dual_fused(*_dual_torch(*args))
+    torch.testing.assert_close(y, got_y)
+    torch.testing.assert_close(ps, got_ps)
+
+
+def test_dual_route_matches_pallas_dual_and_per_stack(monkeypatch):
+    """With DUAL_ROUTE on, the packed stacks take the merged stem and one
+    packed layer per depth (K6's plain version here): against the JAX dual
+    forward in interpret mode (2e-4), and against the port's per-stack route
+    at the JAX package's own bar for the two routes (atol 1e-5, rtol 1e-4)."""
+    x = np.random.RandomState(4).randn(1, 32, 32, 3).astype(np.float32)
+    (tp, ts), (mp, ms) = _jax_stacks(x)
+    want = j_enc._dual_fwd_impl(tp, ts, jnp.asarray(x), 128, 2, 8, 1e-5, True)
+    calls = []
+    monkeypatch.setattr(t_enc, "gn_silu_conv_dual_ref",
+                        lambda *a: calls.append(1) or gn_silu_conv_dual_ref(*a))
+    with torch.no_grad():
+        per_stack = encoder_stack_fused_packed(mp, ms, torch.from_numpy(x))
+        assert not calls
+        monkeypatch.setattr(t_enc, "DUAL_ROUTE", True)
+        got = encoder_stack_fused_packed(mp, ms, torch.from_numpy(x))
+    assert len(calls) == 4  # one packed layer per depth
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    np.testing.assert_allclose(got.numpy(), per_stack.numpy(), atol=1e-5, rtol=1e-4)
+
+
+def test_dual_route_rule_is_shapes_alone(monkeypatch):
+    """The K6 route is chosen from the shapes, before any launch: off by
+    default, on for a 1x1 pixel and a 3x3 semantic stack of one width with
+    C % 16 == 0 and H, W >= 2; K6's own shape rule names what it refuses."""
+    x = torch.zeros(1, 8, 8, 3)
+    pix = Encoder(32, kernel_size=1, ks_res=1, num_layers=1)
+    sem = Encoder(32, kernel_size=3, ks_res=3, num_layers=1)
+    params = t_enc._stack_params(pix) + t_enc._stack_params(sem)
+    specs = (t_enc._stack_spec(pix), t_enc._stack_spec(sem))
+    assert not t_enc._dual_applies(x, params, specs)
+    monkeypatch.setattr(t_enc, "DUAL_ROUTE", True)
+    assert t_enc._dual_applies(x, params, specs)
+    assert not t_enc._dual_applies(x[:, :1], params, specs)  # reflect padding
+    swapped = t_enc._stack_params(sem) + t_enc._stack_params(pix)
+    assert not t_enc._dual_applies(x, swapped, specs[::-1])
+    narrow = Encoder(24, kernel_size=1, ks_res=1, num_layers=1)
+    narrow_sem = Encoder(24, kernel_size=3, ks_res=3, num_layers=1)
+    assert not t_enc._dual_applies(
+        x, t_enc._stack_params(narrow) + t_enc._stack_params(narrow_sem), specs)
+    assert "C % 16" in t_enc._dual_shape_error((1, 8, 8, 48), (24, 24, 1, 1), (24, 24, 3, 3))
+    assert t_enc._dual_shape_error((1, 8, 8, 64), (32, 32, 1, 1), (32, 32, 3, 3)) is None
+    assert "encoder_dual" in _build.SOURCES
+    meta = torch.zeros(1, 8, 8, 64, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        gn_silu_conv_dual_fused(meta, torch.ones(64, device="meta"), torch.zeros(64, device="meta"),
+                                torch.zeros(32, 32, 1, 1, device="meta"),
+                                torch.zeros(32, 32, 3, 3, device="meta"),
+                                torch.zeros(32, device="meta"), torch.zeros(32, device="meta"))
 
 
 def _fused_q_inputs(hi, out, hk=16, c=128, cv=96, n=2):
@@ -290,3 +376,25 @@ def test_k3_k4_kernels_match_plain_on_card(cuda_device, hq, hk, k):
     want = cross_scale_na2d_fused_bwd_ref(q.detach(), kk.detach(), v.detach(), dout, k)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, atol=2e-3, rtol=2e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 2])
+def test_k6_kernel_matches_plain_on_card(cuda_device, b):
+    torch.backends.cudnn.allow_tf32 = False
+    args = [t.to(cuda_device) for t in _dual_torch(*_dual_inputs(b))]
+    launches = gn_silu_conv_dual_fused.launches
+    y, ps = gn_silu_conv_dual_fused(*args)
+    assert gn_silu_conv_dual_fused.launches == launches + 1
+    y_ref, ps_ref = gn_silu_conv_dual_ref(*args)
+    torch.testing.assert_close(y, y_ref, **TOL)
+    torch.testing.assert_close(ps / 256, ps_ref / 256, **TOL)
+
+
+@pytest.mark.cuda
+def test_k6_is_inference_only_on_card(cuda_device):
+    """K6 takes no gradient: the dual route differentiates the per-stack twin."""
+    args = [t.to(cuda_device) for t in _dual_torch(*_dual_inputs(1))]
+    args[0].requires_grad_()
+    with pytest.raises(NotImplementedError, match="inference-only"):
+        gn_silu_conv_dual_fused(*args)

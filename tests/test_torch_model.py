@@ -121,13 +121,21 @@ def test_bf16_model_keeps_f32_periods_and_runs():
     assert out.dtype == torch.bfloat16 and bool(out.isfinite().all())
 
 
-def test_later_slices_raise():
-    """Streamed outputs are a later slice; training is this one, and the
-    JAX package ignores band_rows when training."""
-    model = NAF(**SMALL)
-    x, f = torch.zeros(1, 32, 32, 3), torch.zeros(1, 16, 16, 64)
-    with pytest.raises(NotImplementedError, match="streamed"):
-        model(x, f, (32, 32), band_rows=8)
+def test_band_rows_xla_raises_and_training_ignores_it():
+    """band_rows runs the banded attention, which the plain ("xla")
+    implementation refuses, as the JAX package's does; training ignores
+    band_rows, as the JAX package does."""
+    image, feats = _rand(14, 1, 32, 32, 3), _rand(15, 1, 16, 16, 64)
+    x, f = torch.from_numpy(image), torch.from_numpy(feats)
+    model = NAF(**SMALL).eval()
+    with torch.no_grad():
+        torch.testing.assert_close(model(x, f, (32, 32), band_rows=8), model(x, f, (32, 32)))
+    xla = NAF(**SMALL, na_impl="xla")
+    xla.load_state_dict(model.state_dict())
+    with pytest.raises(NotImplementedError, match="pallas"):
+        xla(x, f, (32, 32), band_rows=8)
+    with pytest.raises(ValueError, match="band_rows must divide"):
+        model(x, f, (32, 32), band_rows=6)
     out = model(x, f, (32, 32), train=True, band_rows=8)
     assert out.shape == (1, 32, 32, 64)
     with pytest.raises(ValueError, match="na_impl"):
