@@ -4,12 +4,15 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``naf_torch/kernels/csrc`` with nvcc (into
-``build/naf_torch/``), then, each phase on its own lines:
+``build/naf_torch/``) and counts the ``HGMMA`` (wgmma) instructions in the K1
+and K6 libraries with ``cuobjdump -sass`` (none fails: their bf16 kernels
+run on the tensor cores), then, each phase on its own lines:
 
 1. K1 (fused GN -> SiLU -> conv encoder layer) against its plain PyTorch
    version at the production layer shape (1, 448, 448, 128), k = 1 and 3, f32
-   (atol = rtol = 2e-4) and bf16 (cosine > 0.9995 against the f32 plain
-   version), and once at batch 2;
+   (atol = rtol = 2e-4, the CUDA-core kernel) and bf16 (cosine > 0.9995
+   against the f32 plain version, the tensor-core kernel), once at batch 2,
+   once at 2048^2 and at a banded-encoder band (1, 262, 452, 128), k = 1 and 3;
 2. K2 (fused pool-up + RoPE + cross-scale attention) against its plain
    version at the main path's shapes (448^2 -> 448^2, identity pool, and
    448^2 -> 2048^2, ragged pool-up) and at 224^2 -> 448^2, same bars;
@@ -18,7 +21,8 @@ Builds the CUDA kernels from ``naf_torch/kernels/csrc`` with nvcc (into
    request, with launch counters showing 8 K1 and 1 K2 launches per forward;
    its output is held against the modular path (plain attention oracle) on
    the card and against an f32 copy of the model on the CPU (cosine > 0.999);
-   a torch.profiler breakdown of device time per forward by kernel;
+   a torch.profiler breakdown of device time per forward by kernel, with
+   K1's share;
    one gradient of each wrapper is held against autograd of its plain
    version (2e-3); per-forward time and the forward's own peak memory;
 4. K3 (cross-scale NA forward) and K4 (its recompute-P backward) against
@@ -54,14 +58,15 @@ Builds the CUDA kernels from ``naf_torch/kernels/csrc`` with nvcc (into
 8. the time of each kernel at the production shape (K2 also at 2048^2, K3
    and K4 at both shapes of phase 4, K3 also at AnyUp's k 7 shape, K5 at
    FeatUp's and JBU's, K6 beside the K1 1x1 + 3x3 pair on the same halves)
-   beside its plain version's, a library yardstick and the card's bound.
+   beside its plain version's, a library yardstick and the card's bound; K1
+   and K6 in bf16 and in f32 (their two kernels).
 
 Phases 9-12 run after phase 4:
 
 9. K6 (both encoder stacks' layer over the packed [pix|sem] buffer) against
    its plain version at the production layer (1, 448, 448, 256), C = 128 per
-   stack, and once at batch 2: f32 atol = rtol = 2e-4, bf16 cosine > 0.9995
-   against the f32 plain version;
+   stack, once at batch 2, at 2048^2 and at a band (1, 262, 452, 256): f32
+   atol = rtol = 2e-4, bf16 cosine > 0.9995 against the f32 plain version;
 10. the banded variants against their plain versions at one interior band:
    K2 at 448^2 -> 2048^2 <- 128^2 (a slab, and ``out_acc`` + ``enc_banded``
    leaving every other row untouched) and K3 at 448^2 <- 28^2, same bars,
@@ -142,6 +147,29 @@ def _time_ms(fn, iters: int = 10) -> float:
     return t0.elapsed_time(t1) / iters
 
 
+def _kernel_ms(fn, match=None, reps: int = 20) -> float:
+    """Device time per call of ``fn`` in the kernels whose name holds
+    ``match`` (every kernel with None), from torch.profiler (CUPTI) over
+    ``reps`` calls after a warm-up: the kernels' own time, without the host
+    time between launches that CUDA events around a host-bound loop would
+    measure."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    # CPU and CUDA activity, as _profile traces: a CUDA-only trace once came
+    # back without device events
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
+          and (match is None or match in e.key)]
+    if not ev:
+        raise AssertionError(f"the profile shows no kernel matching {match!r}")
+    return sum(e.self_device_time_total for e in ev) / reps / 1e3
+
+
 def _check_close(name, got, want, tol, chunk: int = 1 << 26):
     """Max abs error, raising unless every element is within atol = rtol =
     tol; in float64, a chunk of elements at a time."""
@@ -172,10 +200,11 @@ def phase_k1(dev):
 
     gen = torch.Generator(device=dev).manual_seed(0)
     errs = {}
-    # the main path's 448^2 layers, and one 3x3 layer on the 2048-wide rows
-    # of a 2048^2 guide (the dual route's and the banded encoder's width)
-    for b, k, h in ((1, 1, 448), (1, 3, 448), (2, 3, 448), (1, 3, 2048)):
-        w = h
+    # the main path's 448^2 layers, one 3x3 layer on the 2048-wide rows of a
+    # 2048^2 guide (the dual route's and the banded encoder's width), and a
+    # banded-encoder band: 256 rows + 2 x 3 halo rows, W no multiple of 16
+    for b, k, h, w in ((1, 1, 448, 448), (1, 3, 448, 448), (2, 3, 448, 448),
+                       (1, 3, 2048, 2048), (1, 3, 262, 452), (1, 1, 262, 452)):
         c = f = 128
         x = torch.randn(b, h, w, c, generator=gen, device=dev)
         scale = torch.rand(b, c, generator=gen, device=dev) * 0.5 + 0.75
@@ -193,11 +222,11 @@ def phase_k1(dev):
         cy = _check_cos(f"K1 bf16 y b={b} k={k}", yb.float(), y_ref, 0.9995)
         cp = _check_cos(f"K1 bf16 psums b={b} k={k}", psb, ps_ref, 0.9995)
         errs[(b, k, h)] = e
-        print(f"K1 b={b} k={k} {h}^2: f32 max_abs_err {e:.3e}; bf16 cos y {cy:.6f} psums "
+        print(f"K1 b={b} k={k} {h}x{w}: f32 max_abs_err {e:.3e}; bf16 cos y {cy:.6f} psums "
               f"{cp:.6f}", flush=True)
         del x, y, ps, yb, psb, y_ref, ps_ref
     torch.cuda.empty_cache()
-    return errs[(1, 3, 448)]
+    return max(errs.values())
 
 
 def _k2_inputs(dev, gen, hi, out=448, hk=28, c=256, cv=384, heads=4):
@@ -302,10 +331,10 @@ def phase_main(dev, card):
         ups(image, feats, out)
         torch.cuda.synchronize()
         peak = (torch.cuda.max_memory_allocated() - base) / 2**20
-        stats[label] = (ms, peak)
         print(f"forward 448^2 -> {label}^2 bf16: {ms:.3f} ms, peak {peak:.1f} MiB ({card})",
               flush=True)
-        _profile(lambda: ups(image, feats, out), f"448^2 -> {label}^2")
+        prof = _profile(lambda: ups(image, feats, out), f"448^2 -> {label}^2")
+        stats[label] = (ms, peak, prof)
     return launches, stats
 
 
@@ -330,9 +359,13 @@ def _profile(fn, label, reps=3):
             rows[e.key] = e.self_device_time_total / reps / 1e3
     busy = sum(rows.values())
     top = sorted(rows.items(), key=lambda kv: -kv[1])[:8]
+    # K1's kernels: the tensor-core one (bf16) and the CUDA-core one (f32)
+    k1 = sum(v for k, v in rows.items() if "gn_silu_conv" in k and "dual" not in k)
+    k2 = sum(v for k, v in rows.items() if "fused_q_kernel" in k)
     print(f"profile {label}: device busy {busy:.3f} of {wall:.3f} ms wall "
-          f"({100 * busy / wall:.1f}%); top: "
-          + "; ".join(f"{k[:60]} {v:.3f} ms" for k, v in top), flush=True)
+          f"({100 * busy / wall:.1f}%); K1 {k1:.3f} ms ({100 * k1 / busy:.1f}% of busy), K2 "
+          f"{k2:.3f} ms; top: " + "; ".join(f"{k[:60]} {v:.3f} ms" for k, v in top), flush=True)
+    return dict(busy_ms=busy, wall_ms=wall, k1_ms=k1, k2_ms=k2)
 
 
 def phase_grads(dev):
@@ -884,7 +917,10 @@ def _time_k5(dev, card, bw_peak):
 
 def _time_k3_anyup(dev, card, bw_peak):
     """K3 at AnyUp's shape: q (1, 448, 448, 8, 32) <- k (1, 28, 28, 8, 32),
-    v (1, 28, 28, 8, 48), k 7, f32; checked against its plain version."""
+    v (1, 28, 28, 8, 48), k 7, f32; checked against its plain version, and
+    masked SDPA on the same inputs as its library yardstick."""
+    import torch.nn.functional as F
+
     from naf_torch.kernels.na2d_fused import _launch_fwd, cross_scale_na2d_fused_ref
 
     gen = torch.Generator(device=dev).manual_seed(9)
@@ -894,13 +930,27 @@ def _time_k3_anyup(dev, card, bw_peak):
                        cross_scale_na2d_fused_ref(q, k, v, 7, sc), 2e-4)
     ms = _time_ms(lambda: _launch_fwd(q, k, v, 7, sc), iters=10)
     plain = _time_ms(lambda: cross_scale_na2d_fused_ref(q, k, v, 7, sc), iters=1)
+    # library yardstick, as for the training shape: masked SDPA over all LR
+    # keys (448 / 28 is an integer ratio), f32 as AnyUp runs
+    sq, sk, sv, mask = _masked_sdpa_inputs(q, k, v, 7)
+    ref = _launch_fwd(q, k, v, 7, sc)
+    lib_out = F.scaled_dot_product_attention(sq, sk, sv, attn_mask=mask, scale=sc)
+    lib_cos = _check_cos("masked SDPA vs K3 AnyUp shape",
+                         lib_out.transpose(1, 2).reshape(ref.shape), ref, 0.999)
+    del lib_out, ref
+    lib = _time_ms(lambda: F.scaled_dot_product_attention(sq, sk, sv, attn_mask=mask, scale=sc),
+                   iters=3)
     nbytes = 4 * (q.numel() + k.numel() + v.numel() + 448 * 448 * 8 * 48)
     flops = 2 * 448 * 448 * 8 * 49 * (32 + 48)
     bound = max(nbytes / bw_peak, flops / F32_FLOPS) * 1e3
     by = "bytes" if nbytes / bw_peak > flops / F32_FLOPS else "operations"
     print(f"K3 f32 AnyUp (1,448,448,8,32) <- 28^2, dv 48, k 7: {ms:.4f} ms; plain {plain:.4f} ms; "
-          f"bound {bound:.4f} ms ({by}); f32 max_abs_err {err:.3e} ({card})", flush=True)
-    return dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by, max_abs_err=err)
+          f"masked SDPA {lib:.4f} ms (cos vs K3 {lib_cos:.6f}); bound {bound:.4f} ms ({by}); f32 "
+          f"max_abs_err {err:.3e} ({card})", flush=True)
+    del sq, sk, sv, mask
+    torch.cuda.empty_cache()
+    return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound, bound_by=by,
+                max_abs_err=err)
 
 
 def _time_k6(dev, card, bw_peak, fl_peak):
@@ -920,30 +970,35 @@ def _time_k6(dev, card, bw_peak, fl_peak):
     b, h, w, c2 = x.shape
     c = c2 // 2
     xb, wpb, wsb = x.bfloat16(), wp.bfloat16(), ws.bfloat16()
-    ms = _time_ms(lambda: gn_silu_conv_dual_fused(xb, sc, sh, wpb, wsb, bp, bs))
-    ms_f32 = _time_ms(lambda: gn_silu_conv_dual_fused(x, sc, sh, wp, ws, bp, bs))
+    ms = _kernel_ms(lambda: gn_silu_conv_dual_fused(xb, sc, sh, wpb, wsb, bp, bs),
+                    "gn_silu_conv_dual_wgmma_kernel")
+    wrapper = _time_ms(lambda: gn_silu_conv_dual_fused(xb, sc, sh, wpb, wsb, bp, bs), iters=20)
+    ms_f32 = _kernel_ms(lambda: gn_silu_conv_dual_fused(x, sc, sh, wp, ws, bp, bs),
+                        "gn_silu_conv_dual_kernel<float", reps=5)
     plain = _time_ms(lambda: gn_silu_conv_dual_ref(xb, sc, sh, wpb, wsb, bp, bs), iters=3)
     xp, xs = xb[..., :c].contiguous(), xb[..., c:].contiguous()
-    pair = _time_ms(lambda: (gn_silu_conv_fused(xp, sc[:, :c], sh[:, :c], wpb, bp),
-                             gn_silu_conv_fused(xs, sc[:, c:], sh[:, c:], wsb, bs)))
+    pair = _kernel_ms(lambda: (gn_silu_conv_fused(xp, sc[:, :c], sh[:, :c], wpb, bp),
+                               gn_silu_conv_fused(xs, sc[:, c:], sh[:, c:], wsb, bs)),
+                      "gn_silu_conv_wgmma_kernel")
     z = F.silu(xb.float() * sc[:, None, None] + sh[:, None, None]).bfloat16().permute(0, 3, 1, 2)
     zp = z[:, :c].contiguous(memory_format=torch.channels_last)
     zs = F.pad(z[:, c:], (1, 1, 1, 1), mode="reflect").contiguous(
         memory_format=torch.channels_last)
     wpl = wpb.contiguous(memory_format=torch.channels_last)
     wsl = wsb.contiguous(memory_format=torch.channels_last)
-    lib = _time_ms(lambda: (F.conv2d(zp, wpl), F.conv2d(zs, wsl)))
+    lib = _kernel_ms(lambda: (F.conv2d(zp, wpl), F.conv2d(zs, wsl)))
     flops = 2 * b * h * w * c * c * (1 + 9)
     nbytes = 2 * (b * h * w * 2 * c2 + 10 * c * c) + 4 * (2 * b * c2 + c2 + 2 * b * c2)
     bound = max(nbytes / bw_peak, flops / fl_peak) * 1e3
     by = "bytes" if nbytes / bw_peak > flops / fl_peak else "operations"
     bound_f32 = max(2 * nbytes / bw_peak, flops / F32_FLOPS) * 1e3
-    print(f"K6 bf16 (1,448,448,256) packed: {ms:.4f} ms; plain {plain:.4f} ms; K1 1x1 + 3x3 on "
-          f"the halves {pair:.4f} ms; F.conv2d 1x1 + 3x3 {lib:.4f} ms; bound {bound:.4f} ms ({by}, "
-          f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.1f} GFLOP); f32 {ms_f32:.4f} ms, bound "
-          f"{bound_f32:.4f} ms ({card})", flush=True)
+    print(f"K6 bf16 (1,448,448,256) packed, tensor cores: kernel {ms:.4f} ms (through the wrapper "
+          f"{wrapper:.4f} ms); plain {plain:.4f} ms; K1 1x1 + 3x3 kernels on the halves "
+          f"{pair:.4f} ms; F.conv2d 1x1 + 3x3 {lib:.4f} ms; bound {bound:.4f} ms ({by}, "
+          f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.1f} GFLOP); f32 on the CUDA cores "
+          f"{ms_f32:.4f} ms, bound {bound_f32:.4f} ms ({card})", flush=True)
     return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound, bound_by=by,
-                k1_pair_ms=pair, ms_f32=ms_f32, bound_ms_f32=bound_f32)
+                wrapper_ms=wrapper, k1_pair_ms=pair, ms_f32=ms_f32, bound_ms_f32=bound_f32)
 
 
 def phase_timing(dev, card):
@@ -965,7 +1020,12 @@ def phase_timing(dev, card):
         shift = torch.randn(b, c, generator=gen, device=dev) * 0.1
         wt = (torch.randn(f, c, k, k, generator=gen, device=dev) * 0.03).bfloat16()
         bias = torch.randn(f, generator=gen, device=dev) * 0.1
-        ms = _time_ms(lambda: gn_silu_conv_fused(x, scale, shift, wt, bias))
+        ms = _kernel_ms(lambda: gn_silu_conv_fused(x, scale, shift, wt, bias),
+                        "gn_silu_conv_wgmma_kernel")
+        wrapper = _time_ms(lambda: gn_silu_conv_fused(x, scale, shift, wt, bias), iters=20)
+        x32, wt32 = x.float(), wt.float()
+        ms_f32 = _kernel_ms(lambda: gn_silu_conv_fused(x32, scale, shift, wt32, bias),
+                            "gn_silu_conv_kernel<float", reps=5)
         plain = _time_ms(lambda: gn_silu_conv_ref(x, scale, shift, wt, bias), iters=3)
         z = F.silu(x.float() * scale[:, None, None] + shift[:, None, None]).bfloat16()
         z = z.permute(0, 3, 1, 2)
@@ -973,15 +1033,20 @@ def phase_timing(dev, card):
             z = F.pad(z, (1, 1, 1, 1), mode="reflect")
         z = z.contiguous(memory_format=torch.channels_last)
         wl = wt.contiguous(memory_format=torch.channels_last)
-        lib = _time_ms(lambda: F.conv2d(z, wl))
+        lib = _kernel_ms(lambda: F.conv2d(z, wl))
         nbytes = 2 * (b * h * w * (c + f) + k * k * c * f) + 4 * (2 * b * c + f + 2 * b * f)
         flops = 2 * b * h * w * c * f * k * k
         bound = max(nbytes / bw_peak, flops / fl_peak) * 1e3
+        bound_f32 = max(2 * nbytes / bw_peak, flops / F32_FLOPS) * 1e3
         res[f"k1_k{k}"] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound,
                                bound_by="bytes" if nbytes / bw_peak > flops / fl_peak
-                               else "operations")
-        print(f"K1 k={k} bf16 (1,448,448,128): {ms:.4f} ms; plain {plain:.4f} ms; "
-              f"F.conv2d alone {lib:.4f} ms; bound {bound:.4f} ms ({card})", flush=True)
+                               else "operations", wrapper_ms=wrapper, ms_f32=ms_f32,
+                               bound_ms_f32=bound_f32)
+        print(f"K1 k={k} bf16 (1,448,448,128), tensor cores: kernel {ms:.4f} ms (through the "
+              f"wrapper {wrapper:.4f} ms); bound {bound:.4f} ms; plain {plain:.4f} ms; F.conv2d "
+              f"alone {lib:.4f} ms; f32 on the CUDA cores {ms_f32:.4f} ms, bound {bound_f32:.4f} "
+              f"ms ({card})", flush=True)
+        del x32, wt32
 
     kw = dict(num_heads=4, kernel_size=9)
     for out in (448, 2048):
@@ -1075,9 +1140,10 @@ def phase_k6(dev):
 
     gen = torch.Generator(device=dev).manual_seed(10)
     errs = {}
-    # the production layer at batch 1 and 2, and the dual route's 2048^2 guide
-    for b, h in ((1, 448), (2, 448), (1, 2048)):
-        x, sc, sh, wp, ws, bp, bs = _k6_inputs(dev, gen, b, h, h)
+    # the production layer at batch 1 and 2, the dual route's 2048^2 guide,
+    # and a band of 256 + 2 x 3 halo rows of a 452-wide image
+    for b, h, w in ((1, 448, 448), (2, 448, 448), (1, 2048, 2048), (1, 262, 452)):
+        x, sc, sh, wp, ws, bp, bs = _k6_inputs(dev, gen, b, h, w)
         hw = x.shape[1] * x.shape[2]
         y_ref, ps_ref = gn_silu_conv_dual_ref(x, sc, sh, wp, ws, bp, bs)
         y, ps = gn_silu_conv_dual_fused(x, sc, sh, wp, ws, bp, bs)
@@ -1092,12 +1158,12 @@ def phase_k6(dev):
             raise AssertionError(f"K6 bf16 output came back as {yb.dtype}")
         cy = _check_cos(f"K6 bf16 y b={b}", yb.float(), y_ref, 0.9995)
         cp = _check_cos(f"K6 bf16 psums b={b}", psb, ps_ref, 0.9995)
-        errs[(b, h)] = e
-        print(f"K6 ({b}, {h}, {h}, 256) packed, C 128 per stack: f32 max_abs_err {e:.3e}; "
+        errs[(b, h, w)] = e
+        print(f"K6 ({b}, {h}, {w}, 256) packed, C 128 per stack: f32 max_abs_err {e:.3e}; "
               f"bf16 cos y {cy:.6f} psums {cp:.6f}", flush=True)
         del x, yb, psb, y_ref, ps_ref
     torch.cuda.empty_cache()
-    return errs[(1, 448)]
+    return max(errs.values())
 
 
 def phase_banded_kernels(dev):
@@ -1332,15 +1398,17 @@ def phase_banded(dev, card):
             peak_u = _peak_mib(lambda: model(image, feats, (out, out)))
             ms_b = _time_ms(lambda: banded(image, feats, out, br), iters=1)
             ms_u = _time_ms(lambda: model(image, feats, (out, out)), iters=1)
+            profiles = {}
             if label == "streamed_encoder":
                 # the encoder's (K1) and the attention's (K2) device time on
                 # both paths at a 2048^2 guide
-                _profile(lambda: model(image, feats, (out, out)), f"unbanded {img}^2 -> {out}^2",
-                         reps=1)
-                _profile(lambda: banded(image, feats, out, br), f"{label} {img}^2 -> {out}^2",
-                         reps=1)
+                profiles["unbanded"] = _profile(lambda: model(image, feats, (out, out)),
+                                                f"unbanded {img}^2 -> {out}^2", reps=1)
+                profiles["banded"] = _profile(lambda: banded(image, feats, out, br),
+                                              f"{label} {img}^2 -> {out}^2", reps=1)
         res[label] = dict(ms=ms_b, ms_unbanded=ms_u, peak_mib=peak_b, peak_mib_unbanded=peak_u,
-                          cos=cos, launches_k1=want[0], launches_k2=want[1], k2_band=band)
+                          cos=cos, launches_k1=want[0], launches_k2=want[1], k2_band=band,
+                          **({"profiles": profiles} if profiles else {}))
         print(f"{label}: {img}^2 + {lr}^2 x 384 -> {out}^2 bf16, band_rows {br}: launches K1 "
               f"{want[0]}, K2 {want[1]}; cos vs unbanded {cos:.6f}; {ms_b:.3f} ms, peak "
               f"{peak_b:.1f} MiB; unbanded {ms_u:.3f} ms, peak {peak_u:.1f} MiB ({card})",
@@ -1350,6 +1418,26 @@ def phase_banded(dev, card):
     if not res["streamed_encoder"]["peak_mib"] < res["streamed_encoder"]["peak_mib_unbanded"]:
         raise AssertionError("the banded encoder did not lower the peak memory")
     return launches, res
+
+
+def _hgmma_counts() -> dict:
+    """HGMMA (wgmma) instructions in the K1 and K6 libraries' SASS, from the
+    cuobjdump of the toolkit whose nvcc built them; none fails."""
+    from pathlib import Path
+
+    from naf_torch.kernels import _build
+
+    cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
+    counts = {}
+    for name in ("encoder_fused", "encoder_dual"):
+        sass = subprocess.run([str(cuobjdump), "-sass", str(_build._target(name))],
+                              capture_output=True, text=True, check=True).stdout
+        counts[name] = len(re.findall(r"\bHGMMA\b", sass))
+    print("HGMMA instructions (cuobjdump -sass): "
+          + ", ".join(f"{k} {v}" for k, v in counts.items()), flush=True)
+    if not all(counts.values()):
+        raise AssertionError(f"a bf16 encoder kernel has no wgmma: {counts}")
+    return counts
 
 
 def main() -> int:
@@ -1376,6 +1464,7 @@ def main() -> int:
         spills = [int(r) for r in re.findall(r"(\d+) bytes spill stores", log)]
         print(f"ptxas {name}: {len(regs)} kernels, {min(regs)}-{max(regs)} registers, "
               f"spill stores up to {max(spills, default=0)} bytes", flush=True)
+    hgmma = _hgmma_counts()
 
     k1_err = phase_k1(dev)
     k2_err = phase_k2(dev)
@@ -1399,7 +1488,10 @@ def main() -> int:
              replaces="naf_tpu/kernels/encoder_fused.py:390", launches=launches["k1"],
              max_abs_err=k1_err, **k1,
              ms_1x1=k1b["ms"], plain_ms_1x1=k1b["plain_ms"],
-             library_ms_1x1=k1b["library_ms"], bound_ms_1x1=k1b["bound_ms"]),
+             library_ms_1x1=k1b["library_ms"], bound_ms_1x1=k1b["bound_ms"],
+             wrapper_ms_1x1=k1b["wrapper_ms"], ms_f32_1x1=k1b["ms_f32"],
+             bound_ms_f32_1x1=k1b["bound_ms_f32"],
+             hgmma=hgmma["encoder_fused"]),
         dict(name="naf_upsample_attention", route="cuda",
              source="naf_torch/kernels/csrc/na2d_fused_q.cu",
              replaces="naf_tpu/kernels/na2d_fused_q.py:767", launches=launches["k2"],
@@ -1431,7 +1523,7 @@ def main() -> int:
         dict(name="gn_silu_conv_dual_fused", route="cuda",
              source="naf_torch/kernels/csrc/encoder_dual.cu",
              replaces="naf_tpu/kernels/encoder_fused.py:272", launches=dual_launches["k6"],
-             max_abs_err=k6_err, **timing["k6"]))
+             max_abs_err=k6_err, **timing["k6"], hgmma=hgmma["encoder_dual"]))
     kernels[0]["launches_banded_encoder"] = banded["streamed_encoder"]["launches_k1"]
     kernels[1].update({"launches_banded": band_launches["k2"],
                        **{f"{k}_banded": v for k, v in k2_band.items()}})
@@ -1444,6 +1536,7 @@ def main() -> int:
     train_keys = ("step_ms", "peak_mib", "split", "losses", "cpu_loss", "card_loss", "grad_cos")
     print(json.dumps({"kernels": kernels, "forward_ms": {k: v[0] for k, v in stats.items()},
                       "peak_mib": {k: v[1] for k, v in stats.items()},
+                      "forward_profile": {k: v[2] for k, v in stats.items()},
                       "train": {k: train[k] for k in train_keys},
                       "baselines": baselines, "k5_splits": k5_splits, "dual_route": dual,
                       "banded": banded, "card": card}))

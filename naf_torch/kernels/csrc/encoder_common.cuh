@@ -1,6 +1,7 @@
 // Helpers shared by the fused encoder-layer kernels (K1 encoder_fused.cu and
-// K6 encoder_dual.cu): io-dtype conversions, 8-channel stores, torch's
-// reflect rule as index math, and the GroupNorm-affine + SiLU prologue.
+// K6 encoder_dual.cu): the f32 kernels' io conversions, 8-channel stores and
+// GroupNorm-affine + SiLU prologue, bf16 packing, and torch's reflect rule as
+// index math.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -9,21 +10,12 @@
 namespace {
 
 __device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
 
-// The activated input rounds to the io dtype before the contraction, as the
-// JAX kernels do before their dots.
-template <typename T> __device__ __forceinline__ float round_io(float v);
-template <> __device__ __forceinline__ float round_io<float>(float v) { return v; }
-template <> __device__ __forceinline__ float round_io<__nv_bfloat16>(float v) {
-  return __bfloat162float(__float2bfloat16(v));
-}
-
-// SiLU(x * scale + shift) in f32, rounded to the io dtype.
-template <typename T>
-__device__ __forceinline__ float affine_silu(T x, float scale, float shift) {
-  const float z = to_f(x) * scale + shift;
-  return round_io<T>(z / (1.f + expf(-z)));
+// SiLU(x * scale + shift) in f32. The JAX kernels round the activated input
+// to the io dtype before their dots; in f32 that is no rounding.
+__device__ __forceinline__ float affine_silu(float x, float scale, float shift) {
+  const float z = x * scale + shift;
+  return z / (1.f + expf(-z));
 }
 
 __device__ __forceinline__ void store8(float* dst, const float* v) {
@@ -34,12 +26,6 @@ __device__ __forceinline__ void store8(float* dst, const float* v) {
 __device__ __forceinline__ unsigned pack_bf16x2(float a, float b) {
   __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
   return *reinterpret_cast<unsigned*>(&h);
-}
-
-__device__ __forceinline__ void store8(__nv_bfloat16* dst, const float* v) {
-  *reinterpret_cast<uint4*>(dst) =
-      make_uint4(pack_bf16x2(v[0], v[1]), pack_bf16x2(v[2], v[3]), pack_bf16x2(v[4], v[5]),
-                 pack_bf16x2(v[6], v[7]));
 }
 
 // torch's reflect rule; the clamp only matters for ragged-tile pixels whose

@@ -7,42 +7,43 @@
 // next layer's two GroupNorms.
 //
 // Replaces the TPU kernel naf_tpu/kernels/encoder_fused.py::
-// gn_silu_conv_dual_fused (body `_dual_kernel`). Layouts are NHWC; the pixel
-// weights arrive as (C, C) [in][out], the semantic weights tap-major as
-// (9, C, C); scale/shift are per-sample (B, 2C) f32; bias (2C,) f32.
+// gn_silu_conv_dual_fused (body `_dual_kernel`). Layouts are NHWC;
+// scale/shift are per-sample (B, 2C) f32; bias (2C,) f32.
 //
 // What bounds it on the card: at the production layer (448^2, C = 128 per
 // stack) it must move 205.5 MB in bf16 (61 us at 3.35 TB/s) and do 65.8 GFLOP
-// (66 us on bf16 tensor cores), so it is bound by operations. This first
-// kernel does its products on the CUDA cores in f32 (FMA), one code path for
-// f32 and bf16 and f32 exact to the reference; it sits far above the
-// tensor-core bound, and wgmma/TMA is the redesign's step.
+// (66 us on bf16 tensor cores): it is bound by operations.
 //
-// Design:
-//  - a block owns an 8 x 16 output-pixel tile and a 64-channel slice of
-//    each half (two slices at C = 128); 256 threads, each with 4 pixels x
-//    8 output channels in registers, reused for the two halves in turn;
-//  - the block walks the 2C input channels once, 8 at a time, through
-//    shared memory: the pixel half's chunks as the tile's interior (a 1x1
-//    conv needs no halo), the semantic half's as a 10 x 18 halo tile, with
-//    reflect padding as index math (row -1 reads row 1, row H reads row
-//    H-2), as K1 does; each chunk is activated once (GN affine + SiLU in
-//    f32, rounded to the io dtype, as `_dual_kernel` does before its dots);
-//  - each half's epilogue adds the bias, reduces sum / sum-of-squares of the
-//    f32 y over the tile with warp shuffles into per-tile partials
-//    (B, tiles, 2, 2C) with no atomics (fixed order, deterministic), and
-//    stores y into its half of the packed output.
+// Two kernels, chosen by the wrapper from the io dtype alone:
+//  - bf16: the tensor-core core of encoder_tc.cuh run twice in one block, the
+//    1x1 GEMM over the pixel half (the tile's interior, no halo) and the 3x3
+//    GEMM over the semantic half, each with its own epilogue into its half
+//    of the packed output; the two halves' packed weights stream through one
+//    ring, so the semantic weights load while the pixel half computes;
+//  - f32: the CUDA-core kernel below, exact to the reference in f32. A block
+//    owns an 8 x 16 output-pixel tile and a 64-channel slice of each half;
+//    256 threads, each with 4 pixels x 8 output channels in registers, reused
+//    for the two halves in turn; the block walks the 2C input channels once,
+//    8 at a time, through shared memory (the pixel half's chunks as the
+//    tile's interior, the semantic half's as a 10 x 18 halo tile, reflect
+//    padding as index math, as K1 does), each chunk activated once; each
+//    half's epilogue adds the bias, reduces sum / sum-of-squares of the f32
+//    y over the tile with warp shuffles into per-tile partials (B, tiles, 2,
+//    2C) with no atomics (fixed order, deterministic), and stores y into its
+//    half of the packed output. The pixel weights arrive as (C, C)
+//    [in][out], the semantic weights tap-major as (9, C, C).
 
 #include "encoder_common.cuh"
+#include "encoder_tc.cuh"
 
 namespace {
 
 constexpr int TH = 8;     // output tile rows
 constexpr int TW = 16;    // output tile columns
-// FW, CB and MIN_BLOCKS are the fastest of a sweep of six variants on the
-// H100 (naf_torch/tools/sweep_k6.py): fewer channels per warp and three
-// blocks per SM beat 16 / 16 / 2 although they read the input once per
-// 64-channel slice and spill 80 bytes.
+// FW, CB and MIN_BLOCKS were the fastest of a sweep of six variants in bf16
+// on the H100 (naf_torch/tools/sweep_k6.py), when this kernel also ran bf16:
+// fewer channels per warp and three blocks per SM beat 16 / 16 / 2 although
+// they read the input once per 64-channel slice and spill 80 bytes.
 constexpr int FW = 8;     // output channels per warp (a multiple of 8)
 constexpr int CB = 8;     // input channels per shared-memory stage
 constexpr int THREADS = 256;
@@ -50,6 +51,7 @@ constexpr int MIN_BLOCKS = 3;  // blocks per SM the register budget allows
 constexpr int FB = THREADS / 32 * FW;  // output channels per half per block
 constexpr int PX = TH * TW / 32;  // pixels per thread
 constexpr int SMEM_FLOATS = CB * (TH + 2) * (TW + 2) + 9 * CB * FB;
+static_assert(TH == tc::TH && TW == tc::TW, "both kernels write the same per-tile partials");
 
 // acc += conv_KK(SiLU(x[..., in_off + c] * sc + sh)) over c < C, for this
 // warp's FW output channels [f0 + FW * warp, +FW) of w (KK*KK, C, C).
@@ -226,24 +228,55 @@ cudaError_t launch(const void* x, const void* scale, const void* shift, const vo
   return cudaGetLastError();
 }
 
+template <int N>
+cudaError_t launch_wgmma(const void* x, const void* scale, const void* shift, const void* wpk,
+                         const void* bias, void* y, void* part, int B, int H, int W, int C,
+                         cudaStream_t stream) {
+  const int smem = tc::smem_plan(3, C, N).total;
+  cudaError_t err = cudaFuncSetAttribute(tc::gn_silu_conv_dual_wgmma_kernel<N>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const int tiles_w = (W + TW - 1) / TW;
+  dim3 grid(((H + TH - 1) / TH) * tiles_w, (C + N - 1) / N, B);
+  tc::gn_silu_conv_dual_wgmma_kernel<N><<<grid, tc::THREADS, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(scale),
+      static_cast<const float*>(shift), static_cast<const __nv_bfloat16*>(wpk),
+      static_cast<const float*>(bias), static_cast<__nv_bfloat16*>(y), static_cast<float*>(part),
+      H, W, C, tiles_w);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// Number of output tiles (the `tiles` axis of the partial sums).
+// Number of output tiles (the `tiles` axis of the partial sums), the same for
+// both kernels.
 int naf_gn_silu_conv_dual_tiles(int H, int W) {
   return ((H + TH - 1) / TH) * ((W + TW - 1) / TW);
 }
 
-// Shape rules the launch relies on: C % 16 == 0 (C channels per stack, 2C in
+// Shape rules the launches rely on: C % 16 == 0 (C channels per stack, 2C in
 // the packed buffer), H and W >= 2 (reflect padding). The wrapper checks them.
-int naf_gn_silu_conv_dual(const void* x, const void* scale, const void* shift, const void* wp,
-                          const void* ws, const void* bias, void* y, void* part, int B, int H,
-                          int W, int C, int is_bf16, void* stream) {
+
+// f32 on the CUDA cores.
+int naf_gn_silu_conv_dual_fma(const void* x, const void* scale, const void* shift, const void* wp,
+                              const void* ws, const void* bias, void* y, void* part, int B,
+                              int H, int W, int C, void* stream) {
+  return launch<float>(x, scale, shift, wp, ws, bias, y, part, B, H, W, C,
+                       static_cast<cudaStream_t>(stream));
+}
+
+// bf16 on the tensor cores; wpk is pack_weights_tc's stream of the pixel and
+// then the semantic weights for n_block (64 or 128) output channels per block.
+int naf_gn_silu_conv_dual_wgmma(const void* x, const void* scale, const void* shift,
+                                const void* wpk, const void* bias, void* y, void* part, int B,
+                                int H, int W, int C, int n_block, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return launch<__nv_bfloat16>(x, scale, shift, wp, ws, bias, y, part, B, H, W, C, s);
-  return launch<float>(x, scale, shift, wp, ws, bias, y, part, B, H, W, C, s);
+  if (n_block == 128)
+    return launch_wgmma<128>(x, scale, shift, wpk, bias, y, part, B, H, W, C, s);
+  if (n_block == 64) return launch_wgmma<64>(x, scale, shift, wpk, bias, y, part, B, H, W, C, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // extern "C"

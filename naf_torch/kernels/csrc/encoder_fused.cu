@@ -1,34 +1,35 @@
-// One fused NAF encoder layer on Hopper:
+// One fused NAF encoder layer on Hopper (K1):
 //     y = conv_k(SiLU(x * scale + shift)) + bias,   k in {1, 3}, reflect padding,
 // plus per-tile f32 [sum y, sum y^2] partials for the next GroupNorm.
 //
 // Replaces the TPU kernel naf_tpu/kernels/encoder_fused.py::gn_silu_conv_fused
-// (body `_kernel`). Layouts are NHWC; weights arrive tap-major as
-// (k*k, C, F); scale/shift are per-sample (B, C) f32; bias (F,) f32.
+// (body `_kernel`). Layouts are NHWC; scale/shift are per-sample (B, C) f32;
+// bias (F,) f32. y is written at channel offset out_off of an out_total-wide
+// output, so two stacks can share one packed buffer.
 //
 // What bounds it on the card: at the production shape (448^2, C = F = 128) a
-// 3x3 layer moves ~103 MB in bf16 (31 us at 3.35 TB/s) but does 59 GFLOP
-// (60 us on bf16 tensor cores), so it is compute bound; a 1x1 layer is
-// memory bound. This first kernel does its products on the CUDA cores in
-// f32 (FMA), which keeps f32 and bf16 in one code path and f32 exact to the
-// reference; it sits far above the tensor-core bound, and moving the inner
-// product to wgmma is the next step.
+// 3x3 layer must move ~103 MB in bf16 (31 us at 3.35 TB/s) and do 59 GFLOP
+// (60 us on bf16 tensor cores): it is bound by operations. A 1x1 layer (6.6
+// GFLOP, 103 MB) is bound by bytes.
 //
-// Design:
-//  - a block owns an 8 x 16 output-pixel tile and a 64-channel slice of F;
-//    256 threads, each with 4 pixels x 8 output channels in registers;
-//  - input channels stream through shared memory 16 at a time: the
-//    activated halo tile (GN affine + SiLU in f32, rounded to the io dtype
-//    as the JAX kernel does before its dot) and that chunk's weights;
-//  - reflect padding is index math on the halo load (row -1 reads row 1,
-//    row H reads row H-2), never a padded copy;
-//  - the epilogue adds the bias, reduces sum / sum-of-squares of the f32 y
-//    over the tile with warp shuffles, writes them as per-tile partials
-//    (B, tiles, 2, F) with no atomics (the order is fixed, the result
-//    deterministic), and stores y at a channel offset of a wider output
-//    (out_total, out_off) so two stacks can share one packed buffer.
+// Two kernels, chosen by the wrapper from the io dtype alone:
+//  - bf16: the tensor-core implicit GEMM of encoder_tc.cuh (wgmma, weights
+//    packed by the wrapper): a block owns an 8 x 16 tile and all F <= 128
+//    output channels, so it reads and activates its halo once; the products
+//    run on the tensor cores, not as f32 FMA;
+//  - f32: the CUDA-core kernel below, exact to the reference in f32 (TF32
+//    would miss the 2e-4 bar over a 1152-term sum). A block owns an 8 x 16
+//    output-pixel tile and a 64-channel slice of F; 256 threads, each with
+//    4 pixels x 8 output channels in registers; input channels stream
+//    through shared memory 16 at a time (the activated halo tile and that
+//    chunk's weights, (k*k, C, F) tap-major); reflect padding is index math
+//    on the halo load (row -1 reads row 1, row H reads row H-2); the
+//    epilogue adds the bias, reduces sum / sum-of-squares of the f32 y over
+//    the tile with warp shuffles into per-tile partials (B, tiles, 2, F)
+//    with no atomics (fixed order, deterministic).
 
 #include "encoder_common.cuh"
+#include "encoder_tc.cuh"
 
 namespace {
 
@@ -38,6 +39,7 @@ constexpr int FB = 64;    // output channels per block
 constexpr int CB = 16;    // input channels per shared-memory stage
 constexpr int THREADS = 256;
 constexpr int PX = TH * TW / 32;  // pixels per thread
+static_assert(TH == tc::TH && TW == tc::TW, "both kernels write the same per-tile partials");
 
 template <typename T, int KK>
 __global__ void __launch_bounds__(THREADS)
@@ -160,8 +162,8 @@ gn_silu_conv_kernel(const T* __restrict__ x, const float* __restrict__ scale,
 
 template <typename T, int KK>
 cudaError_t launch(const void* x, const void* scale, const void* shift, const void* w,
-                   const void* bias, void* y, void* part, int B, int H, int W, int C,
-                   int F, int out_total, int out_off, cudaStream_t stream) {
+                   const void* bias, void* y, void* part, int B, int H, int W, int C, int F,
+                   int out_total, int out_off, cudaStream_t stream) {
   constexpr int P = KK / 2;
   const int tiles_w = (W + TW - 1) / TW;
   const int tiles = ((H + TH - 1) / TH) * tiles_w;
@@ -178,32 +180,67 @@ cudaError_t launch(const void* x, const void* scale, const void* shift, const vo
   return cudaGetLastError();
 }
 
+template <int KK, int N>
+cudaError_t launch_wgmma(const void* x, const void* scale, const void* shift, const void* wpk,
+                         const void* bias, void* y, void* part, int B, int H, int W, int C,
+                         int F, int out_total, int out_off, cudaStream_t stream) {
+  const int smem = tc::smem_plan(KK, C, N).total;
+  cudaError_t err = cudaFuncSetAttribute(tc::gn_silu_conv_wgmma_kernel<KK, N>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const int tiles_w = (W + TW - 1) / TW;
+  dim3 grid(((H + TH - 1) / TH) * tiles_w, F / N, B);
+  tc::gn_silu_conv_wgmma_kernel<KK, N><<<grid, tc::THREADS, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(scale),
+      static_cast<const float*>(shift), static_cast<const __nv_bfloat16*>(wpk),
+      static_cast<const float*>(bias), static_cast<__nv_bfloat16*>(y), static_cast<float*>(part),
+      H, W, C, F, out_total, out_off, tiles_w);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// Number of output tiles (the `tiles` axis of the partial sums).
+// Number of output tiles (the `tiles` axis of the partial sums), the same for
+// both kernels.
 int naf_gn_silu_conv_tiles(int H, int W) { return ((H + TH - 1) / TH) * ((W + TW - 1) / TW); }
 
-// Shape rules the launch relies on: C % 16 == 0, F % 64 == 0, out_off and
+// Shape rules the launches rely on: C % 16 == 0, F % 64 == 0, out_off and
 // out_total multiples of 8, H and W >= 2 for k = 3. The wrapper checks them.
-int naf_gn_silu_conv(const void* x, const void* scale, const void* shift, const void* w,
-                     const void* bias, void* y, void* part, int B, int H, int W, int C,
-                     int F, int ksize, int out_total, int out_off, int is_bf16,
-                     void* stream) {
+
+// f32 on the CUDA cores; w is (k*k, C, F) tap-major.
+int naf_gn_silu_conv_fma(const void* x, const void* scale, const void* shift, const void* w,
+                         const void* bias, void* y, void* part, int B, int H, int W, int C,
+                         int F, int ksize, int out_total, int out_off, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (ksize == 1 && is_bf16)
-    return launch<__nv_bfloat16, 1>(x, scale, shift, w, bias, y, part, B, H, W, C, F,
-                                    out_total, out_off, s);
-  if (ksize == 3 && is_bf16)
-    return launch<__nv_bfloat16, 3>(x, scale, shift, w, bias, y, part, B, H, W, C, F,
-                                    out_total, out_off, s);
   if (ksize == 1)
     return launch<float, 1>(x, scale, shift, w, bias, y, part, B, H, W, C, F, out_total,
                             out_off, s);
   if (ksize == 3)
     return launch<float, 3>(x, scale, shift, w, bias, y, part, B, H, W, C, F, out_total,
                             out_off, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// bf16 on the tensor cores; wpk is pack_weights_tc's stream for n_block
+// (64 or 128 output channels per block, F % n_block == 0).
+int naf_gn_silu_conv_wgmma(const void* x, const void* scale, const void* shift, const void* wpk,
+                           const void* bias, void* y, void* part, int B, int H, int W, int C,
+                           int F, int ksize, int n_block, int out_total, int out_off,
+                           void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if ((n_block != 64 && n_block != 128) || F % n_block)
+    return static_cast<int>(cudaErrorInvalidValue);
+#define NAF_K1_WGMMA(KK, N)                                                                   \
+  if (ksize == KK && n_block == N)                                                           \
+    return launch_wgmma<KK, N>(x, scale, shift, wpk, bias, y, part, B, H, W, C, F, out_total, \
+                               out_off, s);
+  NAF_K1_WGMMA(1, 128)
+  NAF_K1_WGMMA(3, 128)
+  NAF_K1_WGMMA(1, 64)
+  NAF_K1_WGMMA(3, 64)
+#undef NAF_K1_WGMMA
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -22,12 +22,19 @@ Every function has a plain PyTorch version beside it (``*_ref``). The
 wrappers take it for CPU tensors only; for CUDA tensors they launch the
 kernel or raise. Their backward recomputes through the plain version, as
 the JAX package's custom VJPs do.
+
+On CUDA, K1 and K6 each have two kernels, chosen from the io dtype alone
+(:func:`_route`): bf16 runs an implicit GEMM on Hopper's tensor cores
+(``csrc/encoder_tc.cuh``, weights packed by :func:`pack_weights_tc`), f32
+the CUDA-core kernel, exact to the reference in f32. Both write the
+partial sums of the same pixel tiles (:func:`tile_plan`).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
 import torch.nn.functional as F
@@ -43,7 +50,15 @@ __all__ = [
     "encoder_stack_fused",
     "encoder_stack_fused_packed",
     "encoder_stack_ref",
+    "pack_weights_tc",
+    "tile_plan",
 ]
+
+# The kernels' output tile (rows, columns): the partial sums are per tile.
+TILE = (8, 16)
+# Tensor-core kernels: input channels per weight stage, one 128-byte row of
+# bf16 (the swizzle's width).
+TC_KB = 64
 
 
 def _gn_affine(psums, gamma, beta, hw: int, num_groups: int, eps: float):
@@ -88,6 +103,98 @@ def _stem_conv(x, weight, bias):
     return y.contiguous()
 
 
+def tile_plan(h: int, w: int, k: int):
+    """The kernels' pixel tiles: (tiles_h, tiles_w, rows, cols). rows[ty] are
+    the source rows of tile row ty's halo, TILE[0] + k - 1 of them, reflected
+    at the image edge as torch's reflect padding and clamped past a ragged
+    edge (those pixels' outputs are never stored); cols likewise. The kernels
+    compute the same indices on the card (``reflect`` in
+    ``csrc/encoder_common.cuh``)."""
+    p = k // 2
+
+    def src(n, t):
+        tiles = -(-n // t)
+        i = torch.arange(tiles)[:, None] * t + torch.arange(t + 2 * p)[None, :] - p
+        i = torch.where(i < 0, -i, i)
+        i = torch.where(i >= n, 2 * n - 2 - i, i)
+        return tiles, i.clamp(0, n - 1)
+
+    tiles_h, rows = src(h, TILE[0])
+    tiles_w, cols = src(w, TILE[1])
+    return tiles_h, tiles_w, rows, cols
+
+
+def _tc_steps(c: int, k: int):
+    """(tap, 64-channel block) of each weight stage, in stream order: blocks,
+    then taps (row-major)."""
+    return [(tap, cb) for cb in range(-(-c // TC_KB)) for tap in range(k * k)]
+
+
+def pack_weights_tc(weights, n_block: int):
+    """The tensor-core kernels' B operand: each (F, C, k, k) weight as a
+    stream of stages, the weights' streams back to back,
+    (ceil(F / n_block), steps, n_block, TC_KB).
+
+    Stage s of output-channel block fb holds, at row n and column kk,
+    weight[fb * n_block + n, 64 * cb + kk, ky, kx] for the (tap, cb) of
+    :func:`_tc_steps` (zero past F or C). A row is 128 bytes of bf16 in
+    16-byte chunks, chunk j stored at position j ^ (n % 8): wgmma's 128-byte
+    swizzle of a K-major operand, 8-row atoms 1024 bytes apart."""
+    out = []
+    for w in weights:
+        f, c, k, _ = w.shape
+        nb = -(-f // n_block)
+        blocks = -(-c // TC_KB)
+        wp = w.new_zeros(nb * n_block, blocks * TC_KB, k, k)
+        wp[:f, :c] = w
+        wp = wp.reshape(nb, n_block, blocks, TC_KB, k * k)
+        taps, cbs = zip(*_tc_steps(c, k))
+        st = wp[:, :, list(cbs), :, list(taps)].permute(1, 0, 2, 3)  # (nb, steps, N, KB)
+        st = st.reshape(nb, len(taps), n_block, TC_KB // 8, 8)
+        logical = torch.arange(TC_KB // 8)[None, :] ^ (torch.arange(n_block) % 8)[:, None]
+        st = st.gather(3, logical[None, None, :, :, None].expand(st.shape))
+        out.append(st.reshape(nb, len(taps), n_block, TC_KB))
+    return torch.cat(out, dim=1)
+
+
+@functools.lru_cache(maxsize=64)
+def _pack_index(shapes, n_block: int, device):
+    """:func:`pack_weights_tc` as a gather: indices into the weights'
+    flattened concatenation, the padding's entries at its end (one past the
+    last weight element), and whether there is padding; built once per
+    shape and device."""
+    src, start = [], 1
+    for shape in shapes:
+        n = math.prod(shape)
+        src.append(torch.arange(start, start + n).reshape(shape))
+        start += n
+    idx = pack_weights_tc(src, n_block).flatten() - 1
+    padded = bool((idx < 0).any())
+    return torch.where(idx < 0, start - 1, idx).to(device), padded
+
+
+def _packed(weights, n_block: int, dtype):
+    """pack_weights_tc(weights, n_block) in ``dtype`` on the weights' device:
+    one gather, over the weights themselves where there is no padding."""
+    idx, padded = _pack_index(tuple(tuple(w.shape) for w in weights), n_block,
+                              weights[0].device)
+    flat = [w.detach().to(dtype).reshape(-1) for w in weights]
+    if padded:
+        flat.append(flat[0].new_zeros(1))
+    return torch.take(flat[0] if len(flat) == 1 else torch.cat(flat), idx)
+
+
+def _route(dtype) -> str:
+    """Which kernel a CUDA tensor of this io dtype launches, decided from the
+    dtype alone: bf16 the tensor-core implicit GEMM ("wgmma"), f32 the
+    CUDA-core kernel ("fma")."""
+    if dtype == torch.bfloat16:
+        return "wgmma"
+    if dtype == torch.float32:
+        return "fma"
+    raise TypeError(f"K1 and K6 take float32 or bfloat16, got {dtype}")
+
+
 def gn_silu_conv_ref(x, scale, shift, weight, bias):
     """Plain version of K1. x (B,H,W,C); scale/shift (B,C) or (C,) f32;
     weight (F,C,k,k); bias (F,). Returns (y (B,H,W,F) in x's dtype,
@@ -104,8 +211,10 @@ def _lib():
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.naf_gn_silu_conv_tiles.argtypes = [i32, i32]
     lib.naf_gn_silu_conv_tiles.restype = i32
-    lib.naf_gn_silu_conv.argtypes = [ptr] * 7 + [i32] * 9 + [ptr]
-    lib.naf_gn_silu_conv.restype = i32
+    lib.naf_gn_silu_conv_fma.argtypes = [ptr] * 7 + [i32] * 8 + [ptr]
+    lib.naf_gn_silu_conv_fma.restype = i32
+    lib.naf_gn_silu_conv_wgmma.argtypes = [ptr] * 7 + [i32] * 9 + [ptr]
+    lib.naf_gn_silu_conv_wgmma.restype = i32
     return lib
 
 
@@ -114,8 +223,7 @@ def _launch(x, scale, shift, weight, bias, out=None, out_off: int = 0):
     channels [out_off, out_off + F) of it. Returns (out, psums)."""
     if x.device.type != "cuda":
         raise ValueError(f"K1 launches on CUDA tensors, got {x.device}")
-    if x.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"K1 takes float32 or bfloat16, got {x.dtype}")
+    route = _route(x.dtype)
     if x.ndim != 4 or not x.is_contiguous():
         raise ValueError("K1 takes a contiguous NHWC tensor")
     b, h, w, c = x.shape
@@ -133,7 +241,6 @@ def _launch(x, scale, shift, weight, bias, out=None, out_off: int = 0):
         raise ValueError(f"bias {tuple(bias.shape)} must be ({f},)")
     if scale.shape not in ((b, c), (c,)) or shift.shape not in ((b, c), (c,)):
         raise ValueError(f"scale/shift must be ({b}, {c}) or ({c},)")
-    w_taps = weight.to(x.dtype).permute(2, 3, 1, 0).reshape(k * k, c, f).contiguous()
     sc = scale.float().expand(b, c).contiguous()
     sh = shift.float().expand(b, c).contiguous()
     b32 = bias.float().contiguous()
@@ -146,12 +253,19 @@ def _launch(x, scale, shift, weight, bias, out=None, out_off: int = 0):
     lib = _lib()
     part = torch.empty((b, lib.naf_gn_silu_conv_tiles(h, w), 2, f), dtype=torch.float32,
                        device=x.device)
+    ptrs = [x.data_ptr(), sc.data_ptr(), sh.data_ptr()]
+    tail = [b32.data_ptr(), out.data_ptr(), part.data_ptr(), b, h, w, c, f, k]
     with torch.cuda.device(x.device):
-        err = lib.naf_gn_silu_conv(
-            x.data_ptr(), sc.data_ptr(), sh.data_ptr(), w_taps.data_ptr(), b32.data_ptr(),
-            out.data_ptr(), part.data_ptr(), b, h, w, c, f, k, out.shape[3], out_off,
-            int(x.dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream,
-        )
+        stream = torch.cuda.current_stream().cuda_stream
+        if route == "wgmma":
+            n_block = 128 if f % 128 == 0 else 64
+            wk = _packed((weight,), n_block, x.dtype)
+            err = lib.naf_gn_silu_conv_wgmma(*ptrs, wk.data_ptr(), *tail, n_block, out.shape[3],
+                                             out_off, stream)
+        else:
+            w_taps = weight.to(x.dtype).permute(2, 3, 1, 0).reshape(k * k, c, f).contiguous()
+            err = lib.naf_gn_silu_conv_fma(*ptrs, w_taps.data_ptr(), *tail, out.shape[3],
+                                           out_off, stream)
     if err:
         raise RuntimeError(f"encoder_fused kernel launch failed: cudaError {err}")
     gn_silu_conv_fused.launches += 1
@@ -237,8 +351,10 @@ def _dual_lib():
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.naf_gn_silu_conv_dual_tiles.argtypes = [i32, i32]
     lib.naf_gn_silu_conv_dual_tiles.restype = i32
-    lib.naf_gn_silu_conv_dual.argtypes = [ptr] * 8 + [i32] * 5 + [ptr]
-    lib.naf_gn_silu_conv_dual.restype = i32
+    lib.naf_gn_silu_conv_dual_fma.argtypes = [ptr] * 8 + [i32] * 4 + [ptr]
+    lib.naf_gn_silu_conv_dual_fma.restype = i32
+    lib.naf_gn_silu_conv_dual_wgmma.argtypes = [ptr] * 7 + [i32] * 5 + [ptr]
+    lib.naf_gn_silu_conv_dual_wgmma.restype = i32
     return lib
 
 
@@ -246,8 +362,7 @@ def _launch_dual(x, scale, shift, wp, ws, bp, bs):
     """Launch K6 on CUDA tensors. Returns (y (B,H,W,2C), psums (B,2,2C))."""
     if x.device.type != "cuda":
         raise ValueError(f"K6 launches on CUDA tensors, got {x.device}")
-    if x.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"K6 takes float32 or bfloat16, got {x.dtype}")
+    route = _route(x.dtype)
     if not x.is_contiguous():
         raise ValueError("K6 takes a contiguous NHWC tensor")
     err = _dual_shape_error(x.shape, wp.shape, ws.shape)
@@ -262,8 +377,6 @@ def _launch_dual(x, scale, shift, wp, ws, bp, bs):
         raise ValueError(f"biases {tuple(bp.shape)} / {tuple(bs.shape)} must be ({c},)")
     if scale.shape not in ((b, c2), (c2,)) or shift.shape not in ((b, c2), (c2,)):
         raise ValueError(f"scale/shift must be ({b}, {c2}) or ({c2},)")
-    wp_t = wp.to(x.dtype).reshape(c, c).t().contiguous()  # (in, out)
-    ws_t = ws.to(x.dtype).permute(2, 3, 1, 0).reshape(9, c, c).contiguous()
     bias = torch.cat([bp, bs]).float().contiguous()
     sc = scale.float().expand(b, c2).contiguous()
     sh = shift.float().expand(b, c2).contiguous()
@@ -271,12 +384,19 @@ def _launch_dual(x, scale, shift, wp, ws, bp, bs):
     out = torch.empty_like(x)
     part = torch.empty((b, lib.naf_gn_silu_conv_dual_tiles(h, w), 2, c2), dtype=torch.float32,
                        device=x.device)
+    ptrs = [x.data_ptr(), sc.data_ptr(), sh.data_ptr()]
+    tail = [bias.data_ptr(), out.data_ptr(), part.data_ptr(), b, h, w, c]
     with torch.cuda.device(x.device):
-        err = lib.naf_gn_silu_conv_dual(
-            x.data_ptr(), sc.data_ptr(), sh.data_ptr(), wp_t.data_ptr(), ws_t.data_ptr(),
-            bias.data_ptr(), out.data_ptr(), part.data_ptr(), b, h, w, c,
-            int(x.dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream,
-        )
+        stream = torch.cuda.current_stream().cuda_stream
+        if route == "wgmma":
+            n_block = 128 if c > 64 else 64
+            wk = _packed((wp, ws), n_block, x.dtype)
+            err = lib.naf_gn_silu_conv_dual_wgmma(*ptrs, wk.data_ptr(), *tail, n_block, stream)
+        else:
+            wp_t = wp.to(x.dtype).reshape(c, c).t().contiguous()  # (in, out)
+            ws_t = ws.to(x.dtype).permute(2, 3, 1, 0).reshape(9, c, c).contiguous()
+            err = lib.naf_gn_silu_conv_dual_fma(*ptrs, wp_t.data_ptr(), ws_t.data_ptr(), *tail,
+                                                stream)
     if err:
         raise RuntimeError(f"encoder_dual kernel launch failed: cudaError {err}")
     gn_silu_conv_dual_fused.launches += 1

@@ -8,8 +8,10 @@ each, all started together, into ``build/naf_torch/k6_sweep/``), checks each
 against K6's plain version in f32 (2e-4) at the production layer (1, 448,
 448, 256) packed, C = 128 per stack, and times it in bf16 with CUDA events
 in two rounds, the second in reverse order, beside the K1 1x1 + 3x3 pair on
-the same halves. Prints ptxas registers and spill stores per variant and the
-card's name and power limit.
+the same halves. The constants shape K6's CUDA-core kernel, which runs f32
+(bf16 runs the tensor-core kernel), so the variants are timed in f32. Prints
+ptxas registers and spill stores per variant and the card's name and power
+limit.
 """
 
 from __future__ import annotations
@@ -36,7 +38,8 @@ def _build_variants(out_dir):
     from naf_torch.kernels import _build
 
     out_dir.mkdir(parents=True, exist_ok=True)
-    (out_dir / "encoder_common.cuh").write_text((_build.CSRC / "encoder_common.cuh").read_text())
+    for header in _build.CSRC.glob("*.cuh"):
+        (out_dir / header.name).write_text(header.read_text())
     src = (_build.CSRC / "encoder_dual.cu").read_text()
     procs = {}
     for name, consts in VARIANTS.items():
@@ -57,8 +60,8 @@ def _build_variants(out_dir):
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.naf_gn_silu_conv_dual_tiles.argtypes = [i32, i32]
         lib.naf_gn_silu_conv_dual_tiles.restype = i32
-        lib.naf_gn_silu_conv_dual.argtypes = [ptr] * 8 + [i32] * 5 + [ptr]
-        lib.naf_gn_silu_conv_dual.restype = i32
+        lib.naf_gn_silu_conv_dual_fma.argtypes = [ptr] * 8 + [i32] * 4 + [ptr]
+        lib.naf_gn_silu_conv_dual_fma.restype = i32
         libs[name] = lib
     return libs
 
@@ -102,7 +105,6 @@ def main() -> int:
     ws = torch.randn(c, c, 3, 3, generator=gen, device=dev) * (9 * c) ** -0.5
     bp = torch.randn(c, generator=gen, device=dev) * 0.1
     bs = torch.randn(c, generator=gen, device=dev) * 0.1
-    xb, wpb, wsb = x.bfloat16(), wp.bfloat16(), ws.bfloat16()
     y_ref, _ = ef.gn_silu_conv_dual_ref(x, sc, sh, wp, ws, bp, bs)
     times = {name: [] for name in libs}
     built = ef._dual_lib
@@ -116,16 +118,16 @@ def main() -> int:
                     if not torch.allclose(y, y_ref, atol=2e-4, rtol=2e-4):
                         raise AssertionError(f"variant {name}: f32 max_abs_err {err:.3e}")
                 times[name].append(_time_ms(
-                    lambda: ef.gn_silu_conv_dual_fused(xb, sc, sh, wpb, wsb, bp, bs)))
+                    lambda: ef.gn_silu_conv_dual_fused(x, sc, sh, wp, ws, bp, bs)))
     finally:
         ef._dual_lib = built
-    xp, xs = xb[..., :c].contiguous(), xb[..., c:].contiguous()
-    pair = _time_ms(lambda: (ef.gn_silu_conv_fused(xp, sc[:, :c], sh[:, :c], wpb, bp),
-                             ef.gn_silu_conv_fused(xs, sc[:, c:], sh[:, c:], wsb, bs)))
+    xp, xs = x[..., :c].contiguous(), x[..., c:].contiguous()
+    pair = _time_ms(lambda: (ef.gn_silu_conv_fused(xp, sc[:, :c], sh[:, :c], wp, bp),
+                             ef.gn_silu_conv_fused(xs, sc[:, c:], sh[:, c:], ws, bs)))
     for name, t in times.items():
-        print(f"K6 variant {name} (FW, CB, MIN_BLOCKS = {VARIANTS[name]}): bf16 "
+        print(f"K6 variant {name} (FW, CB, MIN_BLOCKS = {VARIANTS[name]}): f32 "
               f"{t[0]:.4f} / {t[1]:.4f} ms", flush=True)
-    print(f"K1 1x1 + 3x3 pair on the halves: {pair:.4f} ms ({card})", flush=True)
+    print(f"K1 1x1 + 3x3 pair on the halves, f32: {pair:.4f} ms ({card})", flush=True)
     return 0
 
 

@@ -3,8 +3,10 @@ interpret mode, as the JAX package's own tests run them), f32 on CPU,
 atol = rtol = 2e-4; and the wrappers' dispatch rules.
 
 The CUDA kernels themselves run only on the card: the ``cuda``-marked tests
-skip here, and ``chip_smoke.py`` holds each kernel against its plain version
-at the production shapes.
+skip here (K1's and K6's are in ``test_torch_card_encoder.py``, which imports
+no JAX, so that they also run where the JAX package is not installed), and
+``chip_smoke.py`` holds each kernel against its plain version at the
+production shapes.
 """
 
 import functools
@@ -339,18 +341,6 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k", [1, 3])
-def test_k1_kernel_matches_plain_on_card(cuda_device, k):
-    torch.backends.cudnn.allow_tf32 = False
-    x, sc, sh, w, bias = (torch.from_numpy(a).to(cuda_device) for a in _layer_inputs(k, b=2))
-    wt = w.permute(3, 2, 0, 1)
-    y, ps = gn_silu_conv_fused(x, sc, sh, wt, bias)
-    y_ref, ps_ref = gn_silu_conv_ref(x, sc, sh, wt, bias)
-    torch.testing.assert_close(y, y_ref, **TOL)
-    torch.testing.assert_close(ps / 256, ps_ref / 256, **TOL)
-
-
-@pytest.mark.cuda
 @pytest.mark.parametrize("hi,out", [(64, 64), (32, 64)])
 def test_k2_kernel_matches_plain_on_card(cuda_device, hi, out):
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -376,19 +366,6 @@ def test_k3_k4_kernels_match_plain_on_card(cuda_device, hq, hk, k):
     want = cross_scale_na2d_fused_bwd_ref(q.detach(), kk.detach(), v.detach(), dout, k)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, atol=2e-3, rtol=2e-3)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("b", [1, 2])
-def test_k6_kernel_matches_plain_on_card(cuda_device, b):
-    torch.backends.cudnn.allow_tf32 = False
-    args = [t.to(cuda_device) for t in _dual_torch(*_dual_inputs(b))]
-    launches = gn_silu_conv_dual_fused.launches
-    y, ps = gn_silu_conv_dual_fused(*args)
-    assert gn_silu_conv_dual_fused.launches == launches + 1
-    y_ref, ps_ref = gn_silu_conv_dual_ref(*args)
-    torch.testing.assert_close(y, y_ref, **TOL)
-    torch.testing.assert_close(ps / 256, ps_ref / 256, **TOL)
 
 
 @pytest.mark.cuda
