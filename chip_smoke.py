@@ -4,15 +4,18 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``naf_torch/kernels/csrc`` with nvcc (into
-``build/naf_torch/``) and counts the ``HGMMA`` (wgmma) instructions in the K1
-and K6 libraries with ``cuobjdump -sass`` (none fails: their bf16 kernels
-run on the tensor cores), then, each phase on its own lines:
+``build/naf_torch/``; ptxas spills in the K3/K4 library fail) and counts the
+``HGMMA`` (wgmma) instructions in the K1, K6 and K3/K4 libraries with
+``cuobjdump -sass`` (none fails: their bf16 kernels run on the tensor
+cores), then, each phase on its own lines:
 
 1. K1 (fused GN -> SiLU -> conv encoder layer) against its plain PyTorch
    version at the production layer shape (1, 448, 448, 128), k = 1 and 3, f32
    (atol = rtol = 2e-4, the CUDA-core kernel) and bf16 (cosine > 0.9995
    against the f32 plain version, the tensor-core kernel), once at batch 2,
-   once at 2048^2 and at a banded-encoder band (1, 262, 452, 128), k = 1 and 3;
+   once at 2048^2 and at a banded-encoder band (1, 262, 452, 128), k = 1 and 3,
+   and at 448^2 with C = F of 48 (``NAF(dim=96)``'s width, F zero-padded to
+   64 by the wrapper), 160 and 256;
 2. K2 (fused pool-up + RoPE + cross-scale attention) against its plain
    version at the main path's shapes (448^2 -> 448^2, identity pool, and
    448^2 -> 2048^2, ragged pool-up) and at 224^2 -> 448^2, same bars;
@@ -22,24 +25,33 @@ run on the tensor cores), then, each phase on its own lines:
    its output is held against the modular path (plain attention oracle) on
    the card and against an f32 copy of the model on the CPU (cosine > 0.999);
    a torch.profiler breakdown of device time per forward by kernel, with
-   K1's share;
+   K1's share; ``NAFUpsampler(dim=96)`` serves a 448^2 request with 8 K1 and
+   1 K2 launches, held against its f32 CPU copy (cosine > 0.999);
    one gradient of each wrapper is held against autograd of its plain
    version (2e-3); per-forward time and the forward's own peak memory;
 4. K3 (cross-scale NA forward) and K4 (its recompute-P backward) against
    their plain versions at the training shape (4, 32^2 <- 16^2, 4 heads,
-   d 64, dv 192) and at 448^2 <- 28^2 (d 64, dv 96), k 9: f32 forward
-   atol = rtol = 2e-4 and gradients 2e-3, bf16 cosine > 0.9995 against the
-   f32 plain versions; the K2 gradient check of phase 3 also shows that its
+   d 64, dv 192), at 448^2 <- 28^2 (d 64, dv 96), at the ragged 100^2 <- 28^2
+   and at the denoiser's dv = 3 (one head) and dv = 1 (three heads), k 9:
+   f32 on the CUDA-core kernels, forward atol = rtol = 2e-4 and gradients
+   2e-3; bf16 on the tensor-core kernels, cosine > 0.9995 against the f32
+   plain versions, K4's dk/dv bitwise equal over two runs; each call counted
+   on its route; in bf16 also boxes above 192 cells (the chunked kernels):
+   NAF(dim=96) as a denoiser (256^2, ratio 1, one head, d 96, dv 3, k 9) and
+   the training widths at k 11; K4 at 448^2 <- 28^2 in bands of query rows
+   under a lowered partials budget against one launch, with both calls'
+   peak memory; the K2 gradient check of phase 3 also shows that its
    backward ran K3 and K4;
 5. the training path: ``train_upsampler`` on the production configuration
    (NAF dim 256, 4 + 4 heads, k 9, 2 layers, rope_rescale 2; AdamW 2e-4;
    batch 4; random ViT-B/14 DINOv2 backbone; img_size 448; bf16) for 20
    steps on seeded synthetic images, with 8 K1, 1 K3 and 1 K4 launches per
-   step, finite losses, the last below 1.5x the first, a checkpoint written,
-   reloaded and stepped once more, one step with use_checkpointing (2 K3
-   launches), and one f32 step at batch 1 held against the same step on the
-   CPU (loss rtol 1e-3, gradient cosine > 0.999); ms per step, a step's peak
-   memory and a torch.profiler split of its device time;
+   step (K3/K4 on their tensor-core kernels), finite losses, the last below
+   1.5x the first, a checkpoint written, reloaded and stepped once more, one
+   step with use_checkpointing (2 K3 launches), and one f32 step at batch 1
+   held against the same step on the CPU (loss rtol 1e-3, gradient cosine >
+   0.999); ms per step, a step's peak memory and a torch.profiler split of
+   its device time;
 6. K5 (FeatUp's spatially varying conv) against its plain version at
    FeatUp's last stage (1, 454, 454, 384) k 7, at JBU's (1, 458, 458, 3) k 11
    and at a ragged (2, 41, 57, 100) k 5: f32 atol = rtol = 2e-4, bf16 cosine
@@ -55,17 +67,25 @@ run on the tensor cores), then, each phase on its own lines:
    forward over 10 forwards, the forward's own peak memory, and a
    torch.profiler split of FeatUp's and JBU's device time into K5 and the
    rest;
-8. the time of each kernel at the production shape (K2 also at 2048^2, K3
-   and K4 at both shapes of phase 4, K3 also at AnyUp's k 7 shape, K5 at
-   FeatUp's and JBU's, K6 beside the K1 1x1 + 3x3 pair on the same halves)
-   beside its plain version's, a library yardstick and the card's bound; K1
-   and K6 in bf16 and in f32 (their two kernels).
+8. in a fresh process (``chip_smoke.py --timing``; torch.profiler drops
+   kernel records late in a long one), the time of each kernel at the
+   production shape (K2 also at 2048^2, K3 and K4 at the training shape and
+   448^2 <- 28^2, K3 also at AnyUp's f32 k 7 shape, K5 at FeatUp's and
+   JBU's, K6 beside the K1 1x1 + 3x3 pair on the same halves) beside its
+   plain version's, a library yardstick and the card's bound; K1 and K6 in
+   bf16 and in f32 (their two kernels). Every kernel and library call by
+   torch.profiler's device time, with the device time of calls queued
+   behind a spinning kernel (a host wait inside them fails it) and the
+   wrapper's time by CUDA events beside it; and K2's gradient at 448^2 and
+   448^2 -> 2048^2 (forward + twin backward: every kernel, K3 + K4, queued,
+   and the call's own peak memory).
 
 Phases 9-12 run after phase 4:
 
 9. K6 (both encoder stacks' layer over the packed [pix|sem] buffer) against
    its plain version at the production layer (1, 448, 448, 256), C = 128 per
-   stack, once at batch 2, at 2048^2 and at a band (1, 262, 452, 256): f32
+   stack, once at batch 2, at 2048^2 and at a band (1, 262, 452, 256), and at
+   448^2 with C = 48 and 96 per stack: f32
    atol = rtol = 2e-4, bf16 cosine > 0.9995 against the f32 plain version;
 10. the banded variants against their plain versions at one interior band:
    K2 at 448^2 -> 2048^2 <- 128^2 (a slab, and ``out_acc`` + ``enc_banded``
@@ -149,10 +169,10 @@ def _time_ms(fn, iters: int = 10) -> float:
 
 def _kernel_ms(fn, match=None, reps: int = 20) -> float:
     """Device time per call of ``fn`` in the kernels whose name holds
-    ``match`` (every kernel with None), from torch.profiler (CUPTI) over
-    ``reps`` calls after a warm-up: the kernels' own time, without the host
-    time between launches that CUDA events around a host-bound loop would
-    measure."""
+    ``match`` (a string, or a tuple of strings any of which may match; every
+    kernel with None), from torch.profiler (CUPTI) over ``reps`` calls after
+    a warm-up: the kernels' own time, without the host time between launches
+    that CUDA events around a host-bound loop would measure."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -163,11 +183,41 @@ def _kernel_ms(fn, match=None, reps: int = 20) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
+    names = (match,) if isinstance(match, str) else match
     ev = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
-          and (match is None or match in e.key)]
+          and not getattr(e, "is_user_annotation", False)
+          and (names is None or any(m in e.key for m in names))]
     if not ev:
         raise AssertionError(f"the profile shows no kernel matching {match!r}")
     return sum(e.self_device_time_total for e in ev) / reps / 1e3
+
+
+def _queued_ms(fn, reps: int = 20, spin: int = 200_000_000) -> float:
+    """Device time per call of ``fn`` by CUDA events around ``reps`` calls
+    queued behind a spinning kernel (``torch.cuda._sleep`` of ``spin``
+    cycles): the host enqueues them while the card spins, so they run back
+    to back with no host time between them. The cross-check of
+    ``_kernel_ms``, with no profiler in the way. Raises if the card was done
+    spinning when the last call had been enqueued (checked with a 4x longer
+    spin once more): then a call waited on the card, and the window holds
+    host time."""
+    fn()
+    torch.cuda.synchronize()
+    for cycles in (spin, 4 * spin):
+        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        spun = torch.cuda.Event()
+        torch.cuda._sleep(cycles)
+        spun.record()
+        t0.record()
+        for _ in range(reps):
+            fn()
+        queued = not spun.query()
+        t1.record()
+        torch.cuda.synchronize()
+        if queued:
+            return t0.elapsed_time(t1) / reps
+    raise AssertionError("the card finished spinning before the timed calls were all "
+                         "enqueued: a call waits on the card, so its queued time holds host time")
 
 
 def _check_close(name, got, want, tol, chunk: int = 1 << 26):
@@ -223,6 +273,26 @@ def phase_k1(dev):
         cp = _check_cos(f"K1 bf16 psums b={b} k={k}", psb, ps_ref, 0.9995)
         errs[(b, k, h)] = e
         print(f"K1 b={b} k={k} {h}x{w}: f32 max_abs_err {e:.3e}; bf16 cos y {cy:.6f} psums "
+              f"{cp:.6f}", flush=True)
+        del x, y, ps, yb, psb, y_ref, ps_ref
+    # other widths at 448^2, C = F: NAF(dim=96)'s 48 (F zero-padded to 64 by
+    # the wrapper), 160 (a zero stage past C, a halo in two chunks) and 256
+    for c, k in ((48, 3), (48, 1), (160, 3), (256, 3)):
+        x = torch.randn(1, 448, 448, c, generator=gen, device=dev)
+        scale = torch.rand(1, c, generator=gen, device=dev) * 0.5 + 0.75
+        shift = torch.randn(1, c, generator=gen, device=dev) * 0.1
+        wt = torch.randn(c, c, k, k, generator=gen, device=dev) * (1.0 / (c * k * k)) ** 0.5
+        bias = torch.randn(c, generator=gen, device=dev) * 0.1
+        y_ref, ps_ref = gn_silu_conv_ref(x, scale, shift, wt, bias)
+        y, ps = gn_silu_conv_fused(x, scale, shift, wt, bias)
+        yb, psb = gn_silu_conv_fused(x.bfloat16(), scale, shift, wt.bfloat16(), bias)
+        torch.cuda.synchronize()
+        e = _check_close(f"K1 f32 y C={c} k={k}", y, y_ref, 2e-4)
+        _check_close(f"K1 f32 psums C={c} k={k}", ps / 448**2, ps_ref / 448**2, 2e-4)
+        cy = _check_cos(f"K1 bf16 y C={c} k={k}", yb.float(), y_ref, 0.9995)
+        cp = _check_cos(f"K1 bf16 psums C={c} k={k}", psb, ps_ref, 0.9995)
+        errs[(1, k, c)] = e
+        print(f"K1 C=F={c} k={k} 448x448: f32 max_abs_err {e:.3e}; bf16 cos y {cy:.6f} psums "
               f"{cp:.6f}", flush=True)
         del x, y, ps, yb, psb, y_ref, ps_ref
     torch.cuda.empty_cache()
@@ -319,6 +389,7 @@ def phase_main(dev, card):
                          ft14.cpu().permute(0, 2, 3, 1).contiguous(), (224, 224))
     c_cpu = _check_cos("card bf16 vs CPU f32 at 224^2", got.permute(0, 2, 3, 1), want, 0.999)
     print(f"main path vs modular cos {c_mod:.6f}; vs CPU f32 cos {c_cpu:.6f}", flush=True)
+    c96 = _serve_dim96(dev, gen)
 
     stats = {}
     for label, (image, feats, out) in (("448", inputs[0]), ("2048", inputs[3])):
@@ -335,7 +406,36 @@ def phase_main(dev, card):
               flush=True)
         prof = _profile(lambda: ups(image, feats, out), f"448^2 -> {label}^2")
         stats[label] = (ms, peak, prof)
-    return launches, stats
+    return launches, stats, c96
+
+
+def _serve_dim96(dev, gen):
+    """NAF(dim=96), the denoising kernel-size ablation's width (hidden 48:
+    K1's F zero-padded to 64 by its wrapper), serves one 448^2 request in
+    bf16 with 8 K1 and 1 K2 launches, held against an f32 copy of the model
+    on the CPU."""
+    from naf_torch import NAFUpsampler, load_naf_params
+    from naf_torch.kernels.encoder_fused import gn_silu_conv_fused
+    from naf_torch.kernels.na2d_fused_q import naf_upsample_attention
+
+    ups = NAFUpsampler(seed=3, device=dev, dtype=torch.bfloat16, dim=96)
+    image = torch.randn(1, 3, 448, 448, generator=gen, device=dev)
+    feats = torch.randn(1, 384, 28, 28, generator=gen, device=dev)
+    k1, k2 = gn_silu_conv_fused.launches, naf_upsample_attention.launches
+    got = ups(image, feats, (448, 448))
+    torch.cuda.synchronize()
+    delta = (gn_silu_conv_fused.launches - k1, naf_upsample_attention.launches - k2)
+    if delta != (8, 1):
+        raise AssertionError(f"NAF(dim=96) launched (K1, K2) {delta}, want (8, 1)")
+    cpu_model = load_naf_params(seed=3, device="cpu", dtype=torch.float32, dim=96)
+    with torch.inference_mode():
+        want = cpu_model(image.cpu().permute(0, 2, 3, 1).contiguous(),
+                         feats.cpu().permute(0, 2, 3, 1).contiguous(), (448, 448))
+    c = _check_cos("NAF(dim=96) card bf16 vs CPU f32 at 448^2",
+                   got.float().cpu().permute(0, 2, 3, 1), want, 0.999)
+    print(f"NAF(dim=96) 448^2 <- 28^2 x 384 bf16: launches K1 8, K2 1; vs CPU f32 cos {c:.6f}",
+          flush=True)
+    return c
 
 
 def _profile(fn, label, reps=3):
@@ -422,6 +522,15 @@ def phase_grads(dev):
 
 # (B, Hq, Hk, n, d, dv): the training step's attention and the K2 twin's 448^2 <- 28^2
 K34_SHAPES = {"train": (4, 32, 16, 4, 64, 192), "448": (1, 448, 28, 4, 64, 96)}
+# checked beside them: a ragged ratio whose windows repeat LR cells, and the
+# denoiser's values (the 3-channel image: dv 3 with one head, 1 with three)
+K34_CHECKED = {**K34_SHAPES, "100": (1, 100, 28, 4, 64, 96), "dv3": (1, 448, 28, 1, 64, 3),
+               "dv1": (1, 448, 28, 3, 32, 1)}
+# boxes above 192 cells, which the bf16 kernels take in chunks, with their
+# window size: NAF(dim=96) as a denoiser (ratio 1, one head, d 96, the 3
+# image channels as values) and the training widths at k 11; bf16 only (the
+# f32 route's K4 holds no tile of the training widths at k 11)
+K34_LARGE = {"denoise": ((1, 256, 256, 1, 96, 3), 9), "train_k11": ((4, 64, 32, 4, 64, 192), 11)}
 
 
 def _k34_inputs(dev, gen, shape):
@@ -434,7 +543,13 @@ def _k34_inputs(dev, gen, shape):
 
 
 def phase_k34(dev):
+    """K3 and K4 against their plain versions: bf16 on the tensor-core
+    kernels, f32 on the CUDA-core ones, each call counted on its route; K4's
+    bf16 dk/dv bitwise equal over two runs."""
     from naf_torch.kernels.na2d_fused import (
+        TC_CHUNK,
+        _launch_bwd,
+        _plan_tc,
         cross_scale_na2d_fused,
         cross_scale_na2d_fused_bwd_ref,
         cross_scale_na2d_fused_ref,
@@ -442,15 +557,19 @@ def phase_k34(dev):
 
     gen = torch.Generator(device=dev).manual_seed(5)
     errs = {"k3": 0.0, "k4": 0.0}
-    for label, shape in K34_SHAPES.items():
+    routes = cross_scale_na2d_fused.route_launches
+    for label, shape in K34_CHECKED.items():
         q, k, v, g = _k34_inputs(dev, gen, shape)
         want = cross_scale_na2d_fused_ref(q, k, v, 9)
         want_g = cross_scale_na2d_fused_bwd_ref(q, k, v, g, 9)
-        for dt in (torch.float32, torch.bfloat16):
+        for dt, route in ((torch.float32, "fma"), (torch.bfloat16, "wgmma")):
+            before = (routes[route], routes[f"{route}_bwd"])
             ins = [t.to(dt).requires_grad_() for t in (q, k, v)]
             out = cross_scale_na2d_fused(*ins, 9)
             got_g = torch.autograd.grad(out, ins, g.to(dt))
             torch.cuda.synchronize()
+            if (routes[route], routes[f"{route}_bwd"]) != (before[0] + 1, before[1] + 1):
+                raise AssertionError(f"K3/K4 {dt} {label} did not run on the {route} route")
             if dt == torch.float32:
                 e3 = _check_close(f"K3 f32 {label}", out, want, 2e-4)
                 e4 = max(_check_close(f"K4 f32 {label} d{n}", a, w, 2e-3)
@@ -460,13 +579,78 @@ def phase_k34(dev):
                 c3 = _check_cos(f"K3 bf16 {label}", out.float(), want, 0.9995)
                 c4 = [_check_cos(f"K4 bf16 {label} d{n}", a.float(), w, 0.9995)
                       for a, w, n in zip(got_g, want_g, "qkv")]
+                again = _launch_bwd(*(t.detach() for t in ins), g.to(dt), 9, shape[4] ** -0.5)
+                if not all(torch.equal(a, b) for a, b in zip(got_g[1:], again[1:])):
+                    raise AssertionError(f"K4 bf16 {label}: dk/dv differ between two runs")
             del out, got_g, ins
-        print(f"K3/K4 {label} {tuple(shape)}: f32 max_abs_err K3 {e3:.3e} K4 {e4:.3e}; "
-              f"bf16 cos K3 {c3:.6f} K4 dq/dk/dv " + "/".join(f"{c:.6f}" for c in c4),
+        print(f"K3/K4 {label} {tuple(shape)}: f32 (CUDA cores) max_abs_err K3 {e3:.3e} K4 "
+              f"{e4:.3e}; bf16 (wgmma) cos K3 {c3:.6f} K4 dq/dk/dv "
+              + "/".join(f"{c:.6f}" for c in c4) + "; K4 dk/dv bitwise reproducible",
               flush=True)
         del q, k, v, g, want, want_g
         torch.cuda.empty_cache()
+    for label, (shape, ks) in K34_LARGE.items():
+        q, k, v, g = _k34_inputs(dev, gen, shape)
+        want = cross_scale_na2d_fused_ref(q, k, v, ks)
+        want_g = cross_scale_na2d_fused_bwd_ref(q, k, v, g, ks)
+        before = (routes["wgmma"], routes["wgmma_bwd"])
+        ins = [t.bfloat16().requires_grad_() for t in (q, k, v)]
+        out = cross_scale_na2d_fused(*ins, ks)
+        got_g = torch.autograd.grad(out, ins, g.bfloat16())
+        torch.cuda.synchronize()
+        if (routes["wgmma"], routes["wgmma_bwd"]) != (before[0] + 1, before[1] + 1):
+            raise AssertionError(f"K3/K4 bf16 {label} did not run on the wgmma route")
+        c3 = _check_cos(f"K3 bf16 {label}", out.float(), want, 0.9995)
+        c4 = [_check_cos(f"K4 bf16 {label} d{n}", a.float(), w, 0.9995)
+              for a, w, n in zip(got_g, want_g, "qkv")]
+        _, hq, hk, _, d, dv = shape
+        nb = _plan_tc(hq, hq, hk, hk, ks, -(-d // 16) * 16, -(-dv // 16) * 16, True,
+                      str(dev))[4]
+        print(f"K3/K4 bf16 {label} {tuple(shape)}, k {ks}: box of {nb} cells in chunks of "
+              f"{TC_CHUNK} (wgmma); cos K3 {c3:.6f} K4 dq/dk/dv "
+              + "/".join(f"{c:.6f}" for c in c4), flush=True)
+        del q, k, v, g, want, want_g, out, got_g, ins
+    _k4_bands(dev, gen)
+    torch.cuda.empty_cache()
     return errs
+
+
+def _k4_bands(dev, gen):
+    """K4's f32 box partials at 448^2 <- 28^2 bf16: the peak of one call,
+    and the same call in bands of query rows under a budget of 256 MiB,
+    held against the plain version and one launch, bitwise over two runs."""
+    from naf_torch.kernels import na2d_fused as na
+
+    routes = na.cross_scale_na2d_fused.route_launches
+    shape = K34_SHAPES["448"]
+    q, k, v, g = _k34_inputs(dev, gen, shape)
+    want = na.cross_scale_na2d_fused_bwd_ref(q, k, v, g, 9)
+    q, k, v, g = (t.bfloat16() for t in (q, k, v, g))
+    sc = shape[4] ** -0.5
+    call = lambda: na._launch_bwd(q, k, v, g, 9, sc)
+    whole = call()
+    peak = _peak_mib(call)
+    tqh, tqw, urh, urw = na._plan_tc(448, 448, 28, 28, 9, 64, 96, True, str(dev))[:4]
+    part = -(-448 // tqh) * -(-448 // tqw) * 4 * urh * urw * 160 * 4 / 2**20
+    budget = na.PARTIAL_BUDGET
+    na.PARTIAL_BUDGET = 256 * 2**20
+    try:
+        before = routes["wgmma_bwd"]
+        banded = call()
+        bands = routes["wgmma_bwd"] - before
+        again = call()
+        peak_banded = _peak_mib(call)
+    finally:
+        na.PARTIAL_BUDGET = budget
+    if bands < 2 or not all(torch.equal(a, b) for a, b in zip(banded, again)):
+        raise AssertionError(f"K4 in bands: {bands} launches, or two runs differ")
+    cos = [min(_check_cos(f"K4 bands vs plain d{n}", a.float(), w, 0.9995),
+               _check_cos(f"K4 bands vs one launch d{n}", a.float(), b.float(), 0.99999))
+           for a, b, w, n in zip(banded, whole, want, "qkv")]
+    print(f"K4 bf16 448^2 <- 28^2: one launch, {part:.1f} MiB of f32 partials, call peak "
+          f"{peak:.1f} MiB; in {bands} bands under a 256 MiB budget, call peak "
+          f"{peak_banded:.1f} MiB, cos dq/dk/dv " + "/".join(f"{c:.6f}" for c in cos)
+          + ", bitwise reproducible", flush=True)
 
 
 PROD_NAF = dict(dim=256, heads_attn=4, heads_rope=4, kernel_size=9, use_encoder=True,
@@ -508,6 +692,7 @@ def _zero_counts():
 
     gn_silu_conv_fused.launches = naf_upsample_attention.launches = 0
     cross_scale_na2d_fused.launches = cross_scale_na2d_fused.bwd_launches = 0
+    cross_scale_na2d_fused.route_launches = dict.fromkeys(cross_scale_na2d_fused.route_launches, 0)
     adaptive_conv_fused.launches = gn_silu_conv_dual_fused.launches = 0
 
 
@@ -561,6 +746,12 @@ def phase_train(dev, card, workdir):
         raise AssertionError(f"launches per step (K1, K3, K4) {per_step} over {len(marks) - 1} "
                              "steps, want (8, 1, 1) each")
     launches = dict(zip(("k1", "k3", "k4"), marks[-1]))
+    # bf16 training runs K3/K4 on the tensor cores
+    from naf_torch.kernels.na2d_fused import cross_scale_na2d_fused
+
+    launches["routes"] = dict(cross_scale_na2d_fused.route_launches)
+    if launches["routes"] != {"wgmma": STEPS, "fma": 0, "wgmma_bwd": STEPS, "fma_bwd": 0}:
+        raise AssertionError(f"K3/K4 routes over the bf16 steps: {launches['routes']}")
     loop_ms = [a.elapsed_time(b) for a, b in zip(events[1:], events[2:])]
     run = os.path.join(cfg.log_dir, "version_0")
     losses = [json.loads(line)["loss"] for line in open(os.path.join(run, "metrics.jsonl"))]
@@ -901,14 +1092,17 @@ def _time_k5(dev, card, bw_peak):
     for label in ("featup", "jbu"):
         b, h, w, c, k = K5_SHAPES[label]
         src, ker = _k5_inputs(dev, gen, K5_SHAPES[label])
-        ms = _time_ms(lambda: adaptive_conv_fused(src, ker), iters=20)
+        ms = _kernel_ms(lambda: adaptive_conv_fused(src, ker), "adaptive_conv_kernel")
+        wrapper = _time_ms(lambda: adaptive_conv_fused(src, ker), iters=20)
         plain = _time_ms(lambda: adaptive_conv_fused_ref(src, ker), iters=3)
         nbytes = 4 * (src.numel() + ker.numel() + b * h * w * c)
         flops = 2 * b * h * w * c * k * k
         bound = max(nbytes / bw_peak, flops / F32_FLOPS) * 1e3
         by = "bytes" if nbytes / bw_peak > flops / F32_FLOPS else "operations"
-        res[label] = dict(ms=ms, plain_ms=plain, library_ms=None, bound_ms=bound, bound_by=by)
-        print(f"K5 f32 {label} src {tuple(src.shape)} k {k}: {ms:.4f} ms; plain {plain:.4f} ms; "
+        res[label] = dict(ms=ms, plain_ms=plain, library_ms=None, bound_ms=bound, bound_by=by,
+                          wrapper_ms=wrapper)
+        print(f"K5 f32 {label} src {tuple(src.shape)} k {k}: kernel {ms:.4f} ms (through the "
+              f"wrapper {wrapper:.4f} ms); plain {plain:.4f} ms; "
               f"bound {bound:.4f} ms ({by}, {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP) "
               f"({card})", flush=True)
         del src, ker
@@ -928,7 +1122,9 @@ def _time_k3_anyup(dev, card, bw_peak):
     sc = 32 ** -0.5
     err = _check_close("K3 f32 AnyUp shape", _launch_fwd(q, k, v, 7, sc),
                        cross_scale_na2d_fused_ref(q, k, v, 7, sc), 2e-4)
-    ms = _time_ms(lambda: _launch_fwd(q, k, v, 7, sc), iters=10)
+    ms = _kernel_ms(lambda: _launch_fwd(q, k, v, 7, sc), "na_fwd_kernel", reps=10)
+    queued = _queued_ms(lambda: _launch_fwd(q, k, v, 7, sc), reps=10)
+    wrapper = _time_ms(lambda: _launch_fwd(q, k, v, 7, sc), iters=10)
     plain = _time_ms(lambda: cross_scale_na2d_fused_ref(q, k, v, 7, sc), iters=1)
     # library yardstick, as for the training shape: masked SDPA over all LR
     # keys (448 / 28 is an integer ratio), f32 as AnyUp runs
@@ -938,19 +1134,21 @@ def _time_k3_anyup(dev, card, bw_peak):
     lib_cos = _check_cos("masked SDPA vs K3 AnyUp shape",
                          lib_out.transpose(1, 2).reshape(ref.shape), ref, 0.999)
     del lib_out, ref
-    lib = _time_ms(lambda: F.scaled_dot_product_attention(sq, sk, sv, attn_mask=mask, scale=sc),
-                   iters=3)
+    sdpa = lambda: F.scaled_dot_product_attention(sq, sk, sv, attn_mask=mask, scale=sc)
+    lib = _kernel_ms(sdpa, reps=3)
+    qlib = _queued_ms(sdpa, reps=3)
     nbytes = 4 * (q.numel() + k.numel() + v.numel() + 448 * 448 * 8 * 48)
     flops = 2 * 448 * 448 * 8 * 49 * (32 + 48)
     bound = max(nbytes / bw_peak, flops / F32_FLOPS) * 1e3
     by = "bytes" if nbytes / bw_peak > flops / F32_FLOPS else "operations"
-    print(f"K3 f32 AnyUp (1,448,448,8,32) <- 28^2, dv 48, k 7: {ms:.4f} ms; plain {plain:.4f} ms; "
-          f"masked SDPA {lib:.4f} ms (cos vs K3 {lib_cos:.6f}); bound {bound:.4f} ms ({by}); f32 "
-          f"max_abs_err {err:.3e} ({card})", flush=True)
+    print(f"K3 f32 AnyUp (1,448,448,8,32) <- 28^2, dv 48, k 7, CUDA cores: kernel {ms:.4f} ms "
+          f"(queued {queued:.4f} ms, through the wrapper {wrapper:.4f} ms); plain {plain:.4f} "
+          f"ms; masked SDPA {lib:.4f} ms (queued {qlib:.4f} ms; cos vs K3 {lib_cos:.6f}); bound "
+          f"{bound:.4f} ms ({by}); f32 max_abs_err {err:.3e} ({card})", flush=True)
     del sq, sk, sv, mask
     torch.cuda.empty_cache()
     return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound, bound_by=by,
-                max_abs_err=err)
+                max_abs_err=err, wrapper_ms=wrapper, queued_ms=queued, library_queued_ms=qlib)
 
 
 def _time_k6(dev, card, bw_peak, fl_peak):
@@ -973,6 +1171,7 @@ def _time_k6(dev, card, bw_peak, fl_peak):
     ms = _kernel_ms(lambda: gn_silu_conv_dual_fused(xb, sc, sh, wpb, wsb, bp, bs),
                     "gn_silu_conv_dual_wgmma_kernel")
     wrapper = _time_ms(lambda: gn_silu_conv_dual_fused(xb, sc, sh, wpb, wsb, bp, bs), iters=20)
+    queued = _queued_ms(lambda: gn_silu_conv_dual_fused(xb, sc, sh, wpb, wsb, bp, bs))
     ms_f32 = _kernel_ms(lambda: gn_silu_conv_dual_fused(x, sc, sh, wp, ws, bp, bs),
                         "gn_silu_conv_dual_kernel<float", reps=5)
     plain = _time_ms(lambda: gn_silu_conv_dual_ref(xb, sc, sh, wpb, wsb, bp, bs), iters=3)
@@ -987,18 +1186,21 @@ def _time_k6(dev, card, bw_peak, fl_peak):
     wpl = wpb.contiguous(memory_format=torch.channels_last)
     wsl = wsb.contiguous(memory_format=torch.channels_last)
     lib = _kernel_ms(lambda: (F.conv2d(zp, wpl), F.conv2d(zs, wsl)))
+    qlib = _queued_ms(lambda: (F.conv2d(zp, wpl), F.conv2d(zs, wsl)))
     flops = 2 * b * h * w * c * c * (1 + 9)
     nbytes = 2 * (b * h * w * 2 * c2 + 10 * c * c) + 4 * (2 * b * c2 + c2 + 2 * b * c2)
     bound = max(nbytes / bw_peak, flops / fl_peak) * 1e3
     by = "bytes" if nbytes / bw_peak > flops / fl_peak else "operations"
     bound_f32 = max(2 * nbytes / bw_peak, flops / F32_FLOPS) * 1e3
-    print(f"K6 bf16 (1,448,448,256) packed, tensor cores: kernel {ms:.4f} ms (through the wrapper "
-          f"{wrapper:.4f} ms); plain {plain:.4f} ms; K1 1x1 + 3x3 kernels on the halves "
-          f"{pair:.4f} ms; F.conv2d 1x1 + 3x3 {lib:.4f} ms; bound {bound:.4f} ms ({by}, "
-          f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.1f} GFLOP); f32 on the CUDA cores "
-          f"{ms_f32:.4f} ms, bound {bound_f32:.4f} ms ({card})", flush=True)
+    print(f"K6 bf16 (1,448,448,256) packed, tensor cores: kernel {ms:.4f} ms (queued "
+          f"{queued:.4f} ms, through the wrapper {wrapper:.4f} ms); plain {plain:.4f} ms; "
+          f"K1 1x1 + 3x3 kernels on the halves {pair:.4f} ms; "
+          f"F.conv2d 1x1 + 3x3 {lib:.4f} ms (queued {qlib:.4f} ms); bound {bound:.4f} ms ({by}, {nbytes / 1e6:.1f} MB, "
+          f"{flops / 1e9:.1f} GFLOP); f32 on the CUDA cores {ms_f32:.4f} ms, bound "
+          f"{bound_f32:.4f} ms ({card})", flush=True)
     return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound, bound_by=by,
-                wrapper_ms=wrapper, k1_pair_ms=pair, ms_f32=ms_f32, bound_ms_f32=bound_f32)
+                wrapper_ms=wrapper, k1_pair_ms=pair, ms_f32=ms_f32, bound_ms_f32=bound_f32,
+                queued_ms=queued, library_queued_ms=qlib)
 
 
 def phase_timing(dev, card):
@@ -1023,6 +1225,7 @@ def phase_timing(dev, card):
         ms = _kernel_ms(lambda: gn_silu_conv_fused(x, scale, shift, wt, bias),
                         "gn_silu_conv_wgmma_kernel")
         wrapper = _time_ms(lambda: gn_silu_conv_fused(x, scale, shift, wt, bias), iters=20)
+        queued = _queued_ms(lambda: gn_silu_conv_fused(x, scale, shift, wt, bias))
         x32, wt32 = x.float(), wt.float()
         ms_f32 = _kernel_ms(lambda: gn_silu_conv_fused(x32, scale, shift, wt32, bias),
                             "gn_silu_conv_kernel<float", reps=5)
@@ -1034,6 +1237,7 @@ def phase_timing(dev, card):
         z = z.contiguous(memory_format=torch.channels_last)
         wl = wt.contiguous(memory_format=torch.channels_last)
         lib = _kernel_ms(lambda: F.conv2d(z, wl))
+        qlib = _queued_ms(lambda: F.conv2d(z, wl))
         nbytes = 2 * (b * h * w * (c + f) + k * k * c * f) + 4 * (2 * b * c + f + 2 * b * f)
         flops = 2 * b * h * w * c * f * k * k
         bound = max(nbytes / bw_peak, flops / fl_peak) * 1e3
@@ -1041,19 +1245,23 @@ def phase_timing(dev, card):
         res[f"k1_k{k}"] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound,
                                bound_by="bytes" if nbytes / bw_peak > flops / fl_peak
                                else "operations", wrapper_ms=wrapper, ms_f32=ms_f32,
-                               bound_ms_f32=bound_f32)
-        print(f"K1 k={k} bf16 (1,448,448,128), tensor cores: kernel {ms:.4f} ms (through the "
-              f"wrapper {wrapper:.4f} ms); bound {bound:.4f} ms; plain {plain:.4f} ms; F.conv2d "
-              f"alone {lib:.4f} ms; f32 on the CUDA cores {ms_f32:.4f} ms, bound {bound_f32:.4f} "
-              f"ms ({card})", flush=True)
+                               bound_ms_f32=bound_f32, queued_ms=queued,
+                               library_queued_ms=qlib)
+        print(f"K1 k={k} bf16 (1,448,448,128), tensor cores: kernel {ms:.4f} ms (queued "
+              f"{queued:.4f} ms, through the wrapper {wrapper:.4f} ms); bound {bound:.4f} ms; "
+              f"plain {plain:.4f} ms; F.conv2d alone {lib:.4f} ms (queued {qlib:.4f} ms); f32 on "
+              f"the CUDA cores "
+              f"{ms_f32:.4f} ms, bound {bound_f32:.4f} ms ({card})", flush=True)
         del x32, wt32
 
     kw = dict(num_heads=4, kernel_size=9)
     for out in (448, 2048):
         enc, keys, values, rt, ct, dh = _k2_inputs(dev, gen, 448, out=out)
         enc, keys, values = enc.bfloat16(), keys.bfloat16(), values.bfloat16()
-        ms = _time_ms(lambda: naf_upsample_attention(enc, keys, values, rt, ct, dh, **kw),
-                      iters=10 if out == 448 else 3)
+        ms = _kernel_ms(lambda: naf_upsample_attention(enc, keys, values, rt, ct, dh, **kw),
+                        "fused_q_kernel", reps=10 if out == 448 else 3)
+        wrapper = _time_ms(lambda: naf_upsample_attention(enc, keys, values, rt, ct, dh, **kw),
+                           iters=10 if out == 448 else 3)
         plain = _time_ms(
             lambda: naf_upsample_attention_ref(enc, keys, values, rt, ct, dh, **kw), iters=1)
         nbytes = 2 * (enc.numel() + keys.numel() + values.numel() + out * out * 384) \
@@ -1062,8 +1270,9 @@ def phase_timing(dev, card):
         bound = max(nbytes / bw_peak, flops / fl_peak) * 1e3
         res[f"k2_{out}"] = dict(ms=ms, plain_ms=plain, library_ms=None, bound_ms=bound,
                                 bound_by="bytes" if nbytes / bw_peak > flops / fl_peak
-                                else "operations")
-        print(f"K2 bf16 448^2 -> {out}^2 <- 28^2x384: {ms:.4f} ms; plain {plain:.4f} ms; "
+                                else "operations", wrapper_ms=wrapper)
+        print(f"K2 bf16 448^2 -> {out}^2 <- 28^2x384: kernel {ms:.4f} ms (through the wrapper "
+              f"{wrapper:.4f} ms); plain {plain:.4f} ms; "
               f"bound {bound:.4f} ms ({card})", flush=True)
 
     from naf_torch.kernels.na2d_fused import (
@@ -1082,43 +1291,116 @@ def phase_timing(dev, card):
         q, k, v, g = (t.bfloat16() for t in _k34_inputs(dev, gen, shape))
         sc = d ** -0.5
         it = 10 if label == "train" else 3
-        ms3 = _time_ms(lambda: _launch_fwd(q, k, v, 9, sc), iters=it)
-        ms4 = _time_ms(lambda: _launch_bwd(q, k, v, g, 9, sc), iters=it)
+        # device time of the kernels (K4: the tile kernel and its reduce
+        # pass), and the time through the wrapper (CUDA events)
+        ms3 = _kernel_ms(lambda: _launch_fwd(q, k, v, 9, sc), "na_fwd_wgmma_kernel")
+        ms4 = _kernel_ms(lambda: _launch_bwd(q, k, v, g, 9, sc),
+                         ("na_bwd_wgmma_kernel", "na_bwd_reduce_kernel"))
+        ms4_tile = _kernel_ms(lambda: _launch_bwd(q, k, v, g, 9, sc), "na_bwd_wgmma_kernel")
+        w3 = _time_ms(lambda: _launch_fwd(q, k, v, 9, sc), iters=2 * it)
+        w4 = _time_ms(lambda: _launch_bwd(q, k, v, g, 9, sc), iters=2 * it)
+        qd3 = _queued_ms(lambda: _launch_fwd(q, k, v, 9, sc))
+        qd4 = _queued_ms(lambda: _launch_bwd(q, k, v, g, 9, sc))
         plain3 = _time_ms(lambda: cross_scale_na2d_fused_ref(q, k, v, 9), iters=1)
         plain4 = _time_ms(lambda: cross_scale_na2d_fused_bwd_ref(q, k, v, g, 9), iters=1)
         # library yardstick: masked SDPA over all LR keys (integer ratio: no
-        # window holds a cell twice, so it computes K3's function)
+        # window holds a cell twice, so it computes K3's function), its
+        # kernels' device time by the same method
         sq, sk, sv, mask = _masked_sdpa_inputs(q, k, v, 9)
         ref = _launch_fwd(q, k, v, 9, sc)
         lib_out = F.scaled_dot_product_attention(sq, sk, sv, attn_mask=mask, scale=sc)
         lib_cos = _check_cos(f"masked SDPA vs K3 {label}",
                              lib_out.transpose(1, 2).reshape(ref.shape).float(), ref.float(),
                              0.999)
-        lib3 = _time_ms(lambda: F.scaled_dot_product_attention(sq, sk, sv, attn_mask=mask,
-                                                               scale=sc), iters=it)
+        sdpa = lambda: F.scaled_dot_product_attention(sq, sk, sv, attn_mask=mask, scale=sc)
+        lib3 = _kernel_ms(sdpa, reps=it)
+        qlib3 = _queued_ms(sdpa, reps=it)
         lq, lk, lv = (t.detach().requires_grad_() for t in (sq, sk, sv))
         lo = F.scaled_dot_product_attention(lq, lk, lv, attn_mask=mask, scale=sc)
         lg = g.flatten(1, 2).transpose(1, 2)
-        lib4 = _time_ms(lambda: torch.autograd.grad(lo, (lq, lk, lv), lg, retain_graph=True),
-                        iters=it)
+        sdpa_bwd = lambda: torch.autograd.grad(lo, (lq, lk, lv), lg, retain_graph=True)
+        lib4 = _kernel_ms(sdpa_bwd, reps=it)
+        qlib4 = _queued_ms(sdpa_bwd, reps=it)
         pix, lr = b * hq * hq * n, b * hk * hk * n
         b3, by3 = bound_of(2 * (pix * (d + dv) + lr * (d + dv)), 2 * pix * 81 * (d + dv))
         b4, by4 = bound_of(2 * (pix * (2 * d + dv) + 2 * lr * (d + dv)),
                            2 * pix * 81 * (3 * d + 2 * dv))
         res[f"k3_{label}"] = dict(ms=ms3, plain_ms=plain3, library_ms=lib3, bound_ms=b3,
-                                  bound_by=by3)
+                                  bound_by=by3, wrapper_ms=w3, queued_ms=qd3,
+                                  library_queued_ms=qlib3)
         res[f"k4_{label}"] = dict(ms=ms4, plain_ms=plain4, library_ms=lib4, bound_ms=b4,
-                                  bound_by=by4)
-        print(f"K3 bf16 {label} {tuple(shape)}: {ms3:.4f} ms; plain {plain3:.4f} ms; masked "
-              f"SDPA {lib3:.4f} ms (cos vs K3 {lib_cos:.6f}); bound {b3:.4f} ms ({by3}) ({card})",
+                                  bound_by=by4, wrapper_ms=w4, queued_ms=qd4,
+                                  tile_ms=ms4_tile, library_queued_ms=qlib4)
+        print(f"K3 bf16 {label} {tuple(shape)}, tensor cores: kernel {ms3:.4f} ms (queued "
+              f"{qd3:.4f} ms, through the wrapper {w3:.4f} ms); plain {plain3:.4f} ms; masked "
+              f"SDPA {lib3:.4f} ms (queued {qlib3:.4f} ms; cos vs K3 {lib_cos:.6f}); "
+              f"bound {b3:.4f} ms ({by3}) ({card})", flush=True)
+        print(f"K4 bf16 {label} {tuple(shape)}, tensor cores: kernels {ms4:.4f} ms, its tile "
+              f"kernel {ms4_tile:.4f} ms and the rest the reduce pass (queued {qd4:.4f} ms, "
+              f"through the wrapper {w4:.4f} ms); plain {plain4:.4f} ms; masked SDPA backward "
+              f"{lib4:.4f} ms (queued {qlib4:.4f} ms); bound {b4:.4f} ms ({by4}) ({card})",
               flush=True)
-        print(f"K4 bf16 {label} {tuple(shape)}: {ms4:.4f} ms; plain {plain4:.4f} ms; masked "
-              f"SDPA backward {lib4:.4f} ms; bound {b4:.4f} ms ({by4}) ({card})", flush=True)
         del q, k, v, g, sq, sk, sv, mask, lq, lk, lv, lo, lg, lib_out, ref
         torch.cuda.empty_cache()
     res["k3_anyup"] = _time_k3_anyup(dev, card, bw_peak)
     res["k6"] = _time_k6(dev, card, bw_peak, fl_peak)
     res.update({f"k5_{k}": v for k, v in _time_k5(dev, card, bw_peak).items()})
+    return res
+
+
+def k2_grad_step(dev, gen, out):
+    """One call of K2's gradient at NAF's widths, bf16: K2's forward from a
+    448^2 x 256 encoder output, 28^2 x 256 keys and 28^2 x 384 values (4
+    heads, k 9) to an out^2 output, and the backward through its twin
+    (pool-up, RoPE, K3 and K4, and their autograd)."""
+    from naf_torch.kernels.na2d_fused_q import naf_upsample_attention
+
+    enc, keys, values, rt, ct, dh = _k2_inputs(dev, gen, 448, out=out)
+    ins = tuple(t.bfloat16().requires_grad_() for t in (enc, keys, values))
+    cot = torch.randn(1, out, out, 384, generator=gen, device=dev).bfloat16()
+
+    def step():
+        o = naf_upsample_attention(*ins, rt, ct, dh, num_heads=4, kernel_size=9)
+        return torch.autograd.grad(o, ins, cot)
+
+    return step
+
+
+def _time_k2_grad(dev, card):
+    """K2's gradient at 448^2 and 448^2 -> 2048^2 (K4 at 2048^2 <- 28^2, the
+    ragged ratio, in bands of query rows): device time of every kernel and
+    of K3 + K4, the queued time, and the call's own peak memory."""
+    from naf_torch.kernels import na2d_fused as na
+
+    fused = na.cross_scale_na2d_fused
+    gen = torch.Generator(device=dev).manual_seed(11)
+    res = {}
+    for out in (448, 2048):
+        step = k2_grad_step(dev, gen, out)
+        before = (fused.launches, fused.bwd_launches)
+        grads = step()
+        torch.cuda.synchronize()
+        k3, k4 = fused.launches - before[0], fused.bwd_launches - before[1]
+        if k3 != 1 or k4 < 1 or not all(torch.isfinite(t).all() for t in grads):
+            raise AssertionError(f"K2's gradient at {out}^2: {k3} K3, {k4} K4 launches, or "
+                                 "values not finite")
+        del grads
+        reps = 10 if out == 448 else 3
+        ms = _kernel_ms(step, reps=reps)
+        k34 = _kernel_ms(step, ("na_fwd", "na_bwd"), reps=reps)
+        try:
+            queued = _queued_ms(step, reps=reps, spin=1_000_000_000)
+            queued_text = f"queued {queued:.4f} ms"
+        except AssertionError:  # the pool-up's tables come from pageable host memory
+            queued, queued_text = None, "queued: not measured, a call waits on the card"
+        peak = _peak_mib(step)
+        res[str(out)] = dict(ms=ms, k34_ms=k34, queued_ms=queued, peak_mib=peak, k4_launches=k4)
+        print(f"K2 gradient bf16 448^2 -> {out}^2 <- 28^2 x 384 (forward + twin backward): "
+              f"kernels {ms:.4f} ms, of them K3 + K4 {k34:.4f} ms ({queued_text}); "
+              f"{k4} K4 launches (partials budget {na.PARTIAL_BUDGET / 2**20:.0f} MiB); call "
+              f"peak {peak:.1f} MiB ({card})", flush=True)
+        del step
+        torch.cuda.empty_cache()
     return res
 
 
@@ -1142,8 +1424,11 @@ def phase_k6(dev):
     errs = {}
     # the production layer at batch 1 and 2, the dual route's 2048^2 guide,
     # and a band of 256 + 2 x 3 halo rows of a 452-wide image
-    for b, h, w in ((1, 448, 448), (2, 448, 448), (1, 2048, 2048), (1, 262, 452)):
-        x, sc, sh, wp, ws, bp, bs = _k6_inputs(dev, gen, b, h, w)
+    # and the production shape at C = 48 (the tensor-core kernel's N = 64)
+    # and 96 (a partial N = 128) per stack
+    for b, h, w, c in ((1, 448, 448, 128), (2, 448, 448, 128), (1, 2048, 2048, 128),
+                       (1, 262, 452, 128), (1, 448, 448, 48), (1, 448, 448, 96)):
+        x, sc, sh, wp, ws, bp, bs = _k6_inputs(dev, gen, b, h, w, c)
         hw = x.shape[1] * x.shape[2]
         y_ref, ps_ref = gn_silu_conv_dual_ref(x, sc, sh, wp, ws, bp, bs)
         y, ps = gn_silu_conv_dual_fused(x, sc, sh, wp, ws, bp, bs)
@@ -1158,8 +1443,8 @@ def phase_k6(dev):
             raise AssertionError(f"K6 bf16 output came back as {yb.dtype}")
         cy = _check_cos(f"K6 bf16 y b={b}", yb.float(), y_ref, 0.9995)
         cp = _check_cos(f"K6 bf16 psums b={b}", psb, ps_ref, 0.9995)
-        errs[(b, h, w)] = e
-        print(f"K6 ({b}, {h}, {w}, 256) packed, C 128 per stack: f32 max_abs_err {e:.3e}; "
+        errs[(b, h, w, c)] = e
+        print(f"K6 ({b}, {h}, {w}, {2 * c}) packed, C {c} per stack: f32 max_abs_err {e:.3e}; "
               f"bf16 cos y {cy:.6f} psums {cp:.6f}", flush=True)
         del x, yb, psb, y_ref, ps_ref
     torch.cuda.empty_cache()
@@ -1421,36 +1706,64 @@ def phase_banded(dev, card):
 
 
 def _hgmma_counts() -> dict:
-    """HGMMA (wgmma) instructions in the K1 and K6 libraries' SASS, from the
-    cuobjdump of the toolkit whose nvcc built them; none fails."""
+    """HGMMA (wgmma) instructions in the SASS of the libraries whose bf16
+    kernels run on the tensor cores (K1, K6, K3/K4), from the cuobjdump of
+    the toolkit whose nvcc built them; none fails."""
     from pathlib import Path
 
     from naf_torch.kernels import _build
 
     cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
     counts = {}
-    for name in ("encoder_fused", "encoder_dual"):
+    for name in ("encoder_fused", "encoder_dual", "na2d_fused"):
         sass = subprocess.run([str(cuobjdump), "-sass", str(_build._target(name))],
                               capture_output=True, text=True, check=True).stdout
         counts[name] = len(re.findall(r"\bHGMMA\b", sass))
     print("HGMMA instructions (cuobjdump -sass): "
           + ", ".join(f"{k} {v}" for k, v in counts.items()), flush=True)
     if not all(counts.values()):
-        raise AssertionError(f"a bf16 encoder kernel has no wgmma: {counts}")
+        raise AssertionError(f"a bf16 tensor-core library has no wgmma: {counts}")
     return counts
+
+
+def _setup():
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda", 0), _card_line()
+
+
+def _timing_child(path: str) -> int:
+    """Phase 8 and K2's gradient, their results as JSON into ``path``."""
+    dev, card = _setup()
+    res = phase_timing(dev, card)
+    res["k2_grad"] = _time_k2_grad(dev, card)
+    with open(path, "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def _phase_timing_fresh() -> dict:
+    """Phase 8 in a fresh process (``chip_smoke.py --timing``): torch.profiler
+    drops kernel records late in a long process, and every kernel and
+    library call is timed by the profiler's device time."""
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(os.path.abspath(__file__))) as work:
+        path = os.path.join(work, "timing.json")
+        subprocess.run([sys.executable, os.path.abspath(__file__), "--timing", path], check=True)
+        with open(path) as f:
+            return json.load(f)
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    if sys.argv[1:2] == ["--timing"]:
+        return _timing_child(sys.argv[2])
+    dev, card = _setup()
     from naf_torch.kernels import _build
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda", 0)
-    card = _card_line()
     print(card, flush=True)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}", flush=True)
@@ -1458,17 +1771,21 @@ def main() -> int:
     built = _build.build()
     print(f"nvcc build {time.perf_counter() - t0:.1f} s: "
           + ", ".join(f"{k} {v:.1f} s" for k, v in built.items()), flush=True)
-    for name in built:
+    for name in _build.SOURCES:  # built by this run or, within it, before it
+        if not (_build.BUILD_DIR / f"{name}.ptxas.log").exists():
+            continue
         log = (_build.BUILD_DIR / f"{name}.ptxas.log").read_text()
         regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
         spills = [int(r) for r in re.findall(r"(\d+) bytes spill stores", log)]
         print(f"ptxas {name}: {len(regs)} kernels, {min(regs)}-{max(regs)} registers, "
               f"spill stores up to {max(spills, default=0)} bytes", flush=True)
+        if name == "na2d_fused" and any(spills):
+            raise AssertionError(f"ptxas spills in na2d_fused's kernels: {spills}")
     hgmma = _hgmma_counts()
 
     k1_err = phase_k1(dev)
     k2_err = phase_k2(dev)
-    launches, stats = phase_main(dev, card)
+    launches, stats, c96 = phase_main(dev, card)
     phase_grads(dev)
     k34_err = phase_k34(dev)
     k6_err = phase_k6(dev)
@@ -1479,7 +1796,7 @@ def main() -> int:
         train_launches, train = phase_train(dev, card, work)
     k5_err = phase_k5(dev)
     base_launches, baselines, k5_splits = phase_baselines(dev, card)
-    timing = phase_timing(dev, card)
+    timing = _phase_timing_fresh()
 
     k1, k1b = timing["k1_k3"], timing["k1_k1"]
     kernels = [
@@ -1498,17 +1815,27 @@ def main() -> int:
              max_abs_err=k2_err, **timing["k2_448"],
              ms_2048=timing["k2_2048"]["ms"], plain_ms_2048=timing["k2_2048"]["plain_ms"],
              bound_ms_2048=timing["k2_2048"]["bound_ms"]),
-        # K3/K4: launches from the training path, times at its shape
+        # K3/K4: launches from the training path (bf16: the tensor-core
+        # kernels of csrc/na_tc.cuh), times at its shape; f32 (AnyUp, the
+        # f32 step) runs the CUDA-core kernels of na2d_fused.cu
         dict(name="cross_scale_na2d_fused", route="cuda",
              source="naf_torch/kernels/csrc/na2d_fused.cu",
              replaces="naf_tpu/kernels/na2d_fused.py:834", launches=train_launches["k3"],
              max_abs_err=k34_err["k3"], **timing["k3_train"],
-             **{f"{k}_448": v for k, v in timing["k3_448"].items() if k != "bound_by"}),
+             **{f"{k}_448": v for k, v in timing["k3_448"].items() if k != "bound_by"},
+             kernel_route={"bfloat16": "wgmma (csrc/na_tc.cuh)", "float32": "fma"},
+             launches_by_route={k: v for k, v in train_launches["routes"].items()
+                                if "bwd" not in k},
+             hgmma=hgmma["na2d_fused"]),
         dict(name="cross_scale_na2d_fused_bwd", route="cuda",
              source="naf_torch/kernels/csrc/na2d_fused.cu",
              replaces="naf_tpu/kernels/na2d_fused.py:760", launches=train_launches["k4"],
              max_abs_err=k34_err["k4"], **timing["k4_train"],
-             **{f"{k}_448": v for k, v in timing["k4_448"].items() if k != "bound_by"}),
+             **{f"{k}_448": v for k, v in timing["k4_448"].items() if k != "bound_by"},
+             kernel_route={"bfloat16": "wgmma (csrc/na_tc.cuh)", "float32": "fma"},
+             launches_by_route={k[:-4]: v for k, v in train_launches["routes"].items()
+                                if "bwd" in k},
+             hgmma=hgmma["na2d_fused"]),
         # K5: launches from the baselines path (FeatUp 4, JBU 1), times at
         # FeatUp's last stage and at JBU's shape
         dict(name="adaptive_conv_fused", route="cuda",
@@ -1539,7 +1866,8 @@ def main() -> int:
                       "forward_profile": {k: v[2] for k, v in stats.items()},
                       "train": {k: train[k] for k in train_keys},
                       "baselines": baselines, "k5_splits": k5_splits, "dual_route": dual,
-                      "banded": banded, "card": card}))
+                      "banded": banded, "naf_dim96_cos_cpu": c96, "k2_grad": timing["k2_grad"],
+                      "card": card}))
     print(_card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,16 +1,18 @@
 // Cross-scale neighbourhood attention on Hopper: the forward (K3) and its
-// recompute-P backward (K4).
+// recompute-P backward (K4), each with two kernels chosen by the io dtype
+// (na2d_fused.py::_route): bf16 on the tensor cores (na_tc.cuh), f32 on the
+// CUDA cores (this file).
 //
 // Queries q (B, Hq, Wq, n, d) live on the output grid; keys k (B, hk, wk, n, d)
 // and values v (B, hk, wk, n, dv) on the low-res grid. Query (y, x) of head h
 // attends the k x k LR cells idx_h[y, t], idx_w[x, s] (host-built tables,
-// natten's rule, every ratio the plain oracle takes). The softmax scale is
-// folded into the keys by the caller, as the JAX wrapper does.
+// natten's rule, every ratio the plain oracle takes). Both kernels fold the
+// softmax scale into the keys as they stage them.
 //
 //   K3  out = softmax(q . k_win) . v_win                 (f32 logits and softmax)
 //   K4  P recomputed per query, then
 //       dP = dO . v_win^T;  delta = sum(P * dP);  dL = P * (dP - delta)
-//       dq = dL . k_win (k pre-scaled);  dk_win += scale * dL^T q;  dv_win += P^T dO
+//       dq = dL . k_win (k scaled);  dk_win += scale * dL^T q;  dv_win += P^T dO
 //
 // Replaces the TPU kernels naf_tpu/kernels/na2d_fused.py::_fused_fwd_impl
 // (body `_kernel`) and ::_fused_bwd_impl (body `_bwd_kernel`, tile grads
@@ -18,17 +20,20 @@
 //
 // What bounds them on the card: at 448^2 <- 28^2, n 4, d 64, dv 96 in bf16,
 // K3 must read q and write out (257 MB, 77 us at 3.35 TB/s) and K4 read q, dO
-// and write dq (360 MB, 107 us); their 21 / 50 GFLOP are far below the
-// tensor-core rate, so both are memory bound by nature. These first kernels
-// compute on the CUDA cores, a warp per query, and are bound by shared-memory
-// traffic and instruction issue instead; mma tiles over a query tile are the
-// next step.
+// and write dq (360 MB, 107 us); their 21 / 50 GFLOP take 21 / 51 us at the
+// tensor cores' bf16 rate, so both are bound by bytes. The bf16 kernels
+// (na_tc.cuh) therefore read each query row once, keep P and dS on chip, and
+// run every product on wgmma, so that the arithmetic stays under the bytes;
+// what they add to the bound is K4's box partials (below) and the K/V box
+// each 64-query tile reads again from L2. The f32 kernels stay on the CUDA
+// cores, a warp per query (TF32 would miss the f32 tolerance of 2e-4).
 //
-// Design (both kernels):
+// Design of the f32 kernels:
 //  - a block per (b, tile of tqh x tqw queries, head); 8 warps;
-//  - the block stages its head's K and V for the box of LR cells that the
-//    tile's windows touch (urh x urw cells from row_lo/col_lo, chosen by the
-//    caller) in shared memory as f32, rows padded by 4 floats to spread banks;
+//  - the block stages its head's K (scaled) and V for the box of LR cells
+//    that the tile's windows touch (urh x urw cells from row_lo/col_lo,
+//    chosen by the caller) in shared memory, rows padded by 4 floats to
+//    spread banks;
 //  - padded (ragged-edge) queries contribute nothing: their P, dL, q and dO
 //    are zeroed before any contraction.
 //
@@ -37,35 +42,33 @@
 // passes the band's rows of the global window tables and their boxes.
 //
 // K4's dk/dv are a scatter: every LR cell receives from the queries of many
-// windows, and blocks run in no order. It takes the deterministic route (a):
-//  1. per block, rounds of 8 queries (one per warp) compute P, dL and dq; then
-//     each thread owns a set of channels of the box and adds the round's
-//     contributions slot by slot, in a fixed order, into an f32 box
-//     accumulator in shared memory (no atomics, no races);
-//  2. the block writes its box to a partials buffer
-//     (B, tiles, n, urh*urw, d+dv) f32, and a second kernel sums, for each LR
-//     cell, the partials of the tiles whose boxes hold it, in tile order.
+// windows, and blocks run in no order. Both routes take the deterministic
+// route: each block writes its tile's box of dk|dv to a partials buffer
+// (B, tiles, n, urh*urw, d+dv) f32, and na_bwd_reduce_kernel sums, for each
+// LR cell, the partials of the tiles whose boxes hold it, in tile order. The
+// f32 kernel builds its box in shared memory, rounds of 8 queries (one per
+// warp) at a time, each thread owning a set of channels; the bf16 kernel
+// takes it from two wgmma products over its 64 queries.
 // The partials hold (box cells / LR cells a tile covers) times the LR grid's
-// f32 size: 25x at ratio 2 with 4x4-query tiles (105 MB at the training
-// shape), 81x at ratio 16 with 16x16-query tiles (163 MB at 448^2 <- 28^2).
+// f32 size: 25x at ratio 2 with 4x4-query tiles (the f32 kernel at the
+// training shape), 81x at ratio 16 with 16x16-query tiles; the bf16 kernel's
+// 64-query tiles make that 3.75x at the training shape (4 x 16 tiles, boxes
+// of 10 x 12 cells: 31 MB) and 324x at 448^2 <- 28^2 (8 x 8 tiles: 650 MB),
+// which the reduce pass reads with 16-byte loads, 8 in flight per thread.
+// Where one launch's partials would exceed the wrapper's budget (15 GB at
+// 2048^2 <- 28^2), the wrapper runs the bf16 K4 once per band of query rows,
+// each reduce pass adding its sums to f32 dk, dv (add_f32), in band order.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include "na_tc.cuh"
+
 namespace {
 
 constexpr int WARPS = 8;
 constexpr int THREADS = 32 * WARPS;
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
 
 __device__ __forceinline__ float dot4(const float* __restrict__ a, const float* __restrict__ b,
                                       int n4) {
@@ -98,23 +101,24 @@ struct Geometry {
   int Hq, Wq, hk, wk, n, d, dv, ks, tqh, tqw, urh, urw, tiles_w;
 };
 
-// Stage the head's K and V rows of the block's LR box as f32.
-template <typename T>
-__device__ void stage_box(const T* __restrict__ k, const T* __restrict__ v, float* Ks,
-                          float* Vs, const Geometry& g, int b, int h, int r0, int c0) {
+// Stage the head's K (times the softmax scale) and V rows of the block's LR
+// box.
+__device__ void stage_box(const float* __restrict__ k, const float* __restrict__ v, float* Ks,
+                          float* Vs, float scale, const Geometry& g, int b, int h, int r0,
+                          int c0) {
   const int ncell = g.urh * g.urw;
   const int dpad = g.d + 4, dvpad = g.dv + 4;
   for (int e = threadIdx.x; e < ncell * g.d; e += THREADS) {
     const int cell = e / g.d, c = e % g.d;
     const size_t src = ((size_t)(b * g.hk + r0 + cell / g.urw) * g.wk + c0 + cell % g.urw) *
                            (g.n * g.d) + h * g.d + c;
-    Ks[cell * dpad + c] = to_f(k[src]);
+    Ks[cell * dpad + c] = k[src] * scale;
   }
   for (int e = threadIdx.x; e < ncell * g.dv; e += THREADS) {
     const int cell = e / g.dv, c = e % g.dv;
     const size_t src = ((size_t)(b * g.hk + r0 + cell / g.urw) * g.wk + c0 + cell % g.urw) *
                            (g.n * g.dv) + h * g.dv + c;
-    Vs[cell * dvpad + c] = to_f(v[src]);
+    Vs[cell * dvpad + c] = v[src];
   }
 }
 
@@ -148,13 +152,12 @@ __device__ void window_softmax(const float* __restrict__ qrow, const float* __re
   __syncwarp();
 }
 
-// ---------------------------------------------------------------- K3 forward
-template <typename T>
+// ------------------------------------------------------- K3 forward, f32
 __global__ void __launch_bounds__(THREADS)
-na_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-              const int* __restrict__ idx_h, const int* __restrict__ idx_w,
-              const int* __restrict__ row_lo, const int* __restrict__ col_lo,
-              T* __restrict__ out, Geometry g) {
+na_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, const int* __restrict__ idx_h,
+              const int* __restrict__ idx_w, const int* __restrict__ row_lo,
+              const int* __restrict__ col_lo, float* __restrict__ out, float scale, Geometry g) {
   const int kk2 = g.ks * g.ks;
   const int ncell = g.urh * g.urw;
   const int dvpad = g.dv + 4;
@@ -169,7 +172,7 @@ na_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
   const int h = blockIdx.y, b = blockIdx.z;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int r0 = row_lo[tr], c0 = col_lo[tc];
-  stage_box(k, v, Ks, Vs, g, b, h, r0, c0);
+  stage_box(k, v, Ks, Vs, scale, g, b, h, r0, c0);
   __syncthreads();
 
   float* qrow = qs + warp * g.d;
@@ -179,28 +182,27 @@ na_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
     const int y = tr * g.tqh + qi / g.tqw, x = tc * g.tqw + qi % g.tqw;
     if (y >= g.Hq || x >= g.Wq) continue;  // uniform across the warp
     const size_t pix = ((size_t)b * g.Hq + y) * g.Wq + x;
-    const T* qg = q + pix * (g.n * g.d) + h * g.d;
-    for (int c = lane; c < g.d; c += 32) qrow[c] = to_f(qg[c]);
+    const float* qg = q + pix * (g.n * g.d) + h * g.d;
+    for (int c = lane; c < g.d; c += 32) qrow[c] = qg[c];
     __syncwarp();
     window_softmax(qrow, Ks, idx_h, idx_w, g, y, x, r0, c0, p, sl);
-    T* o = out + pix * (g.n * g.dv) + h * g.dv;
+    float* o = out + pix * (g.n * g.dv) + h * g.dv;
     for (int c = lane; c < g.dv; c += 32) {
       float acc = 0.f;
       for (int j = 0; j < kk2; ++j) acc = fmaf(p[j], Vs[sl[j] * dvpad + c], acc);
-      o[c] = from_f<T>(acc);
+      o[c] = acc;
     }
     __syncwarp();
   }
 }
 
-// ------------------------------------------------- K4 backward, tile pass
-template <typename T>
+// -------------------------------------------- K4 backward, tile pass, f32
 __global__ void __launch_bounds__(THREADS)
-na_bwd_tile_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                   const T* __restrict__ dout, const int* __restrict__ idx_h,
-                   const int* __restrict__ idx_w, const int* __restrict__ row_lo,
-                   const int* __restrict__ col_lo, T* __restrict__ dq,
-                   float* __restrict__ partial, float scale, Geometry g) {
+na_bwd_tile_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                   const float* __restrict__ v, const float* __restrict__ dout,
+                   const int* __restrict__ idx_h, const int* __restrict__ idx_w,
+                   const int* __restrict__ row_lo, const int* __restrict__ col_lo,
+                   float* __restrict__ dq, float* __restrict__ partial, float scale, Geometry g) {
   const int kk2 = g.ks * g.ks;
   const int ncell = g.urh * g.urw;
   const int dpad = g.d + 4, dvpad = g.dv + 4;
@@ -219,7 +221,7 @@ na_bwd_tile_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
   const int h = blockIdx.y, b = blockIdx.z;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int r0 = row_lo[tr], c0 = col_lo[tc];
-  stage_box(k, v, Ks, Vs, g, b, h, r0, c0);
+  stage_box(k, v, Ks, Vs, scale, g, b, h, r0, c0);
   for (int e = threadIdx.x; e < ncell * dc; e += THREADS) acc[e] = 0.f;
   __syncthreads();
 
@@ -235,10 +237,10 @@ na_bwd_tile_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
     const int y = tr * g.tqh + qi / g.tqw, x = tc * g.tqw + qi % g.tqw;
     if (qi < nq && y < g.Hq && x < g.Wq) {  // uniform across the warp
       const size_t pix = ((size_t)b * g.Hq + y) * g.Wq + x;
-      const T* qg = q + pix * (g.n * g.d) + h * g.d;
-      const T* gg = dout + pix * (g.n * g.dv) + h * g.dv;
-      for (int c = lane; c < g.d; c += 32) qrow[c] = to_f(qg[c]);
-      for (int c = lane; c < g.dv; c += 32) grow[c] = to_f(gg[c]);
+      const float* qg = q + pix * (g.n * g.d) + h * g.d;
+      const float* gg = dout + pix * (g.n * g.dv) + h * g.dv;
+      for (int c = lane; c < g.d; c += 32) qrow[c] = qg[c];
+      for (int c = lane; c < g.dv; c += 32) grow[c] = gg[c];
       __syncwarp();
       window_softmax(qrow, Ks, idx_h, idx_w, g, y, x, r0, c0, p, sl);
       float part = 0.f;
@@ -250,11 +252,11 @@ na_bwd_tile_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
       const float delta = warp_sum(part);
       for (int j = lane; j < kk2; j += 32) dl[j] = p[j] * (dl[j] - delta);
       __syncwarp();
-      T* dqg = dq + pix * (g.n * g.d) + h * g.d;
+      float* dqg = dq + pix * (g.n * g.d) + h * g.d;
       for (int c = lane; c < g.d; c += 32) {
         float s = 0.f;
         for (int j = 0; j < kk2; ++j) s = fmaf(dl[j], Ks[sl[j] * dpad + c], s);
-        dqg[c] = from_f<T>(s);
+        dqg[c] = s;
       }
     } else {
       // padded query: contributes nothing (zero operands, not a mask, so
@@ -287,20 +289,53 @@ na_bwd_tile_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
 }
 
 // ------------------------------------------------- K4 backward, reduce pass
-// One thread per (b, LR cell, head, channel of dk|dv): the sum over the
-// tiles whose box holds the cell, in tile order.
+// [first, last) of the tiles on one axis whose boxes [lo, lo + ext) hold
+// cell c: box origins never decrease along an axis, so they are a range.
+__device__ __forceinline__ int2 box_range(const int* __restrict__ lo, int tiles, int ext, int c) {
+  int first = 0;
+  while (first < tiles && lo[first] + ext <= c) ++first;
+  int last = first;
+  while (last < tiles && lo[last] <= c) ++last;
+  return make_int2(first, last);
+}
+
+// 4 channels of dk or dv; `add`: added to what dst holds (f32 only).
+template <typename T>
+__device__ __forceinline__ void store4(T* dst, float4 v, bool add);
+template <>
+__device__ __forceinline__ void store4<float>(float* dst, float4 v, bool add) {
+  float4* d = reinterpret_cast<float4*>(dst);
+  if (add) {
+    const float4 o = *d;
+    v = make_float4(o.x + v.x, o.y + v.y, o.z + v.z, o.w + v.w);
+  }
+  *d = v;
+}
+template <>
+__device__ __forceinline__ void store4<__nv_bfloat16>(__nv_bfloat16* dst, float4 v, bool) {
+  __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y), hi = __floats2bfloat162_rn(v.z, v.w);
+  *reinterpret_cast<uint2*>(dst) =
+      make_uint2(*reinterpret_cast<unsigned*>(&lo), *reinterpret_cast<unsigned*>(&hi));
+}
+
+// One thread per (b, LR cell, head, 4 channels of dk|dv): the sum over the
+// tiles whose box holds the cell, in tile order, with 8 loads of 16 bytes
+// in flight (d and dv are multiples of 4 on both routes); with `add`, added
+// to the f32 dk, dv of the query bands before it.
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
 na_bwd_reduce_kernel(const float* __restrict__ partial, const int* __restrict__ row_lo,
                      const int* __restrict__ col_lo, T* __restrict__ dk, T* __restrict__ dv,
-                     int B, int tiles_h, Geometry g) {
+                     int B, int tiles_h, Geometry g, bool add) {
+  constexpr int LOADS = 8;
   const int dc = g.d + g.dv;
+  const int dc4 = dc / 4;
   const int ncell = g.urh * g.urw;
-  const size_t total = (size_t)B * g.hk * g.wk * g.n * dc;
+  const size_t total = (size_t)B * g.hk * g.wk * g.n * dc4;
   const size_t e = (size_t)blockIdx.x * THREADS + threadIdx.x;
   if (e >= total) return;
-  const int ch = (int)(e % dc);
-  size_t rest = e / dc;
+  const int ch = (int)(e % dc4) * 4;
+  size_t rest = e / dc4;
   const int h = (int)(rest % g.n);
   rest /= g.n;
   const int c = (int)(rest % g.wk);
@@ -308,22 +343,36 @@ na_bwd_reduce_kernel(const float* __restrict__ partial, const int* __restrict__ 
   const int r = (int)(rest % g.hk);
   const int b = (int)(rest / g.hk);
   const int tiles = tiles_h * g.tiles_w;
-  float s = 0.f;
-  for (int tr = 0; tr < tiles_h; ++tr) {
-    const int rr = r - row_lo[tr];
-    if (rr < 0 || rr >= g.urh) continue;
-    for (int tc = 0; tc < g.tiles_w; ++tc) {
-      const int cc = c - col_lo[tc];
-      if (cc < 0 || cc >= g.urw) continue;
+  const int2 trs = box_range(row_lo, tiles_h, g.urh, r);
+  const int2 tcs = box_range(col_lo, g.tiles_w, g.urw, c);
+  const int ntc = tcs.y - tcs.x;
+  const int nt = (trs.y - trs.x) * ntc;
+  float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int i0 = 0; i0 < nt; i0 += LOADS) {
+    float4 v[LOADS];
+#pragma unroll
+    for (int u = 0; u < LOADS; ++u) {
+      const int i = min(i0 + u, nt - 1);
+      const int tr = trs.x + i / ntc;
+      const int tc = tcs.x + i % ntc;
       const size_t blk = ((size_t)b * tiles + tr * g.tiles_w + tc) * g.n + h;
-      s += partial[(blk * ncell + rr * g.urw + cc) * dc + ch];
+      const size_t cell = (size_t)(r - row_lo[tr]) * g.urw + c - col_lo[tc];
+      v[u] = *reinterpret_cast<const float4*>(partial + (blk * ncell + cell) * dc + ch);
     }
+#pragma unroll
+    for (int u = 0; u < LOADS; ++u)
+      if (i0 + u < nt) {
+        s.x += v[u].x;
+        s.y += v[u].y;
+        s.z += v[u].z;
+        s.w += v[u].w;
+      }
   }
   const size_t cell = ((size_t)b * g.hk + r) * g.wk + c;
   if (ch < g.d)
-    dk[(cell * g.n + h) * g.d + ch] = from_f<T>(s);
+    store4<T>(dk + (cell * g.n + h) * g.d + ch, s, add);
   else
-    dv[(cell * g.n + h) * g.dv + ch - g.d] = from_f<T>(s);
+    store4<T>(dv + (cell * g.n + h) * g.dv + ch - g.d, s, add);
 }
 
 size_t fwd_smem(int d, int dv, int ks, int urh, int urw) {
@@ -342,54 +391,164 @@ Geometry make_geometry(int Hq, int Wq, int hk, int wk, int n, int d, int dv, int
   return Geometry{Hq, Wq, hk, wk, n, d, dv, ks, tqh, tqw, urh, urw, (Wq + tqw - 1) / tqw};
 }
 
+natc::Geom tc_geometry(const Geometry& g) {
+  return natc::Geom{g.Hq, g.Wq, g.hk, g.wk, g.n, g.d, g.dv, g.tqh, g.tqw, g.urh, g.urw, g.tiles_w};
+}
+
+int tiles_of(const Geometry& g) { return ((g.Hq + g.tqh - 1) / g.tqh) * g.tiles_w; }
+
+// Sums each LR cell's box partials in tile order into dk, dv (with `add`,
+// f32, onto what they hold).
 template <typename T>
-cudaError_t launch_fwd(const void* q, const void* k, const void* v, const void* idx_h,
-                       const void* idx_w, const void* row_lo, const void* col_lo, void* out,
-                       int B, const Geometry& g, cudaStream_t stream) {
-  const int tiles = ((g.Hq + g.tqh - 1) / g.tqh) * g.tiles_w;
-  const size_t smem = fwd_smem(g.d, g.dv, g.ks, g.urh, g.urw);
-  cudaError_t err = cudaFuncSetAttribute(na_fwd_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  na_fwd_kernel<T><<<dim3(tiles, g.n, B), THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const int*>(idx_h), static_cast<const int*>(idx_w),
-      static_cast<const int*>(row_lo), static_cast<const int*>(col_lo), static_cast<T*>(out), g);
+cudaError_t launch_reduce(const void* partial, const void* row_lo, const void* col_lo, void* dk,
+                          void* dv, int B, const Geometry& g, cudaStream_t stream,
+                          bool add = false) {
+  const size_t total = (size_t)B * g.hk * g.wk * g.n * ((g.d + g.dv) / 4);
+  const unsigned blocks = (unsigned)((total + THREADS - 1) / THREADS);
+  na_bwd_reduce_kernel<T><<<blocks, THREADS, 0, stream>>>(
+      static_cast<const float*>(partial), static_cast<const int*>(row_lo),
+      static_cast<const int*>(col_lo), static_cast<T*>(dk), static_cast<T*>(dv), B,
+      (g.Hq + g.tqh - 1) / g.tqh, g, add);
   return cudaGetLastError();
 }
 
-template <typename T>
+cudaError_t launch_fwd(const void* q, const void* k, const void* v, const void* idx_h,
+                       const void* idx_w, const void* row_lo, const void* col_lo, void* out,
+                       float scale, int B, const Geometry& g, cudaStream_t stream) {
+  const size_t smem = fwd_smem(g.d, g.dv, g.ks, g.urh, g.urw);
+  cudaError_t err = cudaFuncSetAttribute(na_fwd_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  na_fwd_kernel<<<dim3(tiles_of(g), g.n, B), THREADS, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const int*>(idx_h), static_cast<const int*>(idx_w),
+      static_cast<const int*>(row_lo), static_cast<const int*>(col_lo),
+      static_cast<float*>(out), scale, g);
+  return cudaGetLastError();
+}
+
 cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* dout,
                        const void* idx_h, const void* idx_w, const void* row_lo,
                        const void* col_lo, void* dq, void* dk, void* dv, void* partial,
                        float scale, int B, const Geometry& g, cudaStream_t stream) {
-  const int tiles_h = (g.Hq + g.tqh - 1) / g.tqh;
   const size_t smem = bwd_smem(g.d, g.dv, g.ks, g.urh, g.urw);
-  cudaError_t err = cudaFuncSetAttribute(na_bwd_tile_kernel<T>,
+  cudaError_t err = cudaFuncSetAttribute(na_bwd_tile_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  na_bwd_tile_kernel<T><<<dim3(tiles_h * g.tiles_w, g.n, B), THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), static_cast<const int*>(idx_h),
+  na_bwd_tile_kernel<<<dim3(tiles_of(g), g.n, B), THREADS, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(dout), static_cast<const int*>(idx_h),
       static_cast<const int*>(idx_w), static_cast<const int*>(row_lo),
-      static_cast<const int*>(col_lo), static_cast<T*>(dq), static_cast<float*>(partial), scale,
-      g);
+      static_cast<const int*>(col_lo), static_cast<float*>(dq), static_cast<float*>(partial),
+      scale, g);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const size_t total = (size_t)B * g.hk * g.wk * g.n * (g.d + g.dv);
-  const unsigned blocks = (unsigned)((total + THREADS - 1) / THREADS);
-  na_bwd_reduce_kernel<T><<<blocks, THREADS, 0, stream>>>(
-      static_cast<const float*>(partial), static_cast<const int*>(row_lo),
-      static_cast<const int*>(col_lo), static_cast<T*>(dk), static_cast<T*>(dv), B, tiles_h, g);
+  return launch_reduce<float>(partial, row_lo, col_lo, dk, dv, B, g, stream);
+}
+
+// The box widths NB the tensor-core kernels are built for (multiples of 32).
+#define NATC_NB_CASES(X) X(32) X(64) X(96) X(128) X(160) X(192)
+
+template <int NB>
+cudaError_t launch_fwd_tc_nb(const void* q, const void* k, const void* v, const void* cnt_h,
+                             const void* cnt_w, const void* row_lo, const void* col_lo, void* out,
+                             float scale, int B, const Geometry& g, cudaStream_t stream) {
+  const int smem = natc::smem_bytes(g.d, g.dv, NB, false);
+  cudaError_t err = cudaFuncSetAttribute(natc::na_fwd_wgmma_kernel<NB>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess)  // as many blocks per SM as shared memory holds
+    err = cudaFuncSetAttribute(natc::na_fwd_wgmma_kernel<NB>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  using natc::bf16;
+  natc::na_fwd_wgmma_kernel<NB><<<dim3(tiles_of(g), g.n, B), natc::THREADS, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const uint8_t*>(cnt_h), static_cast<const uint8_t*>(cnt_w),
+      static_cast<const int*>(row_lo), static_cast<const int*>(col_lo), static_cast<bf16*>(out),
+      scale, tc_geometry(g));
   return cudaGetLastError();
+}
+
+template <int NB>
+cudaError_t launch_bwd_tc_nb(const void* q, const void* k, const void* v, const void* dout,
+                             const void* cnt_h, const void* cnt_w, const void* row_lo,
+                             const void* col_lo, void* dq, void* partial, float scale, int B,
+                             const Geometry& g, cudaStream_t stream) {
+  const int smem = natc::smem_bytes(g.d, g.dv, NB, true);
+  cudaError_t err = cudaFuncSetAttribute(natc::na_bwd_wgmma_kernel<NB>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess)  // as many blocks per SM as shared memory holds
+    err = cudaFuncSetAttribute(natc::na_bwd_wgmma_kernel<NB>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  using natc::bf16;
+  natc::na_bwd_wgmma_kernel<NB><<<dim3(tiles_of(g), g.n, B), natc::THREADS, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(dout), static_cast<const uint8_t*>(cnt_h),
+      static_cast<const uint8_t*>(cnt_w), static_cast<const int*>(row_lo),
+      static_cast<const int*>(col_lo), static_cast<bf16*>(dq), static_cast<float*>(partial),
+      scale, tc_geometry(g));
+  return cudaGetLastError();
+}
+
+// Boxes above the largest NB: the chunked kernels over nbox cells.
+cudaError_t launch_fwd_tc_chunked(const void* q, const void* k, const void* v, const void* cnt_h,
+                                  const void* cnt_w, const void* row_lo, const void* col_lo,
+                                  void* out, float scale, int B, const Geometry& g, int nbox,
+                                  cudaStream_t stream) {
+  const auto kernel = natc::na_fwd_wgmma_chunked_kernel<natc::NBC>;
+  const int smem = natc::smem_bytes_chunked(g.d, g.dv, false);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  using natc::bf16;
+  kernel<<<dim3(tiles_of(g), g.n, B), natc::THREADS, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const uint8_t*>(cnt_h), static_cast<const uint8_t*>(cnt_w),
+      static_cast<const int*>(row_lo), static_cast<const int*>(col_lo), static_cast<bf16*>(out),
+      nbox, scale, tc_geometry(g));
+  return cudaGetLastError();
+}
+
+cudaError_t launch_bwd_tc_chunked(const void* q, const void* k, const void* v, const void* dout,
+                                  const void* cnt_h, const void* cnt_w, const void* row_lo,
+                                  const void* col_lo, void* dq, void* partial, float scale, int B,
+                                  const Geometry& g, int nbox, cudaStream_t stream) {
+  const auto kernel = natc::na_bwd_wgmma_chunked_kernel<natc::NBC>;
+  const int smem = natc::smem_bytes_chunked(g.d, g.dv, true);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  using natc::bf16;
+  kernel<<<dim3(tiles_of(g), g.n, B), natc::THREADS, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(dout), static_cast<const uint8_t*>(cnt_h),
+      static_cast<const uint8_t*>(cnt_w), static_cast<const int*>(row_lo),
+      static_cast<const int*>(col_lo), static_cast<bf16*>(dq), static_cast<float*>(partial),
+      nbox, scale, tc_geometry(g));
+  return cudaGetLastError();
+}
+
+// The tensor-core route's shape rules: 64-query tiles, d and dv multiples
+// of 16, a box of at most NB cells, NB one of NATC_NB_CASES or, chunked, a
+// multiple of NBC above them with NB * urw < 2^16 (the mask's division).
+bool tc_shape_ok(const Geometry& g, int nb) {
+  bool nb_ok = nb > 192 && nb % natc::NBC == 0 && nb * g.urw < 65536;
+#define X(N) nb_ok = nb_ok || nb == N;
+  NATC_NB_CASES(X)
+#undef X
+  return nb_ok && g.tqh * g.tqw == natc::M && g.d % 16 == 0 && g.dv % 16 == 0 && g.d > 0 &&
+         g.dv > 0 && g.urh * g.urw <= nb;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Dynamic shared memory one block of K3 / K4 needs; the wrapper sizes tiles
-// with it.
+// Dynamic shared memory one block of the f32 K3 / K4 needs; the wrapper
+// sizes tiles with it.
 long long naf_na_fwd_smem(int d, int dv, int ks, int urh, int urw) {
   return (long long)fwd_smem(d, dv, ks, urh, urw);
 }
@@ -398,33 +557,85 @@ long long naf_na_bwd_smem(int d, int dv, int ks, int urh, int urw) {
   return (long long)bwd_smem(d, dv, ks, urh, urw);
 }
 
-// Shape rules the launches rely on (checked by the wrapper): d % 4 == 0,
-// dv % 4 == 0, every window cell inside its tile's
-// [row_lo, row_lo + urh) x [col_lo, col_lo + urw) box; k pre-scaled.
-int naf_na_fwd(const void* q, const void* k, const void* v, const void* idx_h, const void* idx_w,
-               const void* row_lo, const void* col_lo, void* out, int B, int Hq, int Wq, int hk,
-               int wk, int n, int d, int dv, int ks, int tqh, int tqw, int urh, int urw,
-               int is_bf16, void* stream) {
+// Dynamic shared memory one block of the bf16 K3 (backward = 0) / K4 (1)
+// needs, as the wrapper's planner computes it.
+long long naf_na_tc_smem(int d, int dv, int nb, int backward) {
+  return nb > 192 ? natc::smem_bytes_chunked(d, dv, backward != 0)
+                  : natc::smem_bytes(d, dv, nb, backward != 0);
+}
+
+// f32, on the CUDA cores. Shape rules the launches rely on (checked by the
+// wrapper): d % 4 == 0, dv % 4 == 0, every window cell inside its tile's
+// [row_lo, row_lo + urh) x [col_lo, col_lo + urw) box.
+int naf_na_fwd_fma(const void* q, const void* k, const void* v, const void* idx_h,
+                   const void* idx_w, const void* row_lo, const void* col_lo, void* out,
+                   float scale, int B, int Hq, int Wq, int hk, int wk, int n, int d, int dv,
+                   int ks, int tqh, int tqw, int urh, int urw, void* stream) {
   const Geometry g = make_geometry(Hq, Wq, hk, wk, n, d, dv, ks, tqh, tqw, urh, urw);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return launch_fwd<__nv_bfloat16>(q, k, v, idx_h, idx_w, row_lo, col_lo, out, B, g, s);
-  return launch_fwd<float>(q, k, v, idx_h, idx_w, row_lo, col_lo, out, B, g, s);
+  return launch_fwd(q, k, v, idx_h, idx_w, row_lo, col_lo, out, scale, B, g,
+                    static_cast<cudaStream_t>(stream));
 }
 
 // partial: (B, tiles, n, urh*urw, d+dv) f32 scratch, written before read.
-int naf_na_bwd(const void* q, const void* k, const void* v, const void* dout, const void* idx_h,
-               const void* idx_w, const void* row_lo, const void* col_lo, void* dq, void* dk,
-               void* dv_out, void* partial, float scale, int B, int Hq, int Wq, int hk, int wk,
-               int n, int d, int dv, int ks, int tqh, int tqw, int urh, int urw, int is_bf16,
-               void* stream) {
+int naf_na_bwd_fma(const void* q, const void* k, const void* v, const void* dout,
+                   const void* idx_h, const void* idx_w, const void* row_lo, const void* col_lo,
+                   void* dq, void* dk, void* dv_out, void* partial, float scale, int B, int Hq,
+                   int Wq, int hk, int wk, int n, int d, int dv, int ks, int tqh, int tqw, int urh,
+                   int urw, void* stream) {
   const Geometry g = make_geometry(Hq, Wq, hk, wk, n, d, dv, ks, tqh, tqw, urh, urw);
+  return launch_bwd(q, k, v, dout, idx_h, idx_w, row_lo, col_lo, dq, dk, dv_out, partial, scale,
+                    B, g, static_cast<cudaStream_t>(stream));
+}
+
+// bf16, on the tensor cores (na_tc.cuh). cnt_h (Hq, urh) / cnt_w (Wq, urw)
+// uint8: how often each box cell occurs in the query's window. nb above 192:
+// the chunked kernels.
+int naf_na_fwd_wgmma(const void* q, const void* k, const void* v, const void* cnt_h,
+                     const void* cnt_w, const void* row_lo, const void* col_lo, void* out,
+                     float scale, int B, int Hq, int Wq, int hk, int wk, int n, int d, int dv,
+                     int tqh, int tqw, int urh, int urw, int nb, void* stream) {
+  const Geometry g = make_geometry(Hq, Wq, hk, wk, n, d, dv, 0, tqh, tqw, urh, urw);
+  if (!tc_shape_ok(g, nb)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return launch_bwd<__nv_bfloat16>(q, k, v, dout, idx_h, idx_w, row_lo, col_lo, dq, dk,
-                                     dv_out, partial, scale, B, g, s);
-  return launch_bwd<float>(q, k, v, dout, idx_h, idx_w, row_lo, col_lo, dq, dk, dv_out,
-                           partial, scale, B, g, s);
+  if (nb > 192)
+    return launch_fwd_tc_chunked(q, k, v, cnt_h, cnt_w, row_lo, col_lo, out, scale, B, g, nb, s);
+  switch (nb) {
+#define X(N) \
+  case N:    \
+    return launch_fwd_tc_nb<N>(q, k, v, cnt_h, cnt_w, row_lo, col_lo, out, scale, B, g, s);
+    NATC_NB_CASES(X)
+#undef X
+  }
+  return cudaErrorInvalidValue;
+}
+
+// partial: (B, tiles, n, urh*urw, d+dv) f32 scratch, written before read.
+// add_f32 = 0: dk, dv bf16, written; 1: f32, the sums added to what they
+// hold (a band of query rows at a time, q / dO / dq the band's rows).
+int naf_na_bwd_wgmma(const void* q, const void* k, const void* v, const void* dout,
+                     const void* cnt_h, const void* cnt_w, const void* row_lo,
+                     const void* col_lo, void* dq, void* dk, void* dv_out, void* partial,
+                     float scale, int B, int Hq, int Wq, int hk, int wk, int n, int d, int dv,
+                     int tqh, int tqw, int urh, int urw, int nb, int add_f32, void* stream) {
+  const Geometry g = make_geometry(Hq, Wq, hk, wk, n, d, dv, 0, tqh, tqw, urh, urw);
+  if (!tc_shape_ok(g, nb)) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaErrorInvalidValue;
+  if (nb > 192)
+    err = launch_bwd_tc_chunked(q, k, v, dout, cnt_h, cnt_w, row_lo, col_lo, dq, partial, scale,
+                                B, g, nb, s);
+  switch (nb) {
+#define X(N)                                                                                   \
+  case N:                                                                                      \
+    err = launch_bwd_tc_nb<N>(q, k, v, dout, cnt_h, cnt_w, row_lo, col_lo, dq, partial, scale, \
+                              B, g, s);                                                        \
+    break;
+    NATC_NB_CASES(X)
+#undef X
+  }
+  if (err != cudaSuccess) return err;
+  if (add_f32) return launch_reduce<float>(partial, row_lo, col_lo, dk, dv_out, B, g, s, true);
+  return launch_reduce<__nv_bfloat16>(partial, row_lo, col_lo, dk, dv_out, B, g, s);
 }
 
 }  // extern "C"

@@ -230,8 +230,6 @@ def _launch(x, scale, shift, weight, bias, out=None, out_off: int = 0):
     f, ci, k, k2 = weight.shape
     if ci != c or k != k2 or k not in (1, 3):
         raise ValueError(f"weight {tuple(weight.shape)} does not fit x {tuple(x.shape)}")
-    if c % 16 or f % 64:
-        raise ValueError(f"K1 needs C % 16 == 0 and F % 64 == 0, got C={c}, F={f}")
     if k == 3 and min(h, w) < 2:
         raise ValueError("reflect padding needs H, W >= 2")
     for t in (scale, shift, weight, bias):
@@ -244,12 +242,17 @@ def _launch(x, scale, shift, weight, bias, out=None, out_off: int = 0):
     sc = scale.float().expand(b, c).contiguous()
     sh = shift.float().expand(b, c).contiguous()
     b32 = bias.float().contiguous()
+    if out is not None and (out.ndim != 4 or out.shape[:3] != x.shape[:3]
+                            or out.dtype != x.dtype or not out.is_contiguous()
+                            or out_off + f > out.shape[3]):
+        raise ValueError("packed output buffer does not fit this layer")
+    if c % 16 or f % 64:
+        return _launch_padded(x, sc, sh, weight, b32, out, out_off)
+    if out is not None and (out.shape[3] % 8 or out_off % 8):
+        raise ValueError("the kernels write 16-byte chunks: the packed output's channels and "
+                         "offset must be multiples of 8")
     if out is None:
         out = torch.empty((b, h, w, f), dtype=x.dtype, device=x.device)
-    elif (out.ndim != 4 or out.shape[:3] != x.shape[:3] or out.dtype != x.dtype
-          or not out.is_contiguous() or out.shape[3] % 8 or out_off % 8
-          or out_off + f > out.shape[3]):
-        raise ValueError("packed output buffer does not fit this layer")
     lib = _lib()
     part = torch.empty((b, lib.naf_gn_silu_conv_tiles(h, w), 2, f), dtype=torch.float32,
                        device=x.device)
@@ -270,6 +273,29 @@ def _launch(x, scale, shift, weight, bias, out=None, out_off: int = 0):
         raise RuntimeError(f"encoder_fused kernel launch failed: cudaError {err}")
     gn_silu_conv_fused.launches += 1
     return out, part.sum(dim=1)
+
+
+def _pad_layer(x, sc, sh, weight, bias):
+    """K1's operands with C padded to a multiple of 16 and F to one of 64:
+    the extra input channels are zeros with scale = shift = 0 (SiLU(0) = 0)
+    meeting zero weights, and the extra output channels have zero weights
+    and bias, so y and its sums over the first F channels are unchanged."""
+    c, f = x.shape[-1], weight.shape[0]
+    pc, pf = -c % 16, -f % 64
+    return (F.pad(x, (0, pc)), F.pad(sc, (0, pc)), F.pad(sh, (0, pc)),
+            F.pad(weight, (0, 0, 0, 0, 0, pc, 0, pf)), F.pad(bias, (0, pf)))
+
+
+def _launch_padded(x, sc, sh, weight, bias, out=None, out_off: int = 0):
+    """K1 at a width the kernels do not take (C % 16, F % 64): one launch on
+    zero-padded operands, then y and the sums sliced back to F (into ``out``
+    at ``out_off`` when given)."""
+    f = weight.shape[0]
+    y, ps = _launch(*_pad_layer(x, sc, sh, weight, bias))
+    if out is None:
+        return y[..., :f].contiguous(), ps[..., :f]
+    out[..., out_off : out_off + f] = y[..., :f]
+    return out, ps[..., :f]
 
 
 def _grads(outputs, grad_outputs, inputs):

@@ -5,19 +5,35 @@ Counterpart of ``naf_tpu/kernels/na2d_fused.py`` (public entry
 ``cross_scale_na2d_fused``; kernels ``_fused_fwd_impl`` and
 ``_fused_bwd_impl``). Layouts are the JAX package's: q (B, Hq, Wq, n, d),
 k (B, hk, wk, n, d), v (B, hk, wk, n, dv) -> (B, Hq, Wq, n, dv) in q's dtype.
-The softmax scale is folded into the keys, as the JAX wrapper does.
+The softmax scale is folded into the keys, as the JAX wrapper does; the
+kernels fold it in as they stage the keys, rounding as the plain version
+does.
 
-``csrc/na2d_fused.cu`` holds both kernels. The windows come from the
-host-built tables of ``ops.window`` (natten's rule), so the kernels take every
-ratio the oracle takes; for each tile of queries the host also finds the box
-of LR cells its windows touch, which the kernels stage in shared memory. The
-tile shrinks until its box fits; K4 raises where not even one query fits.
+``csrc/na2d_fused.cu`` holds both kernels, each in two routes chosen from
+the dtype alone (:func:`_route`): bf16 on the tensor cores
+(``csrc/na_tc.cuh``, "wgmma"), f32 on the CUDA cores ("fma"). The windows
+come from the host-built tables of ``ops.window`` (natten's rule), so the
+kernels take every ratio the oracle takes; for each tile of queries the host
+also finds the box of LR cells its windows touch, which the kernels stage in
+shared memory. The f32 route shrinks its tile until the box fits
+(:func:`_plan`); the bf16 route takes 64-query tiles, the shape with the
+smallest box (boxes above 192 cells in chunks of 128), and per-axis tables
+of how often each box cell occurs in each query's window
+(:func:`_plan_tc`). Either raises where nothing fits. K4's bf16 launches
+run in bands of query rows where their f32 box partials would exceed
+``PARTIAL_BUDGET`` (:func:`_bwd_bands`).
+
+Widths the kernels do not take are padded, not refused: d and dv get zero
+channels up to the route's multiple (:func:`_pad_heads`). Zero channels of q
+and k leave the logits unchanged; zero channels of v and dO give zero
+columns of out and dv, which are sliced off, as are those of dq and dk.
 
 ``cross_scale_na2d_fused`` is a ``torch.autograd.Function``: on CUDA tensors
 its forward launches K3 and its backward launches K4 (counts in
-``cross_scale_na2d_fused.launches`` and ``cross_scale_na2d_fused.bwd_launches``);
-on CPU tensors both directions run the plain versions, the backward through
-the explicit recompute-P formulas of the TPU kernel's ``_bwd_kernel``.
+``cross_scale_na2d_fused.launches`` and ``cross_scale_na2d_fused.bwd_launches``,
+per route in ``cross_scale_na2d_fused.route_launches``); on CPU tensors both
+directions run the plain versions, the backward through the explicit
+recompute-P formulas of the TPU kernel's ``_bwd_kernel``.
 """
 
 from __future__ import annotations
@@ -38,10 +54,22 @@ __all__ = [
     "cross_scale_na2d_fused_bwd_ref",
 ]
 
-# Query tiles tried in order, largest first.
+# Query tiles of the f32 route, tried in order, largest first.
 _TILES = ((16, 16), (8, 16), (8, 8), (4, 8), (4, 4), (2, 4), (2, 2), (1, 2), (1, 1))
 SMEM_BUDGET = 100 * 1024  # two blocks per SM where the box allows it
 SMEM_MAX = 227 * 1024
+# The bf16 route's 64-query tiles (one warpgroup, wgmma's M), in order of
+# preference among boxes of one size; its box widths NB (the kernels'
+# NATC_NB_CASES), the chunk of the kernels that take larger boxes (natc::NBC:
+# NB a multiple of it, NB * urw < 2^16), and the channel multiple of each
+# route.
+TC_TILES = ((8, 8), (4, 16), (16, 4), (2, 32), (32, 2), (1, 64), (64, 1))
+TC_NB = (32, 64, 96, 128, 160, 192)
+TC_CHUNK = 128
+PAD = {"wgmma": 16, "fma": 4}
+# Bytes of K4's f32 box partials one bf16 launch may write; above it K4 runs
+# in bands of query rows, summing dk and dv over the bands in f32.
+PARTIAL_BUDGET = 2**30
 # Gathered K/V windows one row block of the plain backward may hold.
 _ROW_BLOCK_BYTES = 256 * 2**20
 
@@ -49,6 +77,24 @@ _ROW_BLOCK_BYTES = 256 * 2**20
 def _scaled_keys(k, scale, dtype):
     """The keys with the softmax scale folded in, rounded to ``dtype``."""
     return (k.float() * scale).to(dtype)
+
+
+def _pad_heads(t, mult: int):
+    """t with zero channels appended to its last dim, up to a multiple of
+    ``mult`` (t itself when it is one)."""
+    extra = -t.shape[-1] % mult
+    return torch.nn.functional.pad(t, (0, extra)) if extra else t
+
+
+def _route(dtype) -> str:
+    """Which kernels CUDA tensors of this dtype launch, decided from the
+    dtype alone: bf16 the tensor-core ones ("wgmma"), f32 the CUDA-core ones
+    ("fma")."""
+    if dtype == torch.bfloat16:
+        return "wgmma"
+    if dtype == torch.float32:
+        return "fma"
+    raise TypeError(f"K3/K4 take float32 or bfloat16, got {dtype}")
 
 
 def _scale(q, scale):
@@ -166,6 +212,79 @@ def _plan(lib, smem, tiles, limits, hq, wq, hk, wk, ks, d, dv, device, rows=None
     raise ValueError(f"no query tile fits shared memory by {smem} for d={d}, dv={dv}, k={ks}")
 
 
+def _tc_smem(d: int, dv: int, nb: int, backward: bool) -> int:
+    """Shared memory of one block of the bf16 K3 / K4 (``natc::smem_bytes``,
+    ``natc::smem_bytes_chunked`` above TC_NB): tiles in 128-byte swizzle,
+    ceil(cols / 64) blocks of rows x 128 bytes each, 1024-aligned: q and the
+    K/V box (chunked: one chunk of it, and the f32 sums of out or dq); K4
+    also dO and one tile for P^T, then dS^T."""
+    def tile(rows, cols):
+        return -(-cols // 64) * rows * 128
+
+    if nb > TC_NB[-1]:
+        qkv = 1024 + tile(64, d) + tile(TC_CHUNK, d) + tile(TC_CHUNK, dv)
+        if not backward:
+            return qkv + 64 * dv * 4
+        return qkv + tile(64, dv) + tile(TC_CHUNK, 64) + 64 * d * 4
+    qkv = 1024 + tile(64, d) + tile(nb, d) + tile(nb, dv)
+    if not backward:
+        return qkv
+    return qkv + tile(64, dv) + tile(-(-nb // 64) * 64, 64)
+
+
+def _tc_nb(cells: int, urw: int):
+    """The padded box width NB of a box of ``cells`` cells, ``urw`` wide:
+    the least of TC_NB that holds it, else (chunked) a multiple of TC_CHUNK
+    with NB * urw < 2^16; None where there is none."""
+    nb = next((n for n in TC_NB if n >= cells), None)
+    if nb is None:
+        nb = -(-cells // TC_CHUNK) * TC_CHUNK
+        if nb * urw >= 2**16:
+            return None
+    return nb
+
+
+def _window_counts(idx: np.ndarray, lo: np.ndarray, tile: int, ext: int) -> np.ndarray:
+    """(L, ext) uint8: how often each cell of its tile's box occurs in each
+    query's window, on one axis (2 where a ragged ratio repeats a cell)."""
+    rel = idx - lo[np.arange(idx.shape[0]) // tile][:, None]
+    counts = np.zeros((idx.shape[0], ext), np.uint8)
+    np.add.at(counts, (np.arange(idx.shape[0])[:, None], rel), 1)
+    return counts
+
+
+@functools.lru_cache(maxsize=64)
+def _plan_tc(hq, wq, hk, wk, ks, d, dv, backward, device, rows=None):
+    """Tile, box and count tables (on ``device``) of the bf16 route at one
+    shape: of the 64-query tiles in TC_TILES, the first whose box pads to
+    the smallest NB (:func:`_tc_nb`; above TC_NB the chunked kernels) and
+    whose block fits SMEM_MAX. Returns (tqh, tqw, urh, urw, nb, cnt_h,
+    cnt_w, row_lo, col_lo). ``rows`` (y0, y1) plans a band of the global
+    query rows [y0, y1)."""
+    idx_h = cross_scale_lr_indices(hq, hk, ks).astype(np.int32)
+    if rows is not None:
+        idx_h = idx_h[rows[0] : rows[1]]
+    idx_w = cross_scale_lr_indices(wq, wk, ks).astype(np.int32)
+    best = None
+    for tqh, tqw in TC_TILES:
+        row_lo, urh = _box(idx_h, tqh, hk)
+        col_lo, urw = _box(idx_w, tqw, wk)
+        nb = _tc_nb(urh * urw, urw)
+        if nb is None or _tc_smem(d, dv, nb, backward) > SMEM_MAX:
+            continue
+        if best is None or nb < best[4]:
+            best = (tqh, tqw, urh, urw, nb, row_lo, col_lo)
+    if best is None:
+        raise ValueError(f"the tensor-core route takes no 64-query tile at Hq={hq} <- hk={hk}, "
+                         f"Wq={wq} <- wk={wk}, k={ks}, d={d}, dv={dv}: every box is too wide "
+                         f"for the mask's division (NB * urw >= 2^16) or the block exceeds "
+                         f"shared memory")
+    tqh, tqw, urh, urw, nb, row_lo, col_lo = best
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    return (tqh, tqw, urh, urw, nb, to(_window_counts(idx_h, row_lo, tqh, urh)),
+            to(_window_counts(idx_w, col_lo, tqw, urw)), to(row_lo), to(col_lo))
+
+
 @functools.cache
 def _lib():
     lib = _build.load("na2d_fused")
@@ -173,10 +292,16 @@ def _lib():
     for fn in (lib.naf_na_fwd_smem, lib.naf_na_bwd_smem):
         fn.argtypes = [i32] * 5
         fn.restype = ctypes.c_longlong
-    lib.naf_na_fwd.argtypes = [ptr] * 8 + [i32] * 14 + [ptr]
-    lib.naf_na_fwd.restype = i32
-    lib.naf_na_bwd.argtypes = [ptr] * 12 + [ctypes.c_float] + [i32] * 14 + [ptr]
-    lib.naf_na_bwd.restype = i32
+    lib.naf_na_tc_smem.argtypes = [i32] * 4
+    lib.naf_na_tc_smem.restype = ctypes.c_longlong
+    f32 = ctypes.c_float
+    lib.naf_na_fwd_fma.argtypes = [ptr] * 8 + [f32] + [i32] * 13 + [ptr]
+    lib.naf_na_bwd_fma.argtypes = [ptr] * 12 + [f32] + [i32] * 13 + [ptr]
+    lib.naf_na_fwd_wgmma.argtypes = [ptr] * 8 + [f32] + [i32] * 13 + [ptr]
+    lib.naf_na_bwd_wgmma.argtypes = [ptr] * 12 + [f32] + [i32] * 14 + [ptr]
+    for fn in (lib.naf_na_fwd_fma, lib.naf_na_bwd_fma, lib.naf_na_fwd_wgmma,
+               lib.naf_na_bwd_wgmma):
+        fn.restype = i32
     return lib
 
 
@@ -184,8 +309,7 @@ def _check(q, k, v, *more):
     tensors = (q, k, v, *more)
     if any(t.device.type != "cuda" or t.device != q.device for t in tensors):
         raise ValueError("K3/K4 launch on CUDA tensors, all on one device")
-    if q.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"K3/K4 take float32 or bfloat16, got {q.dtype}")
+    _route(q.dtype)
     if any(t.dtype != q.dtype for t in tensors):
         raise TypeError("q, k, v (and dO) must share one dtype")
     if q.ndim != 5 or k.ndim != 5 or v.ndim != 5:
@@ -194,9 +318,21 @@ def _check(q, k, v, *more):
     _, hk, wk, _, dv = v.shape
     if k.shape != (b, hk, wk, n, d) or v.shape[:4] != (b, hk, wk, n):
         raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not fit q {tuple(q.shape)}")
-    if d % 4 or dv % 4:
-        raise ValueError(f"K3/K4 need d % 4 == 0 and dv % 4 == 0, got d={d}, dv={dv}")
     return b, hq, wq, n, d, hk, wk, dv
+
+
+def _operands(q, k, v, *more):
+    """The kernels' operands: contiguous, 16-byte aligned, d and dv padded
+    with zero channels to the route's multiple. Returns (route, q, k, v,
+    *more) with ``more`` padded like v."""
+    route = _route(q.dtype)
+    mult = PAD[route]
+
+    def prep(t):
+        t = _pad_heads(t, mult).contiguous()
+        return t if t.data_ptr() % 16 == 0 else t.clone()
+
+    return (route, *(prep(t) for t in (q, k, v, *more)))
 
 
 def _launch_fwd(q, k, v, kernel_size, scale, row0: int = 0, full_hq=None):
@@ -205,52 +341,113 @@ def _launch_fwd(q, k, v, kernel_size, scale, row0: int = 0, full_hq=None):
     same kernel on the band's rows of the global window tables."""
     b, hq, wq, n, d, hk, wk, dv = _check(q, k, v)
     full = hq if full_hq is None else full_hq
-    tqh, tqw, urh, urw, idx_h, idx_w, row_lo, col_lo = _plan(
-        _lib, "naf_na_fwd_smem", _TILES, (SMEM_BUDGET, SMEM_MAX), full, wq, hk, wk, kernel_size,
-        d, dv, str(q.device), None if full == hq else (row0, row0 + hq))
-    qc, kc, vc = q.contiguous(), _scaled_keys(k, scale, k.dtype).contiguous(), v.contiguous()
-    out = torch.empty((b, hq, wq, n, dv), dtype=q.dtype, device=q.device)
+    rows = None if full == hq else (row0, row0 + hq)
+    route, qc, kc, vc = _operands(q, k, v)
+    dp, dvp = qc.shape[-1], vc.shape[-1]
+    out = torch.empty((b, hq, wq, n, dvp), dtype=q.dtype, device=q.device)
+    lib = _lib()
     with torch.cuda.device(q.device):
-        err = _lib().naf_na_fwd(
-            qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), idx_h.data_ptr(), idx_w.data_ptr(),
-            row_lo.data_ptr(), col_lo.data_ptr(), out.data_ptr(), b, hq, wq, hk, wk, n, d, dv,
-            kernel_size, tqh, tqw, urh, urw, int(q.dtype == torch.bfloat16),
-            torch.cuda.current_stream().cuda_stream,
-        )
+        stream = torch.cuda.current_stream().cuda_stream
+        ptrs = (qc.data_ptr(), kc.data_ptr(), vc.data_ptr())
+        if route == "wgmma":
+            tqh, tqw, urh, urw, nb, cnt_h, cnt_w, row_lo, col_lo = _plan_tc(
+                full, wq, hk, wk, kernel_size, dp, dvp, False, str(q.device), rows)
+            err = lib.naf_na_fwd_wgmma(
+                *ptrs, cnt_h.data_ptr(), cnt_w.data_ptr(), row_lo.data_ptr(),
+                col_lo.data_ptr(), out.data_ptr(), scale, b, hq, wq, hk, wk, n, dp, dvp, tqh,
+                tqw, urh, urw, nb, stream)
+        else:
+            tqh, tqw, urh, urw, idx_h, idx_w, row_lo, col_lo = _plan(
+                _lib, "naf_na_fwd_smem", _TILES, (SMEM_BUDGET, SMEM_MAX), full, wq, hk, wk,
+                kernel_size, dp, dvp, str(q.device), rows)
+            err = lib.naf_na_fwd_fma(
+                *ptrs, idx_h.data_ptr(), idx_w.data_ptr(), row_lo.data_ptr(),
+                col_lo.data_ptr(), out.data_ptr(), scale, b, hq, wq, hk, wk, n, dp, dvp,
+                kernel_size, tqh, tqw, urh, urw, stream)
     if err:
-        raise RuntimeError(f"na2d_fused forward kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"na2d_fused forward kernel ({route}) launch failed: cudaError {err}")
     cross_scale_na2d_fused.launches += 1
-    return out
+    cross_scale_na2d_fused.route_launches[route] += 1
+    return out[..., :dv] if dvp != dv else out
+
+
+def _bwd_bands(b, hq, wq, n, dc, tqh, tqw, ncell):
+    """The query-row bands [y0, y1) of K4's bf16 launches: the whole grid,
+    unless its f32 box partials ((b, tiles, n, ncell, dc)) exceed
+    PARTIAL_BUDGET; then as many whole rows of tiles per band as the budget
+    holds (at least one)."""
+    tile_row = b * -(-wq // tqw) * n * ncell * dc * 4
+    if -(-hq // tqh) * tile_row <= PARTIAL_BUDGET:
+        return [(0, hq)]
+    rows = max(PARTIAL_BUDGET // tile_row, 1) * tqh
+    return [(y0, min(y0 + rows, hq)) for y0 in range(0, hq, rows)]
+
+
+def _bwd_launch(route, plan, q, k, v, g, dq, dk, dv, scale, kernel_size, add=False):
+    """One launch of K4's tile kernel and reduce pass on prepared operands
+    (q, g, dq the rows that ``plan`` tables); ``add``: dk, dv f32, the sums
+    added to them."""
+    b, hq, wq, n, dp = q.shape
+    _, hk, wk, _, dvp = v.shape
+    if route == "wgmma":
+        tqh, tqw, urh, urw, nb, tab_h, tab_w, row_lo, col_lo = plan
+    else:
+        tqh, tqw, urh, urw, tab_h, tab_w, row_lo, col_lo = plan
+    tiles = -(-hq // tqh) * -(-wq // tqw)
+    partial = torch.empty((b, tiles, n, urh * urw, dp + dvp), dtype=torch.float32,
+                          device=q.device)
+    lib = _lib()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), tab_h.data_ptr(),
+                tab_w.data_ptr(), row_lo.data_ptr(), col_lo.data_ptr(), dq.data_ptr(),
+                dk.data_ptr(), dv.data_ptr(), partial.data_ptr(), scale, b, hq, wq, hk, wk, n,
+                dp, dvp)
+        if route == "wgmma":
+            err = lib.naf_na_bwd_wgmma(*args, tqh, tqw, urh, urw, nb, int(add), stream)
+        else:
+            err = lib.naf_na_bwd_fma(*args, kernel_size, tqh, tqw, urh, urw, stream)
+    if err:
+        raise RuntimeError(f"na2d_fused backward kernel ({route}) launch failed: cudaError {err}")
+    cross_scale_na2d_fused.bwd_launches += 1
+    cross_scale_na2d_fused.route_launches[f"{route}_bwd"] += 1
 
 
 def _launch_bwd(q, k, v, dout, kernel_size, scale):
-    """Launch K4 on CUDA tensors; returns (dq, dk, dv) in q's / k's / v's dtype."""
+    """Launch K4 on CUDA tensors; returns (dq, dk, dv) in q's / k's / v's
+    dtype. The bf16 route runs one launch per band of :func:`_bwd_bands`."""
     b, hq, wq, n, d, hk, wk, dv = _check(q, k, v, dout)
     if dout.shape != (b, hq, wq, n, dv):
         raise ValueError(f"dO {tuple(dout.shape)} does not fit the output {(b, hq, wq, n, dv)}")
-    tqh, tqw, urh, urw, idx_h, idx_w, row_lo, col_lo = _plan(
-        _lib, "naf_na_bwd_smem", _TILES, (SMEM_MAX,), hq, wq, hk, wk, kernel_size, d, dv,
-        str(q.device))
-    tiles = -(-hq // tqh) * -(-wq // tqw)
-    qc, kc, vc = q.contiguous(), _scaled_keys(k, scale, k.dtype).contiguous(), v.contiguous()
-    gc = dout.contiguous()
+    route, qc, kc, vc, gc = _operands(q, k, v, dout)
+    dp, dvp = qc.shape[-1], vc.shape[-1]
+    dev = str(q.device)
+    bands = [(0, hq)]
+    if route == "wgmma":
+        plan = _plan_tc(hq, wq, hk, wk, kernel_size, dp, dvp, True, dev)
+        bands = _bwd_bands(b, hq, wq, n, dp + dvp, plan[0], plan[1], plan[2] * plan[3])
+    else:
+        plan = _plan(_lib, "naf_na_bwd_smem", _TILES, (SMEM_MAX,), hq, wq, hk, wk, kernel_size,
+                     dp, dvp, dev)
     dq = torch.empty_like(qc)
-    dk = torch.empty((b, hk, wk, n, d), dtype=k.dtype, device=q.device)
-    dvv = torch.empty((b, hk, wk, n, dv), dtype=v.dtype, device=q.device)
-    partial = torch.empty((b, tiles, n, urh * urw, d + dv), dtype=torch.float32,
-                          device=q.device)
-    with torch.cuda.device(q.device):
-        err = _lib().naf_na_bwd(
-            qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), gc.data_ptr(), idx_h.data_ptr(),
-            idx_w.data_ptr(), row_lo.data_ptr(), col_lo.data_ptr(), dq.data_ptr(),
-            dk.data_ptr(), dvv.data_ptr(), partial.data_ptr(), scale, b, hq, wq, hk, wk, n, d,
-            dv, kernel_size, tqh, tqw, urh, urw, int(q.dtype == torch.bfloat16),
-            torch.cuda.current_stream().cuda_stream,
-        )
-    if err:
-        raise RuntimeError(f"na2d_fused backward kernel launch failed: cudaError {err}")
-    cross_scale_na2d_fused.bwd_launches += 1
-    return dq, dk, dvv
+    if len(bands) == 1:
+        dk = torch.empty((b, hk, wk, n, dp), dtype=k.dtype, device=q.device)
+        dvv = torch.empty((b, hk, wk, n, dvp), dtype=v.dtype, device=q.device)
+        _bwd_launch(route, plan, qc, kc, vc, gc, dq, dk, dvv, scale, kernel_size)
+    else:
+        # bands in a fixed order, each adding its sums to f32 dk, dv
+        dk = torch.zeros((b, hk, wk, n, dp), dtype=torch.float32, device=q.device)
+        dvv = torch.zeros((b, hk, wk, n, dvp), dtype=torch.float32, device=q.device)
+        for y0, y1 in bands:
+            plan = _plan_tc(hq, wq, hk, wk, kernel_size, dp, dvp, True, dev, (y0, y1))
+            dq_band = torch.empty_like(qc[:, y0:y1])
+            _bwd_launch(route, plan, qc[:, y0:y1].contiguous(), kc, vc,
+                        gc[:, y0:y1].contiguous(), dq_band, dk, dvv, scale, kernel_size, True)
+            dq[:, y0:y1] = dq_band
+        dk, dvv = dk.to(k.dtype), dvv.to(v.dtype)
+    if dp == d and dvp == dv:
+        return dq, dk, dvv
+    return dq[..., :d], dk[..., :d], dvv[..., :dv]
 
 
 class _FusedNA(torch.autograd.Function):
@@ -296,3 +493,4 @@ def cross_scale_na2d_fused(q, k, v, kernel_size: int, scale=None, row_cell0: int
 
 cross_scale_na2d_fused.launches = 0
 cross_scale_na2d_fused.bwd_launches = 0
+cross_scale_na2d_fused.route_launches = dict.fromkeys(("wgmma", "fma", "wgmma_bwd", "fma_bwd"), 0)

@@ -2,7 +2,9 @@
 kernels in bf16 (cosine > 0.9995 against the f32 plain version) and the
 CUDA-core kernels in f32 (atol = rtol = 2e-4), at whole tiles, a banded-
 encoder band (256 + 2 x 3 halo rows of a 452-wide image: ragged in both
-axes of the 8 x 16 tile), batch 2 and, for K1, F = 64.
+axes of the 8 x 16 tile), batch 2 and, for K1, F = 64; and at other widths:
+K1 at C = F of 48 (``NAF(dim=96)``, F zero-padded to 64 by the wrapper),
+160 and 256, K6 at C = 48 and 96 per stack.
 
 Every test here needs the card (marker ``cuda``) and skips without one. The
 file imports no JAX, so that it runs where only PyTorch is installed:
@@ -84,6 +86,46 @@ def test_k6_kernel_matches_plain_on_card(cuda_device, b, h, w, dtype):
     sc = torch.from_numpy((rng.rand(b, 2 * c) + 0.5).astype(np.float32))
     sh = _rand(rng, b, 2 * c, s=0.1)
     wp, ws = _rand(rng, c, c, 1, 1, s=0.09), _rand(rng, c, c, 3, 3, s=0.03)
+    bp, bs = _rand(rng, c, s=0.1), _rand(rng, c, s=0.1)
+    args = [t.to(cuda_device) for t in (x, sc, sh, wp, ws, bp, bs)]
+    low = [t.to(dtype) if i in (0, 3, 4) else t for i, t in enumerate(args)]
+    launches = gn_silu_conv_dual_fused.launches
+    y, ps = gn_silu_conv_dual_fused(*low)
+    assert gn_silu_conv_dual_fused.launches == launches + 1
+    _check(y, ps, *gn_silu_conv_dual_ref(*args), dtype, h * w)
+
+
+# (C = F, k): NAF(dim=96)'s hidden width 48 (F padded to 64 by the
+# wrapper), 160 (a zero stage past C, a halo in two chunks) and 256
+K1_WIDTHS = [(48, 3), (48, 1), (160, 3), (256, 3), (256, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,k", K1_WIDTHS)
+def test_k1_kernel_at_other_widths_on_card(cuda_device, c, k, dtype):
+    rng = np.random.RandomState(1)
+    b, h, w = 2, 24, 40
+    x, wt = _rand(rng, b, h, w, c), _rand(rng, c, c, k, k, s=(c * k * k) ** -0.5)
+    sc = torch.from_numpy((rng.rand(b, c) + 0.5).astype(np.float32))
+    sh, bias = _rand(rng, b, c, s=0.1), _rand(rng, c, s=0.1)
+    x, wt, sc, sh, bias = (t.to(cuda_device) for t in (x, wt, sc, sh, bias))
+    launches = gn_silu_conv_fused.launches
+    y, ps = gn_silu_conv_fused(x.to(dtype), sc, sh, wt.to(dtype), bias)
+    assert gn_silu_conv_fused.launches == launches + 1 and y.shape == (b, h, w, c)
+    _check(y, ps, *gn_silu_conv_ref(x, sc, sh, wt, bias), dtype, h * w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [48, 96])  # the tensor-core kernel's N = 64 and a partial N = 128
+def test_k6_kernel_at_other_widths_on_card(cuda_device, c, dtype):
+    rng = np.random.RandomState(21)
+    b, h, w = 2, 24, 40
+    x = _rand(rng, b, h, w, 2 * c)
+    sc = torch.from_numpy((rng.rand(b, 2 * c) + 0.5).astype(np.float32))
+    sh = _rand(rng, b, 2 * c, s=0.1)
+    wp, ws = _rand(rng, c, c, 1, 1, s=c ** -0.5), _rand(rng, c, c, 3, 3, s=(9 * c) ** -0.5)
     bp, bs = _rand(rng, c, s=0.1), _rand(rng, c, s=0.1)
     args = [t.to(cuda_device) for t in (x, sc, sh, wp, ws, bp, bs)]
     low = [t.to(dtype) if i in (0, 3, 4) else t for i, t in enumerate(args)]
