@@ -4,10 +4,10 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``naf_torch/kernels/csrc`` with nvcc (into
-``build/naf_torch/``; ptxas spills in the K3/K4 library fail) and counts the
-``HGMMA`` (wgmma) instructions in the K1, K6 and K3/K4 libraries with
-``cuobjdump -sass`` (none fails: their bf16 kernels run on the tensor
-cores), then, each phase on its own lines:
+``build/naf_torch/``; ptxas spills in the K2 or K3/K4 library fail) and
+counts the ``HGMMA`` (wgmma) instructions in the K1, K6, K2 and K3/K4
+libraries with ``cuobjdump -sass`` (none fails: their bf16 kernels run on
+the tensor cores), then, each phase on its own lines:
 
 1. K1 (fused GN -> SiLU -> conv encoder layer) against its plain PyTorch
    version at the production layer shape (1, 448, 448, 128), k = 1 and 3, f32
@@ -17,11 +17,17 @@ cores), then, each phase on its own lines:
    and at 448^2 with C = F of 48 (``NAF(dim=96)``'s width, F zero-padded to
    64 by the wrapper), 160 and 256;
 2. K2 (fused pool-up + RoPE + cross-scale attention) against its plain
-   version at the main path's shapes (448^2 -> 448^2, identity pool, and
-   448^2 -> 2048^2, ragged pool-up) and at 224^2 -> 448^2, same bars;
+   version, f32 on the CUDA-core kernel (2e-4) and bf16 on the tensor-core
+   kernel (cosine > 0.9995 against the f32 plain version), each call
+   counted on its route: the main path's shapes (448^2 -> 448^2, identity
+   pool, and 448^2 -> 2048^2, ragged pool-up), 224^2 -> 448^2,
+   ``NAF(dim=96)``'s width, a 4:1 pool-down, 2 RoPE heads over 4 attention
+   heads, a ratio-1 box of 16 x 16 cells (the chunked kernel), Cv 1024 (dv
+   256) and a one-head dv 3 (``K2_SHAPES``);
 3. the main path: ``NAFUpsampler`` with seeded random bf16 weights at the
    production config serves three 448^2 requests and one 448^2 -> 2048^2
-   request, with launch counters showing 8 K1 and 1 K2 launches per forward;
+   request, with launch counters showing 8 K1 and 1 K2 launches per forward
+   (every bf16 K2 launch on the tensor-core route, here and in phases 10-12);
    its output is held against the modular path (plain attention oracle) on
    the card and against an f32 copy of the model on the CPU (cosine > 0.999);
    a torch.profiler breakdown of device time per forward by kernel, with
@@ -61,15 +67,18 @@ cores), then, each phase on its own lines:
    FeatUp, JBU, AnyUp, JAFAR, JBF, Bilinear, Nearest and NAF at the reference
    sweep's defaults (448^2 image, 28^2 x 384 features, 448^2 output, ratio
    16), with launch counts per forward (FeatUp 4 K5, JBU 1 K5, AnyUp 1 K3 and
-   0 K4, NAF 8 K1 and 1 K2, the others none); each output held against an f32
-   copy of the model on the CPU (cosine > 0.999; AnyUp and JAFAR at a 224^2
-   output) and AnyUp's against its own plain attention on the card; ms per
-   forward over 10 forwards, the forward's own peak memory, and a
-   torch.profiler split of FeatUp's and JBU's device time into K5 and the
-   rest;
-8. in a fresh process (``chip_smoke.py --timing``; torch.profiler drops
-   kernel records late in a long one), the time of each kernel at the
-   production shape (K2 also at 2048^2, K3 and K4 at the training shape and
+   0 K4, NAF 8 K1 and 1 K2 on its f32 route, the others none); each output
+   held against an f32 copy of the model on the CPU (cosine > 0.999; AnyUp
+   and JAFAR at a 224^2 output) and AnyUp's against its own plain attention
+   on the card; ms per forward over 10 forwards, the forward's own peak
+   memory, and a torch.profiler split of FeatUp's and JBU's device time into
+   K5 and the rest;
+8. in fresh processes (``chip_smoke.py --timing PART FILE``, K2's timing in
+   one of its own; torch.profiler drops kernel records late in a long
+   process), the time of each kernel at the
+   production shape (K2 at 448^2 and 2048^2 beside the warp-per-query
+   kernel's time it replaced and the attention-only yardstick, masked SDPA
+   on the plain version's queries; K3 and K4 at the training shape and
    448^2 <- 28^2, K3 also at AnyUp's f32 k 7 shape, K5 at FeatUp's and
    JBU's, K6 beside the K1 1x1 + 3x3 pair on the same halves) beside its
    plain version's, a library yardstick and the card's bound; K1 and K6 in
@@ -155,6 +164,9 @@ def _cos(a, b, chunk: int = 1 << 24) -> float:
     return dot / (na * nb) ** 0.5
 
 
+PROFILE_TRIES = 3  # profiles _kernel_ms takes before it gives up on one that stays empty
+
+
 def _time_ms(fn, iters: int = 10) -> float:
     fn()
     torch.cuda.synchronize()
@@ -172,24 +184,32 @@ def _kernel_ms(fn, match=None, reps: int = 20) -> float:
     ``match`` (a string, or a tuple of strings any of which may match; every
     kernel with None), from torch.profiler (CUPTI) over ``reps`` calls after
     a warm-up: the kernels' own time, without the host time between launches
-    that CUDA events around a host-bound loop would measure."""
+    that CUDA events around a host-bound loop would measure. A profile that
+    comes back without device records (after many profiles in one process
+    CUPTI sometimes hands none over) is taken again, up to PROFILE_TRIES
+    times in all, and each retake is printed: a run that needed one may have
+    lost records elsewhere too, and read low."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    # CPU and CUDA activity, as _profile traces: a CUDA-only trace once came
-    # back without device events
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
     names = (match,) if isinstance(match, str) else match
-    ev = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
-          and not getattr(e, "is_user_annotation", False)
-          and (names is None or any(m in e.key for m in names))]
-    if not ev:
-        raise AssertionError(f"the profile shows no kernel matching {match!r}")
-    return sum(e.self_device_time_total for e in ev) / reps / 1e3
+    for attempt in range(PROFILE_TRIES):
+        if attempt:
+            print(f"profile retaken ({attempt + 1} of {PROFILE_TRIES}): the last one held no "
+                  f"device record of {match!r}", flush=True)
+        # CPU and CUDA activity, as _profile traces: a CUDA-only trace once
+        # came back without device events
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        ev = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)
+              and (names is None or any(m in e.key for m in names))]
+        if ev:
+            return sum(e.self_device_time_total for e in ev) / reps / 1e3
+    raise AssertionError(f"{PROFILE_TRIES} profiles show no kernel matching {match!r}")
 
 
 def _queued_ms(fn, reps: int = 20, spin: int = 200_000_000) -> float:
@@ -300,6 +320,9 @@ def phase_k1(dev):
 
 
 def _k2_inputs(dev, gen, hi, out=448, hk=28, c=256, cv=384, heads=4):
+    """K2's inputs at NAF's widths: an (1, hi, hi, c) encoder output, its
+    pooled RoPE'd keys on the hk^2 grid, hk^2 x cv values and the cos|sin
+    tables of an out^2 output; RoPE over ``heads`` heads."""
     from naf_torch.nn.rope import RoPE
 
     rope = RoPE(c, heads).to(dev)
@@ -311,33 +334,68 @@ def _k2_inputs(dev, gen, hi, out=448, hk=28, c=256, cv=384, heads=4):
             rope.d_head)
 
 
+# (encoder side, output side, LR side, C, Cv, attention heads, RoPE heads, k):
+# the main path's 448^2 (identity pool) and 448^2 -> 2048^2 (ragged pool-up,
+# ragged windows that repeat LR cells), an integer pool-up, NAF(dim=96)'s
+# width (d 24: a RoPE half of 12 channels, d padded to 32 on the tensor
+# cores), the input guard's 4:1 pool-down, RoPE heads that straddle the
+# attention heads, a ratio-1 box of 16 x 16 cells (the chunked kernel), the
+# reference sweep's widest features (Cv 1024: dv 256) and a one-head dv 3
+K2_SHAPES = {
+    "448": (448, 448, 28, 256, 384, 4, 4, 9),
+    "224->448": (224, 448, 28, 256, 384, 4, 4, 9),
+    "2048": (448, 2048, 28, 256, 384, 4, 4, 9),
+    "dim96": (448, 448, 28, 96, 384, 4, 4, 9),
+    "pool4:1": (1792, 448, 28, 256, 384, 4, 4, 9),
+    "rope2": (448, 448, 28, 256, 384, 4, 2, 9),
+    "ratio1": (128, 128, 128, 256, 384, 4, 4, 9),
+    "dv256": (448, 448, 28, 256, 1024, 4, 4, 9),
+    "dv3": (448, 448, 28, 96, 3, 1, 4, 9),
+}
+
+
 def phase_k2(dev):
+    """K2 against its plain version at every shape of K2_SHAPES: f32 on the
+    CUDA-core kernel (2e-4), bf16 on the tensor-core kernel (cosine > 0.9995
+    against the f32 plain version), each call counted on its route."""
     from naf_torch.kernels.na2d_fused_q import (
+        _plan_k2,
         naf_upsample_attention,
         naf_upsample_attention_ref,
     )
 
     gen = torch.Generator(device=dev).manual_seed(1)
-    errs = {}
-    # identity pool, integer pool-up, and the main path's 448^2 -> 2048^2
-    # request (ragged 2048/448 pool rows, ragged 2048/28 window tables)
-    for hi, out in ((448, 448), (224, 448), (448, 2048)):
-        enc, keys, values, rt, ct, dh = _k2_inputs(dev, gen, hi, out=out)
-        kw = dict(num_heads=4, kernel_size=9)
+    routes = naf_upsample_attention.route_launches
+    errs, coss = {}, {}
+    for label, (hi, out, hk, c, cv, heads, rope_heads, ks) in K2_SHAPES.items():
+        enc, keys, values, rt, ct, dh = _k2_inputs(dev, gen, hi, out=out, hk=hk, c=c, cv=cv,
+                                                   heads=rope_heads)
+        kw = dict(num_heads=heads, kernel_size=ks)
         want = naf_upsample_attention_ref(enc, keys, values, rt, ct, dh, **kw)
+        before = dict(routes)
         got = naf_upsample_attention(enc, keys, values, rt, ct, dh, **kw)
         torch.cuda.synchronize()
-        e = _check_close(f"K2 f32 enc {hi}^2 -> {out}^2", got, want, 2e-4)
+        e = _check_close(f"K2 f32 {label}", got, want, 2e-4)
         del got
         gb = naf_upsample_attention(enc.bfloat16(), keys.bfloat16(), values.bfloat16(),
                                     rt, ct, dh, **kw)
         torch.cuda.synchronize()
-        cb = _check_cos(f"K2 bf16 enc {hi}^2 -> {out}^2", gb.float(), want, 0.9995)
+        if (routes["fma"] - before["fma"], routes["wgmma"] - before["wgmma"]) != (1, 1):
+            raise AssertionError(f"K2 {label}: f32 and bf16 did not run one launch each on "
+                                 f"the fma and wgmma routes: {before} -> {routes}")
+        cb = _check_cos(f"K2 bf16 {label}", gb.float(), want, 0.9995)
         del gb, want
-        errs[(hi, out)] = e
-        print(f"K2 enc {hi}^2 -> {out}^2: f32 max_abs_err {e:.3e}; bf16 cos {cb:.6f}",
-              flush=True)
-    return max(errs.values())
+        d, dv = c // heads, cv // heads
+        plan = _plan_k2(out, out, hk, hk, ks, -(-d // 16) * 16, -(-dv // 16) * 16, str(dev))
+        nb, uniform = plan[4], plan[-1] / plan[-2].numel()
+        errs[label], coss[label] = e, cb
+        print(f"K2 {label}: enc {hi}^2 x {c} -> {out}^2 <- {hk}^2 x {cv}, {heads} heads (RoPE "
+              f"{rope_heads}), k {ks}: f32 (CUDA cores) max_abs_err {e:.3e}; bf16 (wgmma, box "
+              f"{nb}{', chunked' if nb > 192 else f', {100 * uniform:.0f}% uniform tiles'}) cos "
+              f"{cb:.6f}", flush=True)
+        del enc, keys, values
+        torch.cuda.empty_cache()
+    return max(errs.values()), coss
 
 
 def phase_main(dev, card):
@@ -361,9 +419,10 @@ def phase_main(dev, card):
             raise AssertionError("a forward did not launch K1 8 times and K2 once")
         outs.append(o)
     torch.cuda.synchronize()
-    launches = {"k1": gn_silu_conv_fused.launches, "k2": naf_upsample_attention.launches}
-    if launches != {"k1": 8 * len(reqs), "k2": len(reqs)}:
-        raise AssertionError(f"launch counts {launches}")
+    launches = {"k1": gn_silu_conv_fused.launches, "k2": naf_upsample_attention.launches,
+                "k2_wgmma": naf_upsample_attention.route_launches["wgmma"]}
+    if launches != {"k1": 8 * len(reqs), "k2": len(reqs), "k2_wgmma": len(reqs)}:
+        raise AssertionError(f"launch counts {launches}: every bf16 K2 on the wgmma route")
     for (image, feats, out), o in zip(inputs, outs):
         if o.shape != (1, 384, *out) or o.dtype != torch.bfloat16 or not bool(o.isfinite().all()):
             raise AssertionError(f"bad output {tuple(o.shape)} {o.dtype} for {out}")
@@ -421,20 +480,22 @@ def _serve_dim96(dev, gen):
     ups = NAFUpsampler(seed=3, device=dev, dtype=torch.bfloat16, dim=96)
     image = torch.randn(1, 3, 448, 448, generator=gen, device=dev)
     feats = torch.randn(1, 384, 28, 28, generator=gen, device=dev)
-    k1, k2 = gn_silu_conv_fused.launches, naf_upsample_attention.launches
+    before = _all_counts()
     got = ups(image, feats, (448, 448))
     torch.cuda.synchronize()
-    delta = (gn_silu_conv_fused.launches - k1, naf_upsample_attention.launches - k2)
-    if delta != (8, 1):
-        raise AssertionError(f"NAF(dim=96) launched (K1, K2) {delta}, want (8, 1)")
+    after = _all_counts()
+    delta = tuple(after[k] - before[k] for k in ("k1", "k2", "k2_wgmma"))
+    if delta != (8, 1, 1):
+        raise AssertionError(f"NAF(dim=96) launched (K1, K2, K2 on wgmma) {delta}, want "
+                             "(8, 1, 1)")
     cpu_model = load_naf_params(seed=3, device="cpu", dtype=torch.float32, dim=96)
     with torch.inference_mode():
         want = cpu_model(image.cpu().permute(0, 2, 3, 1).contiguous(),
                          feats.cpu().permute(0, 2, 3, 1).contiguous(), (448, 448))
     c = _check_cos("NAF(dim=96) card bf16 vs CPU f32 at 448^2",
                    got.float().cpu().permute(0, 2, 3, 1), want, 0.999)
-    print(f"NAF(dim=96) 448^2 <- 28^2 x 384 bf16: launches K1 8, K2 1; vs CPU f32 cos {c:.6f}",
-          flush=True)
+    print(f"NAF(dim=96) 448^2 <- 28^2 x 384 bf16: launches K1 8, K2 1 (wgmma); vs CPU f32 cos "
+          f"{c:.6f}", flush=True)
     return c
 
 
@@ -461,7 +522,7 @@ def _profile(fn, label, reps=3):
     top = sorted(rows.items(), key=lambda kv: -kv[1])[:8]
     # K1's kernels: the tensor-core one (bf16) and the CUDA-core one (f32)
     k1 = sum(v for k, v in rows.items() if "gn_silu_conv" in k and "dual" not in k)
-    k2 = sum(v for k, v in rows.items() if "fused_q_kernel" in k)
+    k2 = sum(v for k, v in rows.items() if "fused_q_kernel" in k or "fused_q_wgmma" in k)
     print(f"profile {label}: device busy {busy:.3f} of {wall:.3f} ms wall "
           f"({100 * busy / wall:.1f}%); K1 {k1:.3f} ms ({100 * k1 / busy:.1f}% of busy), K2 "
           f"{k2:.3f} ms; top: " + "; ".join(f"{k[:60]} {v:.3f} ms" for k, v in top), flush=True)
@@ -679,7 +740,9 @@ def _all_counts() -> dict:
     from naf_torch.kernels.na2d_fused import cross_scale_na2d_fused
     from naf_torch.kernels.na2d_fused_q import naf_upsample_attention
 
+    k2_routes = naf_upsample_attention.route_launches
     return {"k1": gn_silu_conv_fused.launches, "k2": naf_upsample_attention.launches,
+            "k2_wgmma": k2_routes["wgmma"], "k2_fma": k2_routes["fma"],
             "k3": cross_scale_na2d_fused.launches, "k4": cross_scale_na2d_fused.bwd_launches,
             "k5": adaptive_conv_fused.launches, "k6": gn_silu_conv_dual_fused.launches}
 
@@ -691,6 +754,7 @@ def _zero_counts():
     from naf_torch.kernels.na2d_fused_q import naf_upsample_attention
 
     gn_silu_conv_fused.launches = naf_upsample_attention.launches = 0
+    naf_upsample_attention.route_launches = dict.fromkeys(naf_upsample_attention.route_launches, 0)
     cross_scale_na2d_fused.launches = cross_scale_na2d_fused.bwd_launches = 0
     cross_scale_na2d_fused.route_launches = dict.fromkeys(cross_scale_na2d_fused.route_launches, 0)
     adaptive_conv_fused.launches = gn_silu_conv_dual_fused.launches = 0
@@ -971,7 +1035,7 @@ def phase_k5(dev):
 BASELINES = ("FeatUp", "JBU", "AnyUp", "JAFAR", "JBF", "Bilinear", "Nearest", "NAF")
 # launches per forward on the baselines path; every other count stays
 BASELINE_LAUNCHES = {"FeatUp": {"k5": 4}, "JBU": {"k5": 1}, "AnyUp": {"k3": 1},
-                     "NAF": {"k1": 8, "k2": 1}}
+                     "NAF": {"k1": 8, "k2": 1, "k2_fma": 1}}
 RESTORERS = ("JBU", "JBF")  # forward(image_norm, image, output_size)
 
 
@@ -1207,10 +1271,6 @@ def phase_timing(dev, card):
     import torch.nn.functional as F
 
     from naf_torch.kernels.encoder_fused import gn_silu_conv_fused, gn_silu_conv_ref
-    from naf_torch.kernels.na2d_fused_q import (
-        naf_upsample_attention,
-        naf_upsample_attention_ref,
-    )
 
     bw_peak, fl_peak = _peaks(card)
     gen = torch.Generator(device=dev).manual_seed(4)
@@ -1253,27 +1313,6 @@ def phase_timing(dev, card):
               f"the CUDA cores "
               f"{ms_f32:.4f} ms, bound {bound_f32:.4f} ms ({card})", flush=True)
         del x32, wt32
-
-    kw = dict(num_heads=4, kernel_size=9)
-    for out in (448, 2048):
-        enc, keys, values, rt, ct, dh = _k2_inputs(dev, gen, 448, out=out)
-        enc, keys, values = enc.bfloat16(), keys.bfloat16(), values.bfloat16()
-        ms = _kernel_ms(lambda: naf_upsample_attention(enc, keys, values, rt, ct, dh, **kw),
-                        "fused_q_kernel", reps=10 if out == 448 else 3)
-        wrapper = _time_ms(lambda: naf_upsample_attention(enc, keys, values, rt, ct, dh, **kw),
-                           iters=10 if out == 448 else 3)
-        plain = _time_ms(
-            lambda: naf_upsample_attention_ref(enc, keys, values, rt, ct, dh, **kw), iters=1)
-        nbytes = 2 * (enc.numel() + keys.numel() + values.numel() + out * out * 384) \
-            + 4 * (rt.numel() + ct.numel()) + 4 * 2 * out * 9
-        flops = 2 * out * out * 4 * 81 * (64 + 96)
-        bound = max(nbytes / bw_peak, flops / fl_peak) * 1e3
-        res[f"k2_{out}"] = dict(ms=ms, plain_ms=plain, library_ms=None, bound_ms=bound,
-                                bound_by="bytes" if nbytes / bw_peak > flops / fl_peak
-                                else "operations", wrapper_ms=wrapper)
-        print(f"K2 bf16 448^2 -> {out}^2 <- 28^2x384: kernel {ms:.4f} ms (through the wrapper "
-              f"{wrapper:.4f} ms); plain {plain:.4f} ms; "
-              f"bound {bound:.4f} ms ({card})", flush=True)
 
     from naf_torch.kernels.na2d_fused import (
         _launch_bwd,
@@ -1345,6 +1384,95 @@ def phase_timing(dev, card):
     res["k3_anyup"] = _time_k3_anyup(dev, card, bw_peak)
     res["k6"] = _time_k6(dev, card, bw_peak, fl_peak)
     res.update({f"k5_{k}": v for k, v in _time_k5(dev, card, bw_peak).items()})
+    return res
+
+
+# K2's bf16 device time per call at 448^2 and 448^2 -> 2048^2 of the
+# warp-per-query CUDA-core kernel that the tensor-core one replaced
+# (chip_smoke.py phase 8 on an NVIDIA H100 80GB HBM3 at 700 W)
+K2_WARP_PER_QUERY_MS = {448: 3.7398, 2048: 83.6287}
+
+
+def _k2_query(enc, rt, ct, dh, heads):
+    """(B, Hq, Wq, heads, d) f32: the pooled, RoPE'd queries the plain
+    version builds."""
+    from naf_torch.nn.rope import rotate_half
+    from naf_torch.ops.pool import adaptive_avg_pool2d
+
+    c = enc.shape[-1]
+    xu = adaptive_avg_pool2d(enc.float(), (rt.shape[0], ct.shape[0]))
+    q = xu * (rt[:, None, :c] * ct[None, :, :c]) + rotate_half(xu, dh) * (
+        rt[:, None, c:] * ct[None, :, c:])
+    return q.reshape(*q.shape[:3], heads, c // heads)
+
+
+def _time_k2(dev, card, bw_peak, fl_peak, gen):
+    """K2 in bf16 at 448^2 -> 448^2 and -> 2048^2: the tensor-core kernel's
+    device time (torch.profiler), queued time and time through the wrapper,
+    the f32 CUDA-core kernel's device time at 448^2, the plain version, the
+    bound, and the attention-only yardstick: masked SDPA over every LR key on
+    the plain version's pooled, RoPE'd queries (no single PyTorch call
+    computes K2's pool + RoPE + windowed attention; at 2048^2 <- 28^2 the
+    ragged windows hold some cells twice, which a boolean mask counts once,
+    so there it is timed, not compared)."""
+    import torch.nn.functional as F
+
+    from naf_torch.kernels.na2d_fused import _plan_tc
+    from naf_torch.kernels.na2d_fused_q import naf_upsample_attention, naf_upsample_attention_ref
+
+    kw = dict(num_heads=4, kernel_size=9)
+    res = {}
+    for out in (448, 2048):
+        enc, keys, values, rt, ct, dh = _k2_inputs(dev, gen, 448, out=out)
+        enc, keys, values = enc.bfloat16(), keys.bfloat16(), values.bfloat16()
+        call = lambda: naf_upsample_attention(enc, keys, values, rt, ct, dh, **kw)
+        reps = 10 if out == 448 else 3
+        ms = _kernel_ms(call, "fused_q_wgmma", reps=reps)
+        queued = _queued_ms(call, reps=reps)
+        wrapper = _time_ms(call, iters=reps)
+        plain = _time_ms(
+            lambda: naf_upsample_attention_ref(enc, keys, values, rt, ct, dh, **kw), iters=1)
+        ms_f32 = None
+        if out == 448:
+            e32, k32, v32 = enc.float(), keys.float(), values.float()
+            ms_f32 = _kernel_ms(
+                lambda: naf_upsample_attention(e32, k32, v32, rt, ct, dh, **kw),
+                "fused_q_kernel", reps=3)
+            del e32, k32, v32
+        # the yardstick: attention alone, on the plain version's queries
+        q = _k2_query(enc, rt, ct, dh, 4).bfloat16()
+        sq, sk, sv, mask = _masked_sdpa_inputs(q, keys.reshape(1, 28, 28, 4, 64),
+                                               values.reshape(1, 28, 28, 4, 96), 9)
+        del q
+        sdpa = lambda: F.scaled_dot_product_attention(sq, sk, sv, attn_mask=mask,
+                                                      scale=64 ** -0.5)
+        lib_cos = None
+        if out == 448:
+            lib_cos = _check_cos("masked SDPA vs K2 at 448^2",
+                                 sdpa().transpose(1, 2).reshape(1, out, out, 384).float(),
+                                 call().float(), 0.999)
+        lib = _kernel_ms(sdpa, reps=reps)
+        del sq, sk, sv, mask
+        plan = _plan_tc(out, out, 28, 28, 9, 64, 96, False, str(dev))
+        nbytes = 2 * (enc.numel() + keys.numel() + values.numel() + out * out * 384) \
+            + 4 * (rt.numel() + ct.numel()) + plan[5].numel() + plan[6].numel()
+        flops = 2 * out * out * 4 * 81 * (64 + 96)
+        bound = max(nbytes / bw_peak, flops / fl_peak) * 1e3
+        res[f"k2_{out}"] = dict(ms=ms, plain_ms=plain, library_ms=None, bound_ms=bound,
+                                bound_by="bytes" if nbytes / bw_peak > flops / fl_peak
+                                else "operations", wrapper_ms=wrapper, queued_ms=queued,
+                                attention_sdpa_ms=lib, attention_sdpa_cos=lib_cos,
+                                ms_f32=ms_f32)
+        print(f"K2 bf16 448^2 -> {out}^2 <- 28^2x384, tensor cores: kernel {ms:.4f} ms "
+              f"[warp-per-query kernel it replaced: {K2_WARP_PER_QUERY_MS[out]:.4f} ms] (queued "
+              f"{queued:.4f} ms, through the wrapper {wrapper:.4f} ms); bound {bound:.4f} ms; "
+              f"plain {plain:.4f} ms"
+              + (f"; f32 on the CUDA cores {ms_f32:.4f} ms" if ms_f32 else "")
+              + f"; attention alone, masked SDPA on the plain version's queries {lib:.4f} ms"
+              + (f" (cos vs K2 {lib_cos:.6f})" if lib_cos else " (repeated cells counted once)")
+              + f" ({card})", flush=True)
+        del enc, keys, values
+        torch.cuda.empty_cache()
     return res
 
 
@@ -1466,6 +1594,7 @@ def phase_banded_kernels(dev):
     # cell row 48; its encoder rows are [168, 224) of 448
     enc, keys, values, rt, ct, dh = _k2_inputs(dev, gen, 448, out=2048, hk=128)
     band = dict(row_cell0=48, band_cells=16)
+    before = _all_counts()
     y0, bh, e0, eh = 768, 256, 168, 56
     want = naf_upsample_attention_ref(enc, keys, values, rt, ct, dh, **kw, **band)
     got = naf_upsample_attention(enc, keys, values, rt, ct, dh, **kw, **band)
@@ -1485,6 +1614,10 @@ def phase_banded_kernels(dev):
                            enc_banded=True)
     torch.cuda.synchronize()
     c2 = _check_cos("K2 banded bf16", bufb[:, y0 : y0 + bh].float(), want, 0.9995)
+    after = _all_counts()
+    if (after["k2_fma"] - before["k2_fma"], after["k2_wgmma"] - before["k2_wgmma"]) != (2, 1):
+        raise AssertionError("banded K2: the two f32 calls did not run on the fma route and "
+                             "the bf16 call on the wgmma route")
     eb_, kb_, vb_ = enc[:, e0 : e0 + eh].bfloat16().contiguous(), keys.bfloat16(), values.bfloat16()
     band_b = dict(**kw, **band, out_acc=bufb, enc_banded=True)
     ms2 = _time_ms(lambda: naf_upsample_attention(eb_, kb_, vb_, rt, ct, dh, **band_b))
@@ -1558,8 +1691,9 @@ def phase_dual(dev, card):
             dual.append(ups(image, feats, out))
             after = _all_counts()
             delta = {k: after[k] - before[k] for k in after}
-            if (delta["k6"], delta["k1"], delta["k2"]) != (4, 0, 1):
-                raise AssertionError(f"dual route forward launched {delta}, want K6 4, K1 0, K2 1")
+            if (delta["k6"], delta["k1"], delta["k2"], delta["k2_wgmma"]) != (4, 0, 1, 1):
+                raise AssertionError(f"dual route forward launched {delta}, want K6 4, K1 0, K2 1 "
+                                     "(wgmma)")
         torch.cuda.synchronize()
         launches = _all_counts()
     finally:
@@ -1666,8 +1800,9 @@ def phase_banded(dev, card):
             got = banded(image, feats, out, br)
             torch.cuda.synchronize()
             c = _all_counts()
-            if (c["k1"], c["k2"]) != want or c["k6"] or c["k3"]:
-                raise AssertionError(f"{label}: launches {c}, want K1 {want[0]}, K2 {want[1]}")
+            if (c["k1"], c["k2"], c["k2_wgmma"]) != (*want, want[1]) or c["k6"] or c["k3"]:
+                raise AssertionError(f"{label}: launches {c}, want K1 {want[0]}, K2 {want[1]} "
+                                     "(wgmma)")
             launches["k1"] += c["k1"]
             launches["k2"] += c["k2"]
             if got.shape != (1, out, out, 384) or not bool(got.isfinite().all()):
@@ -1707,15 +1842,15 @@ def phase_banded(dev, card):
 
 def _hgmma_counts() -> dict:
     """HGMMA (wgmma) instructions in the SASS of the libraries whose bf16
-    kernels run on the tensor cores (K1, K6, K3/K4), from the cuobjdump of
-    the toolkit whose nvcc built them; none fails."""
+    kernels run on the tensor cores (K1, K6, K2, K3/K4), from the cuobjdump
+    of the toolkit whose nvcc built them; none fails."""
     from pathlib import Path
 
     from naf_torch.kernels import _build
 
     cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
     counts = {}
-    for name in ("encoder_fused", "encoder_dual", "na2d_fused"):
+    for name in ("encoder_fused", "encoder_dual", "na2d_fused_q", "na2d_fused"):
         sass = subprocess.run([str(cuobjdump), "-sass", str(_build._target(name))],
                               capture_output=True, text=True, check=True).stdout
         counts[name] = len(re.findall(r"\bHGMMA\b", sass))
@@ -1733,26 +1868,40 @@ def _setup():
     return torch.device("cuda", 0), _card_line()
 
 
-def _timing_child(path: str) -> int:
-    """Phase 8 and K2's gradient, their results as JSON into ``path``."""
+def _timing_k2(dev, card) -> dict:
+    return _time_k2(dev, card, *_peaks(card), torch.Generator(device=dev).manual_seed(4))
+
+
+def _timing_rest(dev, card) -> dict:
+    return {**phase_timing(dev, card), "k2_grad": _time_k2_grad(dev, card)}
+
+
+# the parts of phase 8, each run in a process of its own
+TIMING_PARTS = {"k2": _timing_k2, "rest": _timing_rest}
+
+
+def _timing_child(part: str, path: str) -> int:
+    """One part of phase 8, its results as JSON into ``path``."""
     dev, card = _setup()
-    res = phase_timing(dev, card)
-    res["k2_grad"] = _time_k2_grad(dev, card)
     with open(path, "w") as f:
-        json.dump(res, f)
+        json.dump(TIMING_PARTS[part](dev, card), f)
     return 0
 
 
 def _phase_timing_fresh() -> dict:
-    """Phase 8 in a fresh process (``chip_smoke.py --timing``): torch.profiler
-    drops kernel records late in a long process, and every kernel and
-    library call is timed by the profiler's device time."""
+    """Phase 8, each part in a fresh process (``chip_smoke.py --timing PART
+    FILE``): torch.profiler drops kernel records late in a long process, and
+    every kernel and library call is timed by the profiler's device time."""
     torch.cuda.empty_cache()
+    res = {}
     with tempfile.TemporaryDirectory(dir=os.path.dirname(os.path.abspath(__file__))) as work:
-        path = os.path.join(work, "timing.json")
-        subprocess.run([sys.executable, os.path.abspath(__file__), "--timing", path], check=True)
-        with open(path) as f:
-            return json.load(f)
+        for part in TIMING_PARTS:
+            path = os.path.join(work, f"timing_{part}.json")
+            subprocess.run([sys.executable, os.path.abspath(__file__), "--timing", part, path],
+                           check=True)
+            with open(path) as f:
+                res.update(json.load(f))
+    return res
 
 
 def main() -> int:
@@ -1760,7 +1909,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     if sys.argv[1:2] == ["--timing"]:
-        return _timing_child(sys.argv[2])
+        return _timing_child(sys.argv[2], sys.argv[3])
     dev, card = _setup()
     from naf_torch.kernels import _build
 
@@ -1779,12 +1928,12 @@ def main() -> int:
         spills = [int(r) for r in re.findall(r"(\d+) bytes spill stores", log)]
         print(f"ptxas {name}: {len(regs)} kernels, {min(regs)}-{max(regs)} registers, "
               f"spill stores up to {max(spills, default=0)} bytes", flush=True)
-        if name == "na2d_fused" and any(spills):
-            raise AssertionError(f"ptxas spills in na2d_fused's kernels: {spills}")
+        if name in ("na2d_fused_q", "na2d_fused") and any(spills):
+            raise AssertionError(f"ptxas spills in {name}'s kernels: {spills}")
     hgmma = _hgmma_counts()
 
     k1_err = phase_k1(dev)
-    k2_err = phase_k2(dev)
+    k2_err, k2_cos = phase_k2(dev)
     launches, stats, c96 = phase_main(dev, card)
     phase_grads(dev)
     k34_err = phase_k34(dev)
@@ -1809,12 +1958,16 @@ def main() -> int:
              wrapper_ms_1x1=k1b["wrapper_ms"], ms_f32_1x1=k1b["ms_f32"],
              bound_ms_f32_1x1=k1b["bound_ms_f32"],
              hgmma=hgmma["encoder_fused"]),
+        # K2: launches from the main path (bf16: the tensor-core kernel on
+        # csrc/na_tc.cuh), times at 448^2 and 448^2 -> 2048^2
         dict(name="naf_upsample_attention", route="cuda",
              source="naf_torch/kernels/csrc/na2d_fused_q.cu",
              replaces="naf_tpu/kernels/na2d_fused_q.py:767", launches=launches["k2"],
              max_abs_err=k2_err, **timing["k2_448"],
-             ms_2048=timing["k2_2048"]["ms"], plain_ms_2048=timing["k2_2048"]["plain_ms"],
-             bound_ms_2048=timing["k2_2048"]["bound_ms"]),
+             **{f"{k}_2048": v for k, v in timing["k2_2048"].items() if k != "bound_by"},
+             kernel_route={"bfloat16": "wgmma (csrc/na_tc.cuh)", "float32": "fma"},
+             launches_by_route={"wgmma": launches["k2_wgmma"]}, bf16_cos=k2_cos,
+             hgmma=hgmma["na2d_fused_q"]),
         # K3/K4: launches from the training path (bf16: the tensor-core
         # kernels of csrc/na_tc.cuh), times at its shape; f32 (AnyUp, the
         # f32 step) runs the CUDA-core kernels of na2d_fused.cu

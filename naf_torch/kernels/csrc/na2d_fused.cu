@@ -392,7 +392,9 @@ Geometry make_geometry(int Hq, int Wq, int hk, int wk, int n, int d, int dv, int
 }
 
 natc::Geom tc_geometry(const Geometry& g) {
-  return natc::Geom{g.Hq, g.Wq, g.hk, g.wk, g.n, g.d, g.dv, g.tqh, g.tqw, g.urh, g.urw, g.tiles_w};
+  // q and out hold the grid's rows: row0 = out_row0 = 0, out_rows = Hq
+  return natc::Geom{g.Hq, g.Wq, g.hk, g.wk, g.n, g.d, g.dv, g.tqh, g.tqw, g.urh, g.urw,
+                    g.tiles_w, 0, g.Hq, 0};
 }
 
 int tiles_of(const Geometry& g) { return ((g.Hq + g.tqh - 1) / g.tqh) * g.tiles_w; }
@@ -445,9 +447,6 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* 
   if (err != cudaSuccess) return err;
   return launch_reduce<float>(partial, row_lo, col_lo, dk, dv, B, g, stream);
 }
-
-// The box widths NB the tensor-core kernels are built for (multiples of 32).
-#define NATC_NB_CASES(X) X(32) X(64) X(96) X(128) X(160) X(192)
 
 template <int NB>
 cudaError_t launch_fwd_tc_nb(const void* q, const void* k, const void* v, const void* cnt_h,
@@ -532,15 +531,11 @@ cudaError_t launch_bwd_tc_chunked(const void* q, const void* k, const void* v, c
 }
 
 // The tensor-core route's shape rules: 64-query tiles, d and dv multiples
-// of 16, a box of at most NB cells, NB one of NATC_NB_CASES or, chunked, a
-// multiple of NBC above them with NB * urw < 2^16 (the mask's division).
+// of 16, a box of at most NB cells, NB one the kernels take
+// (natc::nb_supported).
 bool tc_shape_ok(const Geometry& g, int nb) {
-  bool nb_ok = nb > 192 && nb % natc::NBC == 0 && nb * g.urw < 65536;
-#define X(N) nb_ok = nb_ok || nb == N;
-  NATC_NB_CASES(X)
-#undef X
-  return nb_ok && g.tqh * g.tqw == natc::M && g.d % 16 == 0 && g.dv % 16 == 0 && g.d > 0 &&
-         g.dv > 0 && g.urh * g.urw <= nb;
+  return natc::nb_supported(nb, g.urw) && g.tqh * g.tqw == natc::M && g.d % 16 == 0 &&
+         g.dv % 16 == 0 && g.d > 0 && g.dv > 0 && g.urh * g.urw <= nb;
 }
 
 }  // namespace

@@ -1,8 +1,9 @@
 // Tensor-core core of cross-scale neighbourhood attention on Hopper, bf16:
 // the forward K3 (na_fwd_wgmma_kernel) and its recompute-P backward K4
 // (na_bwd_wgmma_kernel), both on wgmma with f32 accumulation and an f32
-// softmax. K2's redesign is to reuse it with its pool-up and RoPE prologue
-// building the query tile on chip.
+// softmax; and the attention of K2 (na2d_fused_q.cu), which runs K3's
+// forward tile (fwd_tile, fwd_tile_chunked) with its pool-up and RoPE
+// prologue building the query tile on chip (the `build_q` hook).
 //
 // A block is one warpgroup (128 threads) and owns one tile of M = 64 queries
 // (tqh x tqw, a rectangle of the query grid) of one head and sample. The
@@ -196,9 +197,18 @@ struct Wg<16> {
 
 #undef NATC_D8
 
+// The tile grid covers query rows [row0, row0 + Hq) of a taller grid (a
+// band; K2's prologue reads its tables and pool rule at those global rows)
+// and writes an output buffer of out_rows rows per sample whose row 0 is
+// global query row out_row0. K3 and K4 (whose q holds only the band's rows)
+// have row0 = out_row0 = 0, out_rows = Hq.
 struct Geom {
   int Hq, Wq, hk, wk, n, d, dv, tqh, tqw, urh, urw, tiles_w;
+  int row0, out_rows, out_row0;
 };
+
+// The box widths NB the single-pass kernels are built for (multiples of 32).
+#define NATC_NB_CASES(X) X(32) X(64) X(96) X(128) X(160) X(192)
 
 // The block's tile: sample, head, flat tile index, first query row and
 // column, and the box's first LR row and column.
@@ -206,9 +216,10 @@ struct Tile {
   int b, h, tile, y0, x0, r0, c0;
 };
 
-__device__ __forceinline__ Tile tile_of(const Geom& g, const int* row_lo, const int* col_lo) {
+__device__ __forceinline__ Tile tile_at(const Geom& g, const int* row_lo, const int* col_lo,
+                                        int tile) {
   Tile t;
-  t.tile = blockIdx.x;
+  t.tile = tile;
   t.h = blockIdx.y;
   t.b = blockIdx.z;
   const int tr = t.tile / g.tiles_w;
@@ -220,11 +231,26 @@ __device__ __forceinline__ Tile tile_of(const Geom& g, const int* row_lo, const 
   return t;
 }
 
+// The tile of this block: tile blockIdx.x.
+__device__ __forceinline__ Tile tile_of(const Geom& g, const int* row_lo, const int* col_lo) {
+  return tile_at(g, row_lo, col_lo, blockIdx.x);
+}
+
 // Pixel index of query row r of the tile, or -1 past the grid's edge.
 __device__ __forceinline__ long long query_pix(const Geom& g, const Tile& t, int r) {
   const int y = t.y0 + r / g.tqw;
   const int x = t.x0 + r % g.tqw;
   return (y < g.Hq && x < g.Wq) ? ((long long)t.b * g.Hq + y) * g.Wq + x : -1;
+}
+
+// Pixel index of query row r of the tile in the output buffer, or -1 past
+// the grid's edge.
+__device__ __forceinline__ long long out_pix(const Geom& g, const Tile& t, int r) {
+  const int y = t.y0 + r / g.tqw;
+  const int x = t.x0 + r % g.tqw;
+  return (y < g.Hq && x < g.Wq)
+             ? ((long long)t.b * g.out_rows + g.row0 + y - g.out_row0) * g.Wq + x
+             : -1;
 }
 
 // Pixel index of box cell `cell` on the LR grid, or -1 for a padding cell.
@@ -326,6 +352,61 @@ __device__ __forceinline__ void box_logits(float (&s)[NB / 32][16], uint32_t a_b
   fence_acc<NB>(s);
 }
 
+// A uniform tile (every query inside the grid, one window row on each
+// axis: at a ratio of 8 or more most 8 x 8 tiles) has one window for all
+// its queries: + log(count) of each box cell, one row of NB biases in
+// shared memory (0 for the common count of 1, -inf outside the window or
+// the box), read once per column instead of two count-table loads per
+// logit. UniformCounts loads this thread's cells' counts (the tile's rows
+// of the tables, read at its first query) early, so that the loads overlap
+// other work; store() then writes their biases.
+template <int NB>
+struct UniformCounts {
+  static constexpr int PER = cdiv(NB, THREADS);  // cells per thread
+  uint32_t h[PER], w[PER];
+
+  __device__ __forceinline__ void load(const Geom& g, const Tile& t,
+                                       const uint8_t* __restrict__ cnt_h,
+                                       const uint8_t* __restrict__ cnt_w) {
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      const int cell = threadIdx.x + i * THREADS;
+      const int bi = cell / g.urw;
+      const bool in = cell < g.urh * g.urw;
+      h[i] = in ? __ldg(cnt_h + (size_t)t.y0 * g.urh + bi) : 0u;
+      w[i] = in ? __ldg(cnt_w + (size_t)t.x0 * g.urw + cell - bi * g.urw) : 0u;
+    }
+  }
+
+  __device__ __forceinline__ void store(float* bias) const {
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      const int cell = threadIdx.x + i * THREADS;
+      const uint32_t m = h[i] * w[i];
+      if (cell < NB) bias[cell] = m == 0 ? -CUDART_INF_F : (m == 1 ? 0.f : __logf((float)m));
+    }
+  }
+};
+
+// A uniform tile's logits + its row of biases, in place; mx as window_mask.
+template <int NB>
+__device__ __forceinline__ void window_bias(float (&s)[NB / 32][16], const float* bias,
+                                            float (&mx)[2]) {
+  mx[0] = mx[1] = -CUDART_INF_F;
+#pragma unroll
+  for (int j = 0; j < NB / 32; ++j)
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float add = bias[32 * j + acc_col(i >> 1) + (i & 1)];
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        float& x = s[j][4 * (i >> 1) + 2 * half + (i & 1)];
+        x += add;
+        mx[half] = fmaxf(mx[half], x);
+      }
+    }
+}
+
 // Logits of box cells [cell0, cell0 + NB) -> the window's multiplicity as
 // + log(count) (-inf outside it), in place; mx gets the largest of the
 // thread's own values of each row half. The counts are read from the host's
@@ -384,15 +465,20 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// Logits -> probabilities in place: window_mask over the whole box, then an
-// f32 softmax over each query row, whose 4 owners are the threads of a
-// quad. Rows past the grid's edge come out all zero.
-template <int NB>
+// Logits -> probabilities in place: window_mask over the whole box (a
+// uniform tile: window_bias with its row of biases), then an f32 softmax
+// over each query row, whose 4 owners are the threads of a quad. Rows past
+// the grid's edge come out all zero.
+template <int NB, bool UNIFORM = false>
 __device__ __forceinline__ void window_softmax(float (&s)[NB / 32][16], const Geom& g,
                                                const Tile& t, const uint8_t* __restrict__ cnt_h,
-                                               const uint8_t* __restrict__ cnt_w) {
+                                               const uint8_t* __restrict__ cnt_w,
+                                               const float* bias = nullptr) {
   float mx[2];
-  window_mask<NB>(s, g, t, cnt_h, cnt_w, 0, mx);
+  if constexpr (UNIFORM)
+    window_bias<NB>(s, bias, mx);
+  else
+    window_mask<NB>(s, g, t, cnt_h, cnt_w, 0, mx);
   float sum[2] = {0.f, 0.f};
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
@@ -458,23 +544,81 @@ __device__ __forceinline__ void rs_chunk(float (&acc)[N / 2], const uint32_t (&a
 }
 
 // Store channels [c0, c0 + N) of the tile's valid query rows to dst (pixel,
-// n, ch) as bf16.
-template <int N>
+// n, ch) as bf16. K3/K4: the grid's rows (query_pix), ch a multiple of 16.
+// K2: the output buffer's rows (out_pix) and only the channels below ch (it
+// pads dv in shared memory only), in pairs where ch is even, else one by one.
+template <int N, bool K2 = false>
 __device__ __forceinline__ void store_rows(const float (&acc)[N / 2], bf16* __restrict__ dst,
                                            const Geom& g, const Tile& t, int ch, int c0) {
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
-    const long long p = query_pix(g, t, acc_row(half));
+    const long long p = K2 ? out_pix(g, t, acc_row(half)) : query_pix(g, t, acc_row(half));
     if (p < 0) continue;
     bf16* row = dst + (p * g.n + t.h) * ch + c0;
 #pragma unroll
-    for (int j = 0; j < N / 8; ++j)
-      *reinterpret_cast<uint32_t*>(row + acc_col(j)) =
-          pack2(acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1]);
+    for (int j = 0; j < N / 8; ++j) {
+      const int c = acc_col(j);
+      const float a = acc[4 * j + 2 * half], b = acc[4 * j + 2 * half + 1];
+      if (!K2 || (c0 + c + 2 <= ch && !(ch & 1))) {
+        *reinterpret_cast<uint32_t*>(row + c) = pack2(a, b);
+      } else {
+        if (c0 + c < ch) row[c] = __float2bfloat16(a);
+        if (c0 + c + 1 < ch) row[c + 1] = __float2bfloat16(b);
+      }
+    }
   }
 }
 
 // ------------------------------------------------------------ K3 forward
+// The forward of one tile, its 64 x d query tile at qs (1024-aligned
+// shared memory) and the K/V box after it: the box's copies start first,
+// then build_q(qs) puts the queries there (K2: its pool-up and RoPE
+// prologue, while the box's copies are in flight; K3 has issued the
+// cp.async of q before and passes a build_q that does nothing), then the
+// keys are scaled and every thread's staging becomes visible. The output
+// (pixel, n, out_ch) gets the first out_ch of the g.dv channels
+// (store_rows<N, K2>). bias (K2): a uniform tile's row of window biases
+// (UniformCounts, stored by build_q), or null.
+template <int NB, bool K2, typename BuildQ>
+__device__ __forceinline__ void fwd_tile(BuildQ build_q, const bf16* __restrict__ k,
+                                         const bf16* __restrict__ v,
+                                         const uint8_t* __restrict__ cnt_h,
+                                         const uint8_t* __restrict__ cnt_w, const Tile& t,
+                                         bf16* __restrict__ out, int out_ch, float scale,
+                                         const Geom& g, unsigned char* qs,
+                                         const float* bias = nullptr) {
+  unsigned char* ks = qs + tile_bytes(M, g.d);
+  unsigned char* vs = ks + tile_bytes(NB, g.d);
+  auto cpix = [&](int c) { return cell_pix(g, t, c); };
+  stage(NB, g.d, k, g.n, t.h, cpix, ks);
+  stage(NB, g.dv, v, g.n, t.h, cpix, vs);
+  build_q(qs);
+  staged(NB, g.d, ks, scale);
+
+  float s[NB / 32][16];
+  box_logits<NB>(s, smem_u32(qs), smem_u32(ks), g.d);
+  if (K2 && bias != nullptr)
+    window_softmax<NB, true>(s, g, t, cnt_h, cnt_w, bias);
+  else
+    window_softmax<NB>(s, g, t, cnt_h, cnt_w);
+  uint32_t pp[NB / 32][8];
+  pack_pairs<NB>(s, pp);
+  uint32_t pa[NB / 16][4];
+  to_frags<NB>(pp, pa);
+  const uint32_t vs_u = smem_u32(vs);
+  for (int c0 = 0; c0 < out_ch; c0 += 32) {
+    if (g.dv - c0 >= 32) {
+      float o[16];
+      rs_chunk<NB, 32>(o, pa, vs_u, c0);
+      store_rows<32, K2>(o, out, g, t, out_ch, c0);
+    } else {
+      float o[8];
+      rs_chunk<NB, 16>(o, pa, vs_u, c0);
+      store_rows<16, K2>(o, out, g, t, out_ch, c0);
+    }
+  }
+}
+
 template <int NB>
 __global__ void __launch_bounds__(THREADS)
 na_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -484,36 +628,9 @@ na_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const uint32_t raw_u = smem_u32(smem_raw);
   unsigned char* qs = smem_raw + (((raw_u + 1023u) & ~1023u) - raw_u);
-  unsigned char* ks = qs + tile_bytes(M, g.d);
-  unsigned char* vs = ks + tile_bytes(NB, g.d);
   const Tile t = tile_of(g, row_lo, col_lo);
-
-  auto qpix = [&](int r) { return query_pix(g, t, r); };
-  auto cpix = [&](int c) { return cell_pix(g, t, c); };
-  stage(M, g.d, q, g.n, t.h, qpix, qs);
-  stage(NB, g.d, k, g.n, t.h, cpix, ks);
-  stage(NB, g.dv, v, g.n, t.h, cpix, vs);
-  staged(NB, g.d, ks, scale);
-
-  float s[NB / 32][16];
-  box_logits<NB>(s, smem_u32(qs), smem_u32(ks), g.d);
-  window_softmax<NB>(s, g, t, cnt_h, cnt_w);
-  uint32_t pp[NB / 32][8];
-  pack_pairs<NB>(s, pp);
-  uint32_t pa[NB / 16][4];
-  to_frags<NB>(pp, pa);
-  const uint32_t vs_u = smem_u32(vs);
-  for (int c0 = 0; c0 < g.dv; c0 += 32) {
-    if (g.dv - c0 >= 32) {
-      float o[16];
-      rs_chunk<NB, 32>(o, pa, vs_u, c0);
-      store_rows<32>(o, out, g, t, g.dv, c0);
-    } else {
-      float o[8];
-      rs_chunk<NB, 16>(o, pa, vs_u, c0);
-      store_rows<16>(o, out, g, t, g.dv, c0);
-    }
-  }
+  stage(M, g.d, q, g.n, t.h, [&](int r) { return query_pix(g, t, r); }, qs);
+  fwd_tile<NB, false>([](unsigned char*) {}, k, v, cnt_h, cnt_w, t, out, g.dv, scale, g, qs);
 }
 
 // acc = A . B over the tile's 64 queries: A the [NBM x 64] tile at a_base
@@ -753,18 +870,26 @@ __device__ __forceinline__ void window_probs(float (&s)[NB / 32][16], const Geom
     }
 }
 
+// Stage chunk [cell0, cell0 + NB) of the K box into ks (unscaled).
+template <int NB>
+__device__ __forceinline__ void stage_keys(const Geom& g, const Tile& t, const bf16* __restrict__ k,
+                                           int cell0, unsigned char* ks) {
+  stage(NB, g.d, k, g.n, t.h, [&](int c) { return cell_pix(g, t, cell0 + c); }, ks);
+}
+
 // The statistics of the tile's rows over all chunks, staging each chunk of
-// keys into ks in turn.
+// keys into ks in turn (the first one's copies already in flight where
+// first_staged).
 template <int NB>
 __device__ __forceinline__ void chunk_stats(const Geom& g, const Tile& t, const bf16* __restrict__ k,
                                             const uint8_t* __restrict__ cnt_h,
                                             const uint8_t* __restrict__ cnt_w, int nbox,
                                             float scale, uint32_t qs_u, unsigned char* ks,
-                                            float (&m)[2], float (&l)[2]) {
+                                            bool first_staged, float (&m)[2], float (&l)[2]) {
   m[0] = m[1] = -CUDART_INF_F;
   l[0] = l[1] = 0.f;
   for (int cell0 = 0; cell0 < nbox; cell0 += NB) {
-    stage(NB, g.d, k, g.n, t.h, [&](int c) { return cell_pix(g, t, cell0 + c); }, ks);
+    if (cell0 > 0 || !first_staged) stage_keys<NB>(g, t, k, cell0, ks);
     staged(NB, g.d, ks, scale);
     float s[NB / 32][16], cmx[2];
     box_logits<NB>(s, qs_u, smem_u32(ks), g.d);
@@ -817,23 +942,37 @@ __device__ __forceinline__ void rs_accumulate(float* acc, const uint32_t (&a)[NB
   }
 }
 
-// The own slots, as bf16 rows of dst (pixel, n, ch).
+// The own slots of `width` channels (chunked as rs_accumulate chunks them),
+// as bf16 rows of dst (pixel, n, ch): the first ch channels
+// (store_rows<N, K2>).
+template <bool K2 = false>
 __device__ __forceinline__ void store_own(const float* acc, bf16* __restrict__ dst, const Geom& g,
-                                          const Tile& t, int ch) {
+                                          const Tile& t, int width, int ch) {
   for (int c0 = 0; c0 < ch; c0 += 32) {
-    if (ch - c0 >= 32) {
+    if (width - c0 >= 32) {
       float o[16];
       load_own<32>(o, acc, c0);
-      store_rows<32>(o, dst, g, t, ch, c0);
+      store_rows<32, K2>(o, dst, g, t, ch, c0);
     } else {
       float o[8];
       load_own<16>(o, acc, c0);
-      store_rows<16>(o, dst, g, t, ch, c0);
+      store_rows<16, K2>(o, dst, g, t, ch, c0);
     }
   }
 }
 
 constexpr int NBC = 128;  // box cells per chunk
+
+// Whether the kernels take a box padded to nb cells, urw wide: one of
+// NATC_NB_CASES, or (the chunked kernels) a multiple of NBC above them with
+// nb * urw < 2^16 (the mask's division).
+inline bool nb_supported(int nb, int urw) {
+  bool ok = nb > 192 && nb % NBC == 0 && nb * urw < 65536;
+#define X(N) ok = ok || nb == N;
+  NATC_NB_CASES(X)
+#undef X
+  return ok;
+}
 
 // Shared memory of one block of the chunked K3 / K4: the query tile (K4: and
 // dO), one chunk of the K/V box, the f32 sums of out (K3) or dq (K4), and
@@ -844,24 +983,25 @@ __host__ __device__ inline int smem_bytes_chunked(int d, int dv, bool backward) 
   return qkv + tile_bytes(M, dv) + tile_bytes(NBC, M) + M * d * 4;
 }
 
-template <int NB>
-__global__ void __launch_bounds__(THREADS)
-na_fwd_wgmma_chunked_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                            const bf16* __restrict__ v, const uint8_t* __restrict__ cnt_h,
-                            const uint8_t* __restrict__ cnt_w, const int* __restrict__ row_lo,
-                            const int* __restrict__ col_lo, bf16* __restrict__ out, int nbox,
-                            float scale, Geom g) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const uint32_t raw_u = smem_u32(smem_raw);
-  unsigned char* qs = smem_raw + (((raw_u + 1023u) & ~1023u) - raw_u);
+// The chunked forward of one tile (shared memory as fwd_tile, then the
+// f32 sums of out): the first chunk's key copies start, build_q(qs) runs
+// while they are in flight (as in fwd_tile), and the first chunk's staging
+// makes both visible.
+template <int NB, bool K2, typename BuildQ>
+__device__ __forceinline__ void fwd_tile_chunked(BuildQ build_q, const bf16* __restrict__ k,
+                                                 const bf16* __restrict__ v,
+                                                 const uint8_t* __restrict__ cnt_h,
+                                                 const uint8_t* __restrict__ cnt_w,
+                                                 const Tile& t, bf16* __restrict__ out,
+                                                 int out_ch, int nbox, float scale,
+                                                 const Geom& g, unsigned char* qs) {
   unsigned char* ks = qs + tile_bytes(M, g.d);
   unsigned char* vs = ks + tile_bytes(NB, g.d);
   float* os = reinterpret_cast<float*>(vs + tile_bytes(NB, g.dv));  // 64 x dv
-  const Tile t = tile_of(g, row_lo, col_lo);
-
-  stage(M, g.d, q, g.n, t.h, [&](int r) { return query_pix(g, t, r); }, qs);
+  stage_keys<NB>(g, t, k, 0, ks);
+  build_q(qs);
   float m[2], inv[2];
-  chunk_stats<NB>(g, t, k, cnt_h, cnt_w, nbox, scale, smem_u32(qs), ks, m, inv);
+  chunk_stats<NB>(g, t, k, cnt_h, cnt_w, nbox, scale, smem_u32(qs), ks, true, m, inv);
   for (int i = 0; i < g.dv / 2; ++i) os[i * THREADS + threadIdx.x] = 0.f;
   for (int cell0 = 0; cell0 < nbox; cell0 += NB) {
     stage_chunk<NB>(g, t, k, v, cell0, scale, ks, vs);
@@ -875,7 +1015,23 @@ na_fwd_wgmma_chunked_kernel(const bf16* __restrict__ q, const bf16* __restrict__
     rs_accumulate<NB>(os, pa, smem_u32(vs), g.dv);
     __syncthreads();
   }
-  store_own(os, out, g, t, g.dv);
+  store_own<K2>(os, out, g, t, g.dv, out_ch);
+}
+
+template <int NB>
+__global__ void __launch_bounds__(THREADS)
+na_fwd_wgmma_chunked_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                            const bf16* __restrict__ v, const uint8_t* __restrict__ cnt_h,
+                            const uint8_t* __restrict__ cnt_w, const int* __restrict__ row_lo,
+                            const int* __restrict__ col_lo, bf16* __restrict__ out, int nbox,
+                            float scale, Geom g) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t raw_u = smem_u32(smem_raw);
+  unsigned char* qs = smem_raw + (((raw_u + 1023u) & ~1023u) - raw_u);
+  const Tile t = tile_of(g, row_lo, col_lo);
+  stage(M, g.d, q, g.n, t.h, [&](int r) { return query_pix(g, t, r); }, qs);
+  fwd_tile_chunked<NB, false>([](unsigned char*) {}, k, v, cnt_h, cnt_w, t, out, g.dv, nbox,
+                              scale, g, qs);
 }
 
 template <int NB>
@@ -901,7 +1057,7 @@ na_bwd_wgmma_chunked_kernel(const bf16* __restrict__ q, const bf16* __restrict__
   stage(M, g.d, q, g.n, t.h, qpix, qs);
   stage(M, g.dv, dout, g.n, t.h, qpix, gs);
   float m[2], inv[2];
-  chunk_stats<NB>(g, t, k, cnt_h, cnt_w, nbox, scale, smem_u32(qs), ks, m, inv);
+  chunk_stats<NB>(g, t, k, cnt_h, cnt_w, nbox, scale, smem_u32(qs), ks, false, m, inv);
 
   // P (bf16) and dP of one chunk
   auto p_dp = [&](int cell0, uint32_t (&pp)[NB / 32][8], float (&dp)[NB / 32][16]) {
@@ -967,7 +1123,7 @@ na_bwd_wgmma_chunked_kernel(const bf16* __restrict__ q, const bf16* __restrict__
     box_product(smem_u32(pst), NB, smem_u32(qs), g.d, part_c, ncell - cell0, dc, 0, scale);
     __syncthreads();  // every warp is done with the chunk before the next lands
   }
-  store_own(dqs, dq, g, t, g.d);
+  store_own(dqs, dq, g, t, g.d, g.d);
 }
 
 }  // namespace natc

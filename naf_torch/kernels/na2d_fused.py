@@ -86,6 +86,12 @@ def _pad_heads(t, mult: int):
     return torch.nn.functional.pad(t, (0, extra)) if extra else t
 
 
+def _aligned(t):
+    """t contiguous and 16-byte aligned (a copy where it is not)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _route(dtype) -> str:
     """Which kernels CUDA tensors of this dtype launch, decided from the
     dtype alone: bf16 the tensor-core ones ("wgmma"), f32 the CUDA-core ones
@@ -326,13 +332,7 @@ def _operands(q, k, v, *more):
     with zero channels to the route's multiple. Returns (route, q, k, v,
     *more) with ``more`` padded like v."""
     route = _route(q.dtype)
-    mult = PAD[route]
-
-    def prep(t):
-        t = _pad_heads(t, mult).contiguous()
-        return t if t.data_ptr() % 16 == 0 else t.clone()
-
-    return (route, *(prep(t) for t in (q, k, v, *more)))
+    return (route, *(_aligned(_pad_heads(t, PAD[route])) for t in (q, k, v, *more)))
 
 
 def _launch_fwd(q, k, v, kernel_size, scale, row0: int = 0, full_hq=None):

@@ -7,11 +7,20 @@ the encoder output, RoPE from the separable row/column cos|sin tables, and
 cross-scale neighbourhood attention over the k x k LR-cell window with an f32
 softmax. Neither the pooled-up grid nor the queries reach device memory.
 
-The window comes from the host-built tables of ``ops.window`` (natten's rule,
-every ratio the oracle takes); for each tile of queries the host also finds
-the box of LR cells its windows touch, which the kernel stages in shared
-memory. The softmax scale is folded into the keys here, as the JAX wrapper
-does.
+``csrc/na2d_fused_q.cu`` holds two kernels, chosen from the dtype alone as
+K3's are (``na2d_fused._route``): bf16 on the tensor cores ("wgmma": K3's
+forward tile of ``csrc/na_tc.cuh`` behind a prologue that builds the query
+tile on chip), f32 on the CUDA cores ("fma"). The window comes from the
+host-built tables of ``ops.window`` (natten's rule, every ratio the oracle
+takes); for each tile of queries the host also finds the box of LR cells
+its windows touch, which the kernels stage in shared memory: the bf16 route
+plans as K3 does (``na2d_fused._plan_tc``: 64-query tiles, per-axis window
+counts, boxes above 192 cells in chunks) with the keys' and values' head
+channels zero-padded to a multiple of 16, the softmax scale passed to the
+kernel, which stores only the real value channels, and the tiles whose
+queries share one window ordered first (:func:`_plan_k2`); the f32 route
+shrinks its tile until the box fits (``na2d_fused._plan``) and takes keys
+with the scale folded in, as the JAX wrapper does.
 
 Banded variants (the JAX kernel's ``row_cell0`` / ``band_cells`` /
 ``out_acc`` / ``enc_banded``, inference only) compute only LR cell rows
@@ -21,9 +30,11 @@ encoder output that holds only the band's input rows: the streamed
 4096^2 path (``naf_torch.api.naf_streamed``).
 
 The wrapper takes the plain version for CPU tensors only; for CUDA tensors
-it launches the kernel or raises. Its backward differentiates a twin, as the
-JAX package's ``_fused_q_twin`` does: pool-up and RoPE through torch
-autograd, then the attention through ``cross_scale_na2d_fused``, whose
+it launches the kernel or raises (launches counted in
+``naf_upsample_attention.launches``, per route in
+``naf_upsample_attention.route_launches``). Its backward differentiates a
+twin, as the JAX package's ``_fused_q_twin`` does: pool-up and RoPE through
+torch autograd, then the attention through ``cross_scale_na2d_fused``, whose
 forward and backward are kernels K3 and K4 on CUDA tensors.
 """
 
@@ -34,10 +45,11 @@ import functools
 
 import torch
 
-from naf_torch.kernels import _build
+from naf_torch.kernels import _build, na2d_fused
 from naf_torch.kernels.encoder_fused import _detached, _grads
 from naf_torch.kernels.na2d_fused import (
-    SMEM_BUDGET, SMEM_MAX, _plan, _scaled_keys, cross_scale_na2d_fused,
+    PAD, SMEM_BUDGET, SMEM_MAX, TC_NB, _aligned, _pad_heads, _plan, _plan_tc, _route,
+    _scaled_keys, cross_scale_na2d_fused,
 )
 from naf_torch.nn.rope import rotate_half
 from naf_torch.ops.na2d import cross_scale_na2d
@@ -45,8 +57,8 @@ from naf_torch.ops.pool import _pool_matrix, adaptive_avg_pool2d
 
 __all__ = ["naf_upsample_attention", "naf_upsample_attention_ref", "fused_q_twin"]
 
-# Query tiles tried in order, largest first; the first whose K/V box fits
-# the shared-memory budget (two blocks per SM) is used.
+# Query tiles of the f32 route, tried in order, largest first; the first
+# whose K/V box fits the shared-memory budget (two blocks per SM) is used.
 _TILES = ((8, 8), (4, 8), (4, 4), (2, 4), (2, 2), (1, 2), (1, 1))
 
 
@@ -146,10 +158,49 @@ def _lib():
     lib = _build.load("na2d_fused_q")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.naf_fused_q_smem.argtypes = [i32] * 5
-    lib.naf_fused_q_smem.restype = ctypes.c_longlong
-    lib.naf_fused_q.argtypes = [ptr] * 10 + [i32] * 23 + [ptr]
-    lib.naf_fused_q.restype = i32
+    lib.naf_fused_q_tc_smem.argtypes = [i32] * 3
+    lib.naf_fused_q_smem.restype = lib.naf_fused_q_tc_smem.restype = ctypes.c_longlong
+    lib.naf_fused_q_fma.argtypes = [ptr] * 10 + [i32] * 22 + [ptr]
+    lib.naf_fused_q_wgmma.argtypes = [ptr] * 11 + [ctypes.c_float] + [i32] * 25 + [ptr]
+    lib.naf_fused_q_fma.restype = lib.naf_fused_q_wgmma.restype = i32
     return lib
+
+
+def _tc_smem(d: int, dv: int, nb: int) -> int:
+    """Shared memory of one block of the bf16 K2 (``tc_smem`` in the
+    kernel's source): K3's forward block (``na2d_fused._tc_smem``), and up
+    to 192 cells a row of nb f32 window biases."""
+    return na2d_fused._tc_smem(d, dv, nb, False) + (4 * nb if nb <= TC_NB[-1] else 0)
+
+
+def _uniform_tiles(cnt, tile: int):
+    """bool per tile along one axis: True where the tile's queries all lie
+    inside the grid and share one row of the count table ``cnt`` (one window
+    on that axis); at a ratio of 8 or more most 8-query tiles do."""
+    full = cnt.shape[0] // tile
+    flags = torch.zeros(-(-cnt.shape[0] // tile), dtype=torch.bool, device=cnt.device)
+    if full:
+        rows = cnt[: full * tile].reshape(full, tile, -1)
+        flags[:full] = (rows == rows[:, :1]).all(2).all(1)
+    return flags
+
+
+@functools.lru_cache(maxsize=64)
+def _plan_k2(hq, wq, hk, wk, ks, dp, dvp, device, rows=None):
+    """The bf16 route's plan (``na2d_fused._plan_tc``, the rows of a band),
+    then the order the kernel's blocks take its tiles in (int32) and how
+    many come first as uniform: uniform on both axes, their queries share
+    one window, which the kernel takes as one row of biases; each group in
+    tile order. Raises where the block's shared memory, biases included,
+    exceeds SMEM_MAX."""
+    plan = _plan_tc(hq, wq, hk, wk, ks, dp, dvp, False, device, rows)
+    if _tc_smem(dp, dvp, plan[4]) > SMEM_MAX:
+        raise ValueError(f"K2's tensor-core block needs {_tc_smem(dp, dvp, plan[4])} bytes of "
+                         f"shared memory at d={dp}, dv={dvp}, a box of {plan[4]} cells")
+    uniform = (_uniform_tiles(plan[5], plan[0])[:, None]
+               & _uniform_tiles(plan[6], plan[1])[None, :]).flatten()
+    order = torch.argsort((~uniform).to(torch.int32), stable=True).to(torch.int32)
+    return (*plan, order, int(uniform.sum()))
 
 
 def _launch(enc, keys, values, rows_tab, cols_tab, rope_d_head, num_heads, kernel_size,
@@ -182,30 +233,45 @@ def _launch(enc, keys, values, rows_tab, cols_tab, rope_d_head, num_heads, kerne
     if scale is None:
         scale = d ** -0.5
     y0, band_h, hi_full, enc_row0 = _band(enc.shape, hq, hk, row_cell0, band_cells, enc_banded)
-    tqh, tqw, urh, urw, idx_h, idx_w, row_lo, col_lo = _plan(
-        _lib, "naf_fused_q_smem", _TILES, (SMEM_BUDGET, SMEM_MAX), hq, wq, hk, wk, kernel_size,
-        d, dv, str(enc.device), None if band_h == hq else (y0, y0 + band_h))
-    k_scaled = _scaled_keys(keys, scale, enc.dtype).contiguous()
-    rt = rows_tab.float().contiguous()
-    ct = cols_tab.float().contiguous()
+    rows = None if band_h == hq else (y0, y0 + band_h)
+    route = _route(enc.dtype)
+    rt, ct = _aligned(rows_tab.float()), _aligned(cols_tab.float())
     if out_acc is not None:
         _check_out_acc(out_acc, enc, b, hq, wq, cv)
         out, out_row0 = out_acc, 0
     else:
         out = torch.empty((b, band_h, wq, cv), dtype=enc.dtype, device=enc.device)
         out_row0 = y0
+    band = (b, hi, wi, hi_full, enc_row0, hq, wq, y0, band_h, out.shape[1], out_row0, hk, wk)
+    dev = str(enc.device)
     with torch.cuda.device(enc.device):
-        err = _lib().naf_fused_q(
-            enc.data_ptr(), k_scaled.data_ptr(), values.data_ptr(), rt.data_ptr(),
-            ct.data_ptr(), idx_h.data_ptr(), idx_w.data_ptr(), row_lo.data_ptr(),
-            col_lo.data_ptr(), out.data_ptr(), b, hi, wi, hi_full, enc_row0, hq, wq, y0,
-            band_h, out.shape[1], out_row0, hk, wk, c, n, cv, kernel_size, rope_d_head, tqh,
-            tqw, urh, urw, int(enc.dtype == torch.bfloat16),
-            torch.cuda.current_stream().cuda_stream,
-        )
+        stream = torch.cuda.current_stream().cuda_stream
+        if route == "wgmma":
+            # head channels of keys and values zero-padded; enc read as it lies
+            encp = _aligned(enc)
+            kp = _aligned(_pad_heads(keys.reshape(b, hk, wk, n, d), PAD[route]))
+            vp = _aligned(_pad_heads(values.reshape(b, hk, wk, n, dv), PAD[route]))
+            dp, dvp = kp.shape[-1], vp.shape[-1]
+            tqh, tqw, urh, urw, nb, *tables, n_uniform = _plan_k2(
+                hq, wq, hk, wk, kernel_size, dp, dvp, dev, rows)
+            err = _lib().naf_fused_q_wgmma(
+                encp.data_ptr(), kp.data_ptr(), vp.data_ptr(), rt.data_ptr(), ct.data_ptr(),
+                *(t.data_ptr() for t in tables), out.data_ptr(), scale, *band, c, n, dp, dvp,
+                dv, rope_d_head, tqh, tqw, urh, urw, nb, n_uniform, stream)
+        else:
+            tqh, tqw, urh, urw, idx_h, idx_w, row_lo, col_lo = _plan(
+                _lib, "naf_fused_q_smem", _TILES, (SMEM_BUDGET, SMEM_MAX), hq, wq, hk, wk,
+                kernel_size, d, dv, dev, rows)
+            k_scaled = _scaled_keys(keys, scale, enc.dtype).contiguous()
+            err = _lib().naf_fused_q_fma(
+                enc.data_ptr(), k_scaled.data_ptr(), values.data_ptr(), rt.data_ptr(),
+                ct.data_ptr(), idx_h.data_ptr(), idx_w.data_ptr(), row_lo.data_ptr(),
+                col_lo.data_ptr(), out.data_ptr(), *band, c, n, cv, kernel_size, rope_d_head,
+                tqh, tqw, urh, urw, stream)
     if err:
-        raise RuntimeError(f"na2d_fused_q kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"na2d_fused_q kernel ({route}) launch failed: cudaError {err}")
     naf_upsample_attention.launches += 1
+    naf_upsample_attention.route_launches[route] += 1
     return out
 
 
@@ -254,10 +320,11 @@ def naf_upsample_attention(enc, keys, values, rows_tab, cols_tab, rope_d_head=64
                            band_cells=None, out_acc=None, enc_banded: bool = False):
     """Fused pool-up + RoPE + cross-scale NA (arguments as in the plain
     version). CPU tensors take the plain version; CUDA tensors launch K2
-    (count in ``naf_upsample_attention.launches``). The full-grid call is
-    differentiable; the banded variants are inference-only and raise if a
-    gradient is required, as the JAX package sends them straight to its
-    kernel."""
+    (count in ``naf_upsample_attention.launches``, per route in
+    ``naf_upsample_attention.route_launches``: bf16 "wgmma", f32 "fma"). The
+    full-grid call is differentiable; the banded variants are inference-only
+    and raise if a gradient is required, as the JAX package sends them
+    straight to its kernel."""
     band = dict(row_cell0=row_cell0, band_cells=band_cells, out_acc=out_acc,
                 enc_banded=enc_banded)
     banded = row_cell0 != 0 or band_cells is not None or out_acc is not None or enc_banded
@@ -276,3 +343,4 @@ def naf_upsample_attention(enc, keys, values, rows_tab, cols_tab, rope_d_head=64
 
 
 naf_upsample_attention.launches = 0
+naf_upsample_attention.route_launches = {"wgmma": 0, "fma": 0}

@@ -1,17 +1,20 @@
 """Where the bf16 attention kernels' time goes: ablations of the tensor-core
 core (``csrc/na_tc.cuh``) of K3 and K4.
 
-    python -m naf_torch.tools.ablate_na_tc
+    python -m naf_torch.tools.ablate_na_tc [--against TREE]
 
 Builds the K3/K4 library once as it is and once per ablation, each a text
 edit of the core (one ``nvcc`` per variant, all started together, into
-``build/naf_torch/na_ablate/``), and times each kernel alone on its C entry
+``build/naf_torch/na_ablate/``), and with ``--against`` once more from the
+unedited sources of another checkout rooted at TREE (variant ``against``:
+e.g. the parent commit unpacked with ``git archive``, so that both are
+timed in one process on one card), and times each kernel alone on its C entry
 by its device time (torch.profiler, ``chip_smoke.py``'s ``_kernel_ms``) at
 the training shape (4, 32^2 <- 16^2, 4 heads, d 64, dv 192) and at 448^2 <-
 28^2 (d 64, dv 96), k 9, bf16, in two rounds, the second in reverse order.
 K4's time includes its reduce pass, which the ``no_tile`` variant (tile
 kernels that return at once) times nearly alone. The ablations compute
-wrong values on purpose; only the unedited build is checked against the
+wrong values on purpose; only the unedited builds are checked against the
 plain versions (bf16 cosine > 0.9995).
 
 - ``no_pt``: K4 writes no P^T / dS^T tile from its registers (stmatrix);
@@ -27,19 +30,21 @@ card's name and power limit.
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import importlib.util
 import re
 import subprocess
+from pathlib import Path
 
 _NO_PT = [('"stmatrix.sync.aligned.m8n8.x4.trans.shared.b16 [%0], {%1, %2, %3, %4};\\n"',
            '"// no stmatrix %0 %1 %2 %3 %4\\n"')]
 _NO_PARTIALS = [("    if (cell >= ncell) continue;\n    float* row = part",
                  "    if (cell >= 0) continue;\n    float* row = part")]
-_NO_OUT = [("    const long long p = query_pix(g, t, acc_row(half));\n    if (p < 0) continue;",
-            "    const long long p = query_pix(g, t, acc_row(half));\n    if (p >= -1) continue;")]
-_NO_SOFTMAX = [("  float mx[2];\n  window_mask<NB>(s, g, t, cnt_h, cnt_w, 0, mx);",
-                "  if (g.n > 0) return;\n  float mx[2];\n  window_mask<NB>(s, g, t, cnt_h, cnt_w, 0, mx);")]
+_NO_OUT = [("    if (p < 0) continue;\n    bf16* row = dst + (p * g.n + t.h) * ch + c0;",
+            "    if (p >= -1) continue;\n    bf16* row = dst + (p * g.n + t.h) * ch + c0;")]
+_NO_SOFTMAX = [("  float mx[2];\n  if constexpr (UNIFORM)",
+                "  if (g.n > 0) return;\n  float mx[2];\n  if constexpr (UNIFORM)")]
 _NO_TILE = [("  extern __shared__ __align__(16) unsigned char smem_raw[];\n  const uint32_t raw_u",
              "  if (g.n > 0) return;\n  extern __shared__ __align__(16) unsigned char smem_raw[];\n"
              "  const uint32_t raw_u")]
@@ -72,15 +77,21 @@ def edited_sources() -> dict:
     return {name: _edit(core, edits, "na_tc.cuh") for name, edits in VARIANTS.items()}
 
 
-def _build_variants(out_dir):
+def _build_variants(out_dir, against=None):
     from naf_torch.kernels import _build
 
+    cu = (_build.CSRC / "na2d_fused.cu").read_text()
+    sources = {name: (core, cu) for name, core in edited_sources().items()}
+    if against is not None:
+        csrc = Path(against) / "naf_torch" / "kernels" / "csrc"
+        sources["against"] = ((csrc / "na_tc.cuh").read_text(),
+                              (csrc / "na2d_fused.cu").read_text())
     procs = {}
-    for name, core in edited_sources().items():
+    for name, (core, text) in sources.items():
         d = out_dir / name
         d.mkdir(parents=True, exist_ok=True)
         (d / "na_tc.cuh").write_text(core)
-        (d / "na2d_fused.cu").write_text((_build.CSRC / "na2d_fused.cu").read_text())
+        (d / "na2d_fused.cu").write_text(text)
         cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o", str(d / "lib.so"),
                str(d / "na2d_fused.cu")]
         procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -150,19 +161,24 @@ def _calls(dev, gen, stream, shape, na):
     return fwd, bwd, (q, k, v, g, out, (dq, dk, dvv))
 
 
-def main() -> int:
+def main(argv=None) -> int:
     import torch
 
     from naf_torch.kernels import _build
     from naf_torch.kernels import na2d_fused as na
 
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--against", metavar="TREE",
+                        help="also time the unedited kernels of the checkout rooted at TREE")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("ablate_na_tc needs a CUDA device")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True).stdout
     card = card.strip().splitlines()[0]
     print(card, flush=True)
-    libs = _build_variants(_build.BUILD_DIR / "na_ablate")
+    libs = _build_variants(_build.BUILD_DIR / "na_ablate", args.against)
+    checked = [name for name in ("as_built", "against") if name in libs]
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(16)
     stream = torch.cuda.current_stream().cuda_stream
@@ -174,22 +190,23 @@ def main() -> int:
     device_ms = _smoke()._kernel_ms  # every kernel's device time, torch.profiler
     calls = {label: _calls(dev, gen, stream, shape, na) for label, shape in SHAPES.items()}
     for label, (fwd, bwd, (q, k, v, g, out, grads)) in calls.items():
-        fwd(libs["as_built"])()
-        bwd(libs["as_built"])()
-        torch.cuda.synchronize()
         want = na.cross_scale_na2d_fused_ref(q, k, v, 9)
         want_g = na.cross_scale_na2d_fused_bwd_ref(q, k, v, g, 9)
-        if not (cos(out.float(), want) > 0.9995
-                and all(cos(a.float(), w) > 0.9995 for a, w in zip(grads, want_g))):
-            raise AssertionError(f"as_built disagrees with the plain versions at {label}")
-    times = {(name, label, kern): [] for name in VARIANTS for label in SHAPES
+        for name in checked:
+            fwd(libs[name])()
+            bwd(libs[name])()
+            torch.cuda.synchronize()
+            if not (cos(out.float(), want) > 0.9995
+                    and all(cos(a.float(), w) > 0.9995 for a, w in zip(grads, want_g))):
+                raise AssertionError(f"{name} disagrees with the plain versions at {label}")
+    times = {(name, label, kern): [] for name in libs for label in SHAPES
              for kern in ("K3", "K4")}
-    for order in (list(VARIANTS), list(VARIANTS)[::-1]):
+    for order in (list(libs), list(libs)[::-1]):
         for name in order:
             for label, (fwd, bwd, _) in calls.items():
                 times[(name, label, "K3")].append(device_ms(fwd(libs[name])))
                 times[(name, label, "K4")].append(device_ms(bwd(libs[name])))
-    for name in VARIANTS:
+    for name in libs:
         print(f"{name}: " + "; ".join(
             f"{kern} {label} {times[(name, label, kern)][0]:.4f} / "
             f"{times[(name, label, kern)][1]:.4f} ms" for label in SHAPES for kern in ("K3", "K4"))

@@ -3,8 +3,9 @@ interpret mode, as the JAX package's own tests run them), f32 on CPU,
 atol = rtol = 2e-4; and the wrappers' dispatch rules.
 
 The CUDA kernels themselves run only on the card: the ``cuda``-marked tests
-skip here (K1's and K6's are in ``test_torch_card_encoder.py``, which imports
-no JAX, so that they also run where the JAX package is not installed), and
+skip here (K1's and K6's are in ``test_torch_card_encoder.py``, K2's in
+``test_torch_card_fused_q.py``, which import no JAX, so that they also run
+where the JAX package is not installed), and
 ``chip_smoke.py`` holds each kernel against its plain version at the
 production shapes.
 """
@@ -338,17 +339,6 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU; chip_smoke.py holds the kernels on the card")
     return torch.device("cuda")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("hi,out", [(64, 64), (32, 64)])
-def test_k2_kernel_matches_plain_on_card(cuda_device, hi, out):
-    torch.backends.cuda.matmul.allow_tf32 = False
-    enc, keys, values, rows, cols, dh = _fused_q_inputs(hi, out)
-    args = [torch.from_numpy(a).to(cuda_device) for a in (enc, keys, values, rows, cols)]
-    got = naf_upsample_attention(*args, dh, num_heads=2, kernel_size=9)
-    want = naf_upsample_attention_ref(*args, dh, num_heads=2, kernel_size=9)
-    torch.testing.assert_close(got, want, **TOL)
 
 
 @pytest.mark.cuda
