@@ -4,10 +4,11 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``naf_torch/kernels/csrc`` with nvcc (into
-``build/naf_torch/``; ptxas spills in the K2 or K3/K4 library fail) and
+``build/naf_torch/``; ptxas spills in the K2, K3/K4 or K5 library fail),
 counts the ``HGMMA`` (wgmma) instructions in the K1, K6, K2 and K3/K4
 libraries with ``cuobjdump -sass`` (none fails: their bf16 kernels run on
-the tensor cores), then, each phase on its own lines:
+the tensor cores) and the ``LDGSTS`` (cp.async) instructions of K5's wide
+and narrow routes (none in either fails), then, each phase on its own lines:
 
 1. K1 (fused GN -> SiLU -> conv encoder layer) against its plain PyTorch
    version at the production layer shape (1, 448, 448, 128), k = 1 and 3, f32
@@ -59,14 +60,19 @@ the tensor cores), then, each phase on its own lines:
    0.999); ms per step, a step's peak memory and a torch.profiler split of
    its device time;
 6. K5 (FeatUp's spatially varying conv) against its plain version at
-   FeatUp's last stage (1, 454, 454, 384) k 7, at JBU's (1, 458, 458, 3) k 11
-   and at a ragged (2, 41, 57, 100) k 5: f32 atol = rtol = 2e-4, bf16 cosine
-   > 0.9995 against the f32 plain version, and one gradient of
-   ``adaptive_conv`` against autograd of the plain version (2e-3);
+   FeatUp's last stage (1, 454, 454, 384) k 7 and a ragged (2, 41, 57, 100)
+   k 5 and (2, 152, 152, 200) k 3 (chunks of several 32-channel stages, a
+   tail of 8) on the wide route, at JBU's (1, 458, 458, 3) k 11 on the
+   narrow route, and at the routes' edges, (2, 19, 37) outputs at every odd
+   k 1..15 with C 3 and 8 (narrow) and 9 (wide): f32 atol = rtol = 2e-4,
+   bf16 cosine > 0.9995 against the f32 plain version, each call counted on
+   the route the plan gives it; and one gradient of ``adaptive_conv`` per
+   route against autograd of the plain version (2e-3);
 7. the baselines path: ``ModelWrapper`` with seeded random f32 weights serves
    FeatUp, JBU, AnyUp, JAFAR, JBF, Bilinear, Nearest and NAF at the reference
    sweep's defaults (448^2 image, 28^2 x 384 features, 448^2 output, ratio
-   16), with launch counts per forward (FeatUp 4 K5, JBU 1 K5, AnyUp 1 K3 and
+   16), with launch counts per forward (FeatUp 4 K5 on the wide route, JBU 1
+   K5 on the narrow one, AnyUp 1 K3 and
    0 K4, NAF 8 K1 and 1 K2 on its f32 route, the others none); each output
    held against an f32 copy of the model on the CPU (cosine > 0.999; AnyUp
    and JAFAR at a 224^2 output) and AnyUp's against its own plain attention
@@ -79,8 +85,9 @@ the tensor cores), then, each phase on its own lines:
    production shape (K2 at 448^2 and 2048^2 beside the warp-per-query
    kernel's time it replaced and the attention-only yardstick, masked SDPA
    on the plain version's queries; K3 and K4 at the training shape and
-   448^2 <- 28^2, K3 also at AnyUp's f32 k 7 shape, K5 at FeatUp's and
-   JBU's, K6 beside the K1 1x1 + 3x3 pair on the same halves) beside its
+   448^2 <- 28^2, K3 also at AnyUp's f32 k 7 shape, K5 at FeatUp's four
+   stages (56^2 to 448^2) and JBU's, K6 beside the K1 1x1 + 3x3 pair on the
+   same halves) beside its
    plain version's, a library yardstick and the card's bound; K1 and K6 in
    bf16 and in f32 (their two kernels). Every kernel and library call by
    torch.profiler's device time, with the device time of calls queued
@@ -744,7 +751,10 @@ def _all_counts() -> dict:
     return {"k1": gn_silu_conv_fused.launches, "k2": naf_upsample_attention.launches,
             "k2_wgmma": k2_routes["wgmma"], "k2_fma": k2_routes["fma"],
             "k3": cross_scale_na2d_fused.launches, "k4": cross_scale_na2d_fused.bwd_launches,
-            "k5": adaptive_conv_fused.launches, "k6": gn_silu_conv_dual_fused.launches}
+            "k5": adaptive_conv_fused.launches,
+            "k5_narrow": adaptive_conv_fused.route_launches["narrow"],
+            "k5_wide": adaptive_conv_fused.route_launches["wide"],
+            "k6": gn_silu_conv_dual_fused.launches}
 
 
 def _zero_counts():
@@ -758,6 +768,7 @@ def _zero_counts():
     cross_scale_na2d_fused.launches = cross_scale_na2d_fused.bwd_launches = 0
     cross_scale_na2d_fused.route_launches = dict.fromkeys(cross_scale_na2d_fused.route_launches, 0)
     adaptive_conv_fused.launches = gn_silu_conv_dual_fused.launches = 0
+    adaptive_conv_fused.route_launches = dict.fromkeys(adaptive_conv_fused.route_launches, 0)
 
 
 def _step_inputs(backbone, img, dev):
@@ -982,9 +993,18 @@ def _masked_sdpa_inputs(q, k, v, ks):
 
 
 
-# (B, H, W, C, k): FeatUp's last stage, JBU at 448^2, and a ragged shape
+# (B, H, W, C, k): FeatUp's last stage, JBU at 448^2, a ragged shape, and a
+# shape whose blocks walk several stages of 32 channels through the ring, the
+# last chunk a tail of 8 channels; each with the route the plan gives it
 K5_SHAPES = {"featup": (1, 448, 448, 384, 7), "jbu": (1, 448, 448, 3, 11),
-             "ragged": (2, 37, 53, 100, 5)}
+             "ragged": (2, 37, 53, 100, 5), "stages": (2, 150, 150, 200, 3)}
+K5_ROUTES = {"featup": "wide", "jbu": "narrow", "ragged": "wide", "stages": "wide"}
+# FeatUp's four K5 per forward (C 384, k 7) at the sweep's 448^2 output
+K5_FEATUP_STAGES = {f"featup_{s}": (1, s, s, 384, 7) for s in (56, 112, 224)}
+# the routes' edges: C at the threshold (8, narrow) and above it (9, wide),
+# C 3 (JBU's), C not a multiple of 4, batch 2, H and W no multiple of a tile
+K5_EDGE_C = {3: "narrow", 8: "narrow", 9: "wide"}
+K5_EDGE_HW = (19, 37)
 
 
 def _k5_inputs(dev, gen, shape):
@@ -996,6 +1016,18 @@ def _k5_inputs(dev, gen, shape):
     return src, ker / ker.sum(dim=(-2, -1), keepdim=True)
 
 
+def _k5_route_call(fn, route):
+    """fn()'s result, checking that it launched K5 once, on ``route``."""
+    from naf_torch.kernels.adaptive_conv_fused import adaptive_conv_fused
+
+    before = dict(adaptive_conv_fused.route_launches)
+    out = fn()
+    delta = {k: v - before[k] for k, v in adaptive_conv_fused.route_launches.items()}
+    if delta != {r: int(r == route) for r in delta}:
+        raise AssertionError(f"K5 launched {delta}, want one launch on the {route} route")
+    return out
+
+
 def phase_k5(dev):
     from naf_torch.kernels.adaptive_conv_fused import (
         adaptive_conv_fused,
@@ -1004,55 +1036,76 @@ def phase_k5(dev):
     from naf_torch.ops.adaptive_conv import adaptive_conv
 
     gen = torch.Generator(device=dev).manual_seed(6)
-    errs = {}
-    for label, shape in K5_SHAPES.items():
+    shapes = {**K5_SHAPES, **K5_FEATUP_STAGES}
+    routes = {**K5_ROUTES, **dict.fromkeys(K5_FEATUP_STAGES, "wide")}
+    for c, route in K5_EDGE_C.items():
+        for k in range(1, 16, 2):
+            shapes[f"c{c}_k{k}"] = (2, *K5_EDGE_HW, c, k)
+            routes[f"c{c}_k{k}"] = route
+    errs, coss = {}, {}
+    for label, shape in shapes.items():
         src, ker = _k5_inputs(dev, gen, shape)
         want = adaptive_conv_fused_ref(src, ker)
-        got = adaptive_conv_fused(src, ker)
+        got = _k5_route_call(lambda: adaptive_conv_fused(src, ker), routes[label])
         torch.cuda.synchronize()
-        e = _check_close(f"K5 f32 {label}", got, want, 2e-4)
-        gb = adaptive_conv_fused(src.bfloat16(), ker.bfloat16())
+        errs[label] = _check_close(f"K5 f32 {label}", got, want, 2e-4)
+        gb = _k5_route_call(lambda: adaptive_conv_fused(src.bfloat16(), ker.bfloat16()),
+                            routes[label])
         torch.cuda.synchronize()
         if gb.dtype != torch.bfloat16:
             raise AssertionError(f"K5 bf16 output came back as {gb.dtype}")
-        cb = _check_cos(f"K5 bf16 {label}", gb.float(), want, 0.9995)
-        errs[label] = e
-        print(f"K5 {label} {shape}: f32 max_abs_err {e:.3e}; bf16 cos {cb:.6f}", flush=True)
+        coss[label] = _check_cos(f"K5 bf16 {label}", gb.float(), want, 0.9995)
+        if label in K5_SHAPES or label in K5_FEATUP_STAGES:
+            print(f"K5 {label} {shape} ({routes[label]}): f32 max_abs_err {errs[label]:.3e}; "
+                  f"bf16 cos {coss[label]:.6f}", flush=True)
         del src, ker, want, got, gb
+    edge = [k for k in shapes if k not in K5_SHAPES and k not in K5_FEATUP_STAGES]
+    print(f"K5 edges, (2, {K5_EDGE_HW[0]}, {K5_EDGE_HW[1]}) at every odd k 1..15, C "
+          f"{sorted(K5_EDGE_C)} ({', '.join(f'{c} {r}' for c, r in K5_EDGE_C.items())}): f32 max "
+          f"abs err {max(errs[k] for k in edge):.3e}; bf16 cos >= "
+          f"{min(coss[k] for k in edge):.6f}", flush=True)
 
-    # one gradient: K5 forward + plain backward against autograd of the plain version
-    src, ker = (t.requires_grad_() for t in _k5_inputs(dev, gen, (2, 24, 40, 64, 7)))
-    cot = torch.randn(2, 24, 40, 64, generator=gen, device=dev)
-    grads = [torch.autograd.grad(fn(src, ker), (src, ker), cot)
-             for fn in (adaptive_conv, adaptive_conv_fused_ref)]
-    for a, r, n in zip(*grads, ("source", "kernel")):
-        _check_close(f"K5 gradient d{n}", a, r, 2e-3)
-    print("gradient of adaptive_conv (K5 forward) matches autograd of its plain version "
-          "(2e-3)", flush=True)
+    # one gradient per route: K5 forward + plain backward against autograd
+    # of the plain version
+    for shape in ((2, 24, 40, 64, 7), (2, 24, 40, 3, 11)):
+        src, ker = (t.requires_grad_() for t in _k5_inputs(dev, gen, shape))
+        cot = torch.randn(*shape[:4], generator=gen, device=dev)
+        grads = [torch.autograd.grad(fn(src, ker), (src, ker), cot)
+                 for fn in (adaptive_conv, adaptive_conv_fused_ref)]
+        for a, r, n in zip(*grads, ("source", "kernel")):
+            _check_close(f"K5 gradient d{n} at {shape}", a, r, 2e-3)
+    print("gradient of adaptive_conv (K5 forward, both routes) matches autograd of its plain "
+          "version (2e-3)", flush=True)
     return max(errs.values())
 
 
 BASELINES = ("FeatUp", "JBU", "AnyUp", "JAFAR", "JBF", "Bilinear", "Nearest", "NAF")
 # launches per forward on the baselines path; every other count stays
-BASELINE_LAUNCHES = {"FeatUp": {"k5": 4}, "JBU": {"k5": 1}, "AnyUp": {"k3": 1},
+BASELINE_LAUNCHES = {"FeatUp": {"k5": 4, "k5_wide": 4}, "JBU": {"k5": 1, "k5_narrow": 1},
+                     "AnyUp": {"k3": 1},
                      "NAF": {"k1": 8, "k2": 1, "k2_fma": 1}}
 RESTORERS = ("JBU", "JBF")  # forward(image_norm, image, output_size)
 
 
-def phase_baselines(dev, card):
+def _baseline_inputs(dev, gen):
+    """The baselines path's inputs: an image at the sweep's 448^2, normalised
+    and raw, and 28^2 x 384 features; ``args(name)`` is what model ``name``
+    takes besides the output size."""
     from naf_torch.backbones.wrapper import IMAGENET_DEFAULT_MEAN, IMAGENET_DEFAULT_STD
-    from naf_torch.models.registry import ModelWrapper
 
-    gen = torch.Generator(device=dev).manual_seed(7)
     image = torch.rand(1, 3, 448, 448, generator=gen, device=dev)
     mean = torch.tensor(IMAGENET_DEFAULT_MEAN, device=dev)[:, None, None]
     std = torch.tensor(IMAGENET_DEFAULT_STD, device=dev)[:, None, None]
     image_norm = (image - mean) / std
     feats = torch.randn(1, 384, 28, 28, generator=gen, device=dev)
-    out = (448, 448)
+    return lambda name: (image_norm, image) if name in RESTORERS else (image_norm, feats)
 
-    def args(name):
-        return (image_norm, image) if name in RESTORERS else (image_norm, feats)
+
+def phase_baselines(dev, card):
+    from naf_torch.models.registry import ModelWrapper
+
+    args = _baseline_inputs(dev, torch.Generator(device=dev).manual_seed(7))
+    out = (448, 448)
 
     wrappers = {name: ModelWrapper(name, seed=0, device=dev) for name in BASELINES}
     outs = {}
@@ -1133,7 +1186,7 @@ def _split_k5(fn, reps=3):
                and not getattr(e, "is_user_annotation", False)]
     if not kernels:
         raise AssertionError("torch.profiler recorded no device time")
-    k5 = [e for e in kernels if "adaptive_conv_kernel" in e.key]
+    k5 = [e for e in kernels if "adaptive_conv_" in e.key]
     if not k5:
         raise AssertionError("the profile shows no K5 kernel")
     t_k5 = sum(e.self_device_time_total for e in k5) / reps / 1e3
@@ -1145,7 +1198,11 @@ def _split_k5(fn, reps=3):
 
 
 def _time_k5(dev, card, bw_peak):
-    """K5 at FeatUp's last stage and at JBU's shape, f32 (the sweep's dtype)."""
+    """K5 at FeatUp's four stages and at JBU's shape, f32 (the sweep's
+    dtype): device time, queued time, through the wrapper, the plain
+    version, and the bound of the bytes (each input read once, the output
+    written once) and of the f32 operations; the output held against the
+    plain version's (phase 6 holds the route of each of these shapes)."""
     from naf_torch.kernels.adaptive_conv_fused import (
         adaptive_conv_fused,
         adaptive_conv_fused_ref,
@@ -1153,10 +1210,14 @@ def _time_k5(dev, card, bw_peak):
 
     gen = torch.Generator(device=dev).manual_seed(8)
     res = {}
-    for label in ("featup", "jbu"):
-        b, h, w, c, k = K5_SHAPES[label]
-        src, ker = _k5_inputs(dev, gen, K5_SHAPES[label])
-        ms = _kernel_ms(lambda: adaptive_conv_fused(src, ker), "adaptive_conv_kernel")
+    shapes = {**K5_FEATUP_STAGES, "featup": K5_SHAPES["featup"], "jbu": K5_SHAPES["jbu"]}
+    for label, shape in shapes.items():
+        b, h, w, c, k = shape
+        src, ker = _k5_inputs(dev, gen, shape)
+        err = _check_close(f"K5 f32 {label}", adaptive_conv_fused(src, ker),
+                           adaptive_conv_fused_ref(src, ker), 2e-4)
+        ms = _kernel_ms(lambda: adaptive_conv_fused(src, ker), "adaptive_conv_")
+        queued = _queued_ms(lambda: adaptive_conv_fused(src, ker))
         wrapper = _time_ms(lambda: adaptive_conv_fused(src, ker), iters=20)
         plain = _time_ms(lambda: adaptive_conv_fused_ref(src, ker), iters=3)
         nbytes = 4 * (src.numel() + ker.numel() + b * h * w * c)
@@ -1164,11 +1225,11 @@ def _time_k5(dev, card, bw_peak):
         bound = max(nbytes / bw_peak, flops / F32_FLOPS) * 1e3
         by = "bytes" if nbytes / bw_peak > flops / F32_FLOPS else "operations"
         res[label] = dict(ms=ms, plain_ms=plain, library_ms=None, bound_ms=bound, bound_by=by,
-                          wrapper_ms=wrapper)
-        print(f"K5 f32 {label} src {tuple(src.shape)} k {k}: kernel {ms:.4f} ms (through the "
-              f"wrapper {wrapper:.4f} ms); plain {plain:.4f} ms; "
-              f"bound {bound:.4f} ms ({by}, {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP) "
-              f"({card})", flush=True)
+                          wrapper_ms=wrapper, queued_ms=queued)
+        print(f"K5 f32 {label} src {tuple(src.shape)} k {k}: kernel {ms:.4f} ms (queued "
+              f"{queued:.4f} ms, through the wrapper {wrapper:.4f} ms); plain {plain:.4f} ms; "
+              f"bound {bound:.4f} ms ({by}, {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP); "
+              f"{ms / bound:.2f}x the bound; max abs err {err:.2e} ({card})", flush=True)
         del src, ker
     return res
 
@@ -1840,24 +1901,44 @@ def phase_banded(dev, card):
     return launches, res
 
 
-def _hgmma_counts() -> dict:
-    """HGMMA (wgmma) instructions in the SASS of the libraries whose bf16
-    kernels run on the tensor cores (K1, K6, K2, K3/K4), from the cuobjdump
-    of the toolkit whose nvcc built them; none fails."""
+def _sass(name: str) -> str:
+    """The SASS of a kernel library, from the cuobjdump of the toolkit whose
+    nvcc built it."""
     from pathlib import Path
 
     from naf_torch.kernels import _build
 
     cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
+    return subprocess.run([str(cuobjdump), "-sass", str(_build._target(name))],
+                          capture_output=True, text=True, check=True).stdout
+
+
+def _hgmma_counts() -> dict:
+    """HGMMA (wgmma) instructions in the SASS of the libraries whose bf16
+    kernels run on the tensor cores (K1, K6, K2, K3/K4); none fails."""
     counts = {}
     for name in ("encoder_fused", "encoder_dual", "na2d_fused_q", "na2d_fused"):
-        sass = subprocess.run([str(cuobjdump), "-sass", str(_build._target(name))],
-                              capture_output=True, text=True, check=True).stdout
-        counts[name] = len(re.findall(r"\bHGMMA\b", sass))
+        counts[name] = len(re.findall(r"\bHGMMA\b", _sass(name)))
     print("HGMMA instructions (cuobjdump -sass): "
           + ", ".join(f"{k} {v}" for k, v in counts.items()), flush=True)
     if not all(counts.values()):
         raise AssertionError(f"a bf16 tensor-core library has no wgmma: {counts}")
+    return counts
+
+
+def _ldgsts_counts() -> dict:
+    """LDGSTS (cp.async) instructions in the SASS of K5's two routes; none
+    in either fails (the wide route's stages and the narrow route's weights
+    arrive by cp.async)."""
+    counts = dict.fromkeys(("wide", "narrow"), 0)
+    for fn in re.split(r"\n\s*Function : ", _sass("adaptive_conv"))[1:]:
+        for route in counts:
+            if f"adaptive_conv_{route}_kernel" in fn.split("\n", 1)[0]:
+                counts[route] += len(re.findall(r"\bLDGSTS\b", fn))
+    print("LDGSTS instructions (cuobjdump -sass): adaptive_conv "
+          + ", ".join(f"{k} {v}" for k, v in counts.items()), flush=True)
+    if not all(counts.values()):
+        raise AssertionError(f"a K5 route has no cp.async in its SASS: {counts}")
     return counts
 
 
@@ -1928,9 +2009,10 @@ def main() -> int:
         spills = [int(r) for r in re.findall(r"(\d+) bytes spill stores", log)]
         print(f"ptxas {name}: {len(regs)} kernels, {min(regs)}-{max(regs)} registers, "
               f"spill stores up to {max(spills, default=0)} bytes", flush=True)
-        if name in ("na2d_fused_q", "na2d_fused") and any(spills):
+        if name in ("na2d_fused_q", "na2d_fused", "adaptive_conv") and any(spills):
             raise AssertionError(f"ptxas spills in {name}'s kernels: {spills}")
     hgmma = _hgmma_counts()
+    ldgsts = _ldgsts_counts()
 
     k1_err = phase_k1(dev)
     k2_err, k2_cos = phase_k2(dev)
@@ -1989,13 +2071,19 @@ def main() -> int:
              launches_by_route={k[:-4]: v for k, v in train_launches["routes"].items()
                                 if "bwd" in k},
              hgmma=hgmma["na2d_fused"]),
-        # K5: launches from the baselines path (FeatUp 4, JBU 1), times at
-        # FeatUp's last stage and at JBU's shape
+        # K5: launches from the baselines path (FeatUp 4 wide, JBU 1
+        # narrow), times at FeatUp's last stage, its three earlier stages
+        # and JBU's shape
         dict(name="adaptive_conv_fused", route="cuda",
              source="naf_torch/kernels/csrc/adaptive_conv.cu",
              replaces="naf_tpu/kernels/adaptive_conv_fused.py:76", launches=base_launches["k5"],
              max_abs_err=k5_err, **timing["k5_featup"],
-             **{f"{k}_jbu": v for k, v in timing["k5_jbu"].items() if k != "library_ms"}),
+             **{f"{k}_{label.removeprefix('k5_').removeprefix('featup_')}": v
+                for label in timing if label.startswith("k5_") and label != "k5_featup"
+                for k, v in timing[label].items() if k not in ("library_ms", "bound_by")},
+             launches_by_route={"wide": base_launches["k5_wide"],
+                                "narrow": base_launches["k5_narrow"]},
+             ldgsts=ldgsts),
     ]
     kernels.append(
         # K6: launches from the dual-route main path (4 per forward), times at
