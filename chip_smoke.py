@@ -54,8 +54,10 @@ and narrow routes (none in either fails), then, each phase on its own lines:
    batch 4; random ViT-B/14 DINOv2 backbone; img_size 448; bf16) for 20
    steps on seeded synthetic images, with 8 K1, 1 K3 and 1 K4 launches per
    step (K3/K4 on their tensor-core kernels), finite losses, the last below
-   1.5x the first, a checkpoint written, reloaded and stepped once more, one
-   step with use_checkpointing (2 K3 launches), and one f32 step at batch 1
+   1.5x the first, a checkpoint written, reloaded and stepped once more, 4
+   steps through the device-stack route (two chunks of 2, the batches
+   gathered on the card), one step with use_checkpointing (2 K3 launches),
+   and one f32 step at batch 1
    held against the same step on the CPU (loss rtol 1e-3, gradient cosine >
    0.999); ms per step, a step's peak memory and a torch.profiler split of
    its device time;
@@ -120,6 +122,36 @@ Phases 9-12 run after phase 4:
    2048^2, ``band_rows`` 256, whose banded encoder turns on by itself (224
    K1: per stack 48 in the stats sweep, 32 in the keys sweep, 32 in the
    attention sweep; 8 K2), with a lower peak than the unbanded forward.
+
+Phases 13-15 run after phase 7, before phase 8, whose fresh processes also
+take phase 16:
+
+13. the denoiser's attention (``benchmarks/denoising.json``'s NAF: one head,
+   d 256, dv 3, k 15, ratio 1) at batch 1 and 448^2: K2, K3 and K4 against
+   their plain versions, f32 on the chunked CUDA-core kernels
+   (``csrc/na_fma.cuh``; 2e-4, gradients 2e-3) with every call asserted on
+   the "fma_chunked" route, bf16 on the chunked tensor-core kernels at d 256
+   (cosine > 0.9995); a shape whose box fits shared memory whole keeps the
+   route "fma";
+14. the denoising path at that configuration through the CLI's own
+   functions (``naf_torch.denoising``): the real shard's 60 training photos
+   kept on the card, 10 bf16 steps at batch 8, 448^2, sigma 0.5, in two
+   chunks of 5 (per step 8 K1, 1 K2, 1 K3 and K4 in bands, all on the tensor
+   cores), finite chunk losses; validation in f32 on 4 batches of 2 of the 9
+   validation photos (8 K1 and 1 chunked K2 per batch), PSNR and SSIM; the
+   bf16 step's time (CUDA events), device busy share (torch.profiler) and
+   peak memory, validation's time and peak; one f32 step at 64^2 (still dim
+   256, k 15) on the card against the same step on the CPU (loss rtol 1e-3,
+   gradient cosine > 0.999);
+15. IRCNN, REDNet and Restormer through the CLI's ``main`` with the same
+   command line (3 bf16 steps at batch 8, 448^2, one validation batch),
+   each step's time and peak, and one f32 forward against the model's f32
+   CPU copy (cosine > 0.999; Restormer at 128^2); they launch none of the
+   port's kernels;
+16. K2, K3 and K4 at the denoiser's attention, bf16 at batch 8 and f32 at
+   batch 2 (the chunked kernels): device time, plain version and bound; no
+   library call is feasible (masked SDPA would need a 200,704 x 200,704 mask
+   per image).
 
 Prints a JSON line of per-kernel numbers, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``. Exits non-zero on any failure,
@@ -750,6 +782,7 @@ def _all_counts() -> dict:
     k2_routes = naf_upsample_attention.route_launches
     return {"k1": gn_silu_conv_fused.launches, "k2": naf_upsample_attention.launches,
             "k2_wgmma": k2_routes["wgmma"], "k2_fma": k2_routes["fma"],
+            "k2_fma_chunked": k2_routes["fma_chunked"],
             "k3": cross_scale_na2d_fused.launches, "k4": cross_scale_na2d_fused.bwd_launches,
             "k5": adaptive_conv_fused.launches,
             "k5_narrow": adaptive_conv_fused.route_launches["narrow"],
@@ -825,7 +858,8 @@ def phase_train(dev, card, workdir):
     from naf_torch.kernels.na2d_fused import cross_scale_na2d_fused
 
     launches["routes"] = dict(cross_scale_na2d_fused.route_launches)
-    if launches["routes"] != {"wgmma": STEPS, "fma": 0, "wgmma_bwd": STEPS, "fma_bwd": 0}:
+    if launches["routes"] != {"wgmma": STEPS, "fma": 0, "fma_chunked": 0, "wgmma_bwd": STEPS,
+                              "fma_bwd": 0, "fma_chunked_bwd": 0}:
         raise AssertionError(f"K3/K4 routes over the bf16 steps: {launches['routes']}")
     loop_ms = [a.elapsed_time(b) for a, b in zip(events[1:], events[2:])]
     run = os.path.join(cfg.log_dir, "version_0")
@@ -854,6 +888,23 @@ def phase_train(dev, card, workdir):
     del resumed
     print(f"train: checkpoint ckpt_{STEPS}.pt reloaded and stepped once more, loss "
           f"{rec[0]['loss']:.5f}", flush=True)
+
+    # the chunked route: six images resident on the card, two chunks of two
+    # steps, each batch gathered there
+    stack = torch.from_numpy(next(_images(6, IMG_SIZE, 4))).to(dev)
+    cfg3 = TrainConfig(**{**cfg.__dict__, "train_steps": 4, "log_every": 2, "ckpt_every": 4})
+    before = _counts()
+    chunked = train_upsampler(NAF(**PROD_NAF), backbone, None, cfg3, device=dev,
+                              device_stack=stack)
+    delta = tuple(b - a for a, b in zip(before, _counts()))
+    rec = [json.loads(line) for line in
+           open(os.path.join(cfg.log_dir, "version_2", "metrics.jsonl"))]
+    if delta != (32, 4, 4) or [r["step"] for r in rec] != [1, 3] or \
+            not all(np.isfinite(r["loss"]) for r in rec):
+        raise AssertionError(f"device-stack training: launches (K1, K3, K4) {delta}, logs {rec}")
+    del chunked, stack
+    print("train: device-stack route, 4 steps in two chunks: launches K1 32, K3 4, K4 4; chunk "
+          "losses " + ", ".join(f"{r['loss']:.5f}" for r in rec), flush=True)
 
     # steady-state step time, a step's peak memory, the device split
     opt = make_optimizer(model, cfg)
@@ -897,12 +948,13 @@ def phase_train(dev, card, workdir):
                           losses=losses, **agree)
 
 
-def _profile_step(fn, reps=3):
+def _profile_step(fn, reps=3, names=("naf.backbone", "naf.forward", "naf.optimizer")):
     """torch.profiler split of one train step's device time: the kernels
-    launched under the trainer's naf.backbone / naf.forward / naf.optimizer
-    ranges (their CPU-side annotations), and the rest, launched from
-    autograd's device thread, as the backward. The device-side spans of the
-    ranges are not kernels and are left out of the sums."""
+    launched under the trainer's ranges ``names`` (their CPU-side
+    annotations; the upsampler's naf.backbone / naf.forward / naf.optimizer
+    by default), and the rest, launched from autograd's device thread, as
+    the backward. The device-side spans of the ranges are not kernels and are
+    left out of the sums."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -920,7 +972,6 @@ def _profile_step(fn, reps=3):
     total = sum(e.self_device_time_total for e in kernels) / reps / 1e3
     if not total > 0:
         raise AssertionError("torch.profiler recorded no device time")
-    names = ("naf.backbone", "naf.forward", "naf.optimizer")
     ranges = {e.key: e.device_time_total / reps / 1e3 for e in ev
               if e.device_type == DeviceType.CPU and e.key in names}
     split = {k.split(".")[1]: ranges.get(k, 0.0) for k in names}
@@ -1901,6 +1952,401 @@ def phase_banded(dev, card):
     return launches, res
 
 
+# The denoising path at the repository's own denoiser configuration:
+# benchmarks/denoising.json's "naf" entry (its overrides of config/model/
+# naf.yaml, batch 8 at 448^2 on the real shard's 60 training photos, sigma
+# 0.5), at the CLI's bf16 default, 10 steps in two chunks, validation in f32
+# on the 9 validation photos at batch 2
+SHARD = "benchmarks/real_shard/ade20k/images"
+DENOISE_OVERRIDES = [
+    "model=naf", "model.kernel_size=15", "model.heads_attn=1", "model.heads_rope=1",
+    "denoising.noise_params.std=0.5", "train_dataloader.batch_size=8", "train_steps=10",
+    "val_steps=4", "log_every=5", f"dataset.root={SHARD}/training",
+    f"dataset.val_root={SHARD}/validation"]
+DENOISE_STEPS, DENOISE_BATCH, DENOISE_VAL, DENOISE_K = 10, 8, 4, 15
+DENOISE_NAF = dict(dim=256, heads_attn=1, heads_rope=1, kernel_size=15, img_layers=2,
+                   rope_rescale=2.0)
+
+
+def _denoise_attention_inputs(dev, gen, b=1, size=448):
+    """The denoiser's attention at batch b: K2's inputs (a size^2 x 256
+    encoder output, its pooled RoPE'd keys on the same grid, the 3 value
+    channels, one RoPE head) and K3/K4's (q, k, v, dO), one head of d 256,
+    dv 3, k 15, ratio 1."""
+    from naf_torch.nn.rope import RoPE
+
+    rope = RoPE(256, 1).to(dev)
+    enc = torch.randn(b, size, size, 256, generator=gen, device=dev)
+    keys = rope.pooled(enc, (size, size), (size, size)).contiguous()
+    values = torch.rand(b, size, size, 3, generator=gen, device=dev)
+    sin_r, cos_r, sin_c, cos_c = rope.tables(size, size)
+    k2 = (enc, keys, values, torch.cat([cos_r, sin_r], -1), torch.cat([cos_c, sin_c], -1),
+          rope.d_head)
+    return k2, _k34_inputs(dev, gen, (b, size, size, 1, 256, 3))
+
+
+def _route_delta(routes, before):
+    return {k: v - before[k] for k, v in routes.items() if v != before[k]}
+
+
+def phase_denoise_kernels(dev):
+    """K2, K3 and K4 at the denoiser's attention (batch 1, 448^2, one head,
+    d 256, dv 3, k 15, ratio 1) against their plain versions: f32 on the
+    chunked CUDA-core kernels (2e-4, gradients 2e-3), each call asserted on
+    "fma_chunked"; bf16 on the chunked tensor-core kernels at d 256 (cosine
+    > 0.9995), asserted on "wgmma"; and a shape whose box fits whole,
+    asserted on its old route "fma"."""
+    from naf_torch.kernels import na2d_fused as na
+    from naf_torch.kernels.na2d_fused_q import _TILES as K2_TILES
+    from naf_torch.kernels.na2d_fused_q import _lib as k2_lib
+    from naf_torch.kernels.na2d_fused_q import (
+        _plan_k2,
+        naf_upsample_attention,
+        naf_upsample_attention_ref,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(12)
+    (enc, keys, values, rt, ct, dh), (q, k, v, g) = _denoise_attention_inputs(dev, gen)
+    kw = dict(num_heads=1, kernel_size=DENOISE_K)
+    r2, r34 = naf_upsample_attention.route_launches, na.cross_scale_na2d_fused.route_launches
+    res = {}
+    want = naf_upsample_attention_ref(enc, keys, values, rt, ct, dh, **kw)
+    for dt, route in ((torch.float32, "fma_chunked"), (torch.bfloat16, "wgmma")):
+        before = dict(r2)
+        got = naf_upsample_attention(enc.to(dt), keys.to(dt), values.to(dt), rt, ct, dh, **kw)
+        torch.cuda.synchronize()
+        if _route_delta(r2, before) != {route: 1} or got.shape != want.shape:
+            raise AssertionError(f"K2 {dt} at the denoiser's shape: routes "
+                                 f"{_route_delta(r2, before)}, shape {tuple(got.shape)}")
+        if dt == torch.float32:
+            res["k2_err"] = _check_close("K2 f32 chunked, denoiser", got, want, 2e-4)
+        else:
+            res["k2_cos"] = _check_cos("K2 bf16, denoiser", got.float(), want, 0.9995)
+        del got
+    del want
+    nb2 = _plan_k2(448, 448, 448, 448, DENOISE_K, 256, 16, str(dev))[4]
+    want = na.cross_scale_na2d_fused_ref(q, k, v, DENOISE_K)
+    want_g = na.cross_scale_na2d_fused_bwd_ref(q, k, v, g, DENOISE_K)
+    for dt, route in ((torch.float32, "fma_chunked"), (torch.bfloat16, "wgmma")):
+        before = dict(r34)
+        ins = [t.to(dt).requires_grad_() for t in (q, k, v)]
+        out = na.cross_scale_na2d_fused(*ins, DENOISE_K)
+        grads = torch.autograd.grad(out, ins, g.to(dt))
+        torch.cuda.synchronize()
+        delta = _route_delta(r34, before)
+        if set(delta) != {route, f"{route}_bwd"} or delta[route] != 1:
+            raise AssertionError(f"K3/K4 {dt} at the denoiser's shape: routes {delta}")
+        res[f"k4_launches_{route}"] = delta[f"{route}_bwd"]
+        if dt == torch.float32:
+            res["k3_err"] = _check_close("K3 f32 chunked, denoiser", out, want, 2e-4)
+            res["k4_err"] = max(_check_close(f"K4 f32 chunked, denoiser d{n}", a, w, 2e-3)
+                                for a, w, n in zip(grads, want_g, "qkv"))
+        else:
+            res["k3_cos"] = _check_cos("K3 bf16, denoiser", out.float(), want, 0.9995)
+            res["k4_cos"] = min(_check_cos(f"K4 bf16, denoiser d{n}", a.float(), w, 0.9995)
+                                for a, w, n in zip(grads, want_g, "qkv"))
+        del out, grads, ins
+    plans = {}
+    both = (na.SMEM_BUDGET, na.SMEM_MAX)
+    for name, lib, smem, tiles, limits, dv in (
+            ("k2", k2_lib, "naf_fused_q", K2_TILES, both, 3),
+            ("k3", na._lib, "naf_na_fwd", na._TILES, both, 4),
+            ("k4", na._lib, "naf_na_bwd", na._TILES, (na.SMEM_MAX,), 4)):
+        route, plan = na._plan_fma(lib, f"{smem}_smem", f"{smem}_chunk_smem", tiles, limits,
+                                   448, 448, 448, 448, DENOISE_K, 256, dv, str(dev))
+        plans[name] = dict(route=route, tile=plan[:2], box=plan[2:4], chunk=plan[8:])
+    nb34 = na._plan_tc(448, 448, 448, 448, DENOISE_K, 256, 16, True, str(dev))[4]
+    # a shape whose box fits whole keeps the whole-box kernels
+    qs, ks_, vs, gs = _k34_inputs(dev, gen, (1, 64, 16, 2, 32, 48))
+    before = dict(r34)
+    ins = [t.requires_grad_() for t in (qs, ks_, vs)]
+    torch.autograd.grad(na.cross_scale_na2d_fused(*ins, 9), ins, gs)
+    torch.cuda.synchronize()
+    if _route_delta(r34, before) != {"fma": 1, "fma_bwd": 1}:
+        raise AssertionError(f"a whole-box f32 shape left its route: {_route_delta(r34, before)}")
+    print(f"denoiser attention (1, 448^2, one head, d 256, dv 3, k 15, ratio 1): f32 chunked "
+          f"(CUDA cores) max_abs_err K2 {res['k2_err']:.3e} K3 {res['k3_err']:.3e} K4 "
+          f"{res['k4_err']:.3e} ({res['k4_launches_fma_chunked']} K4 launch(es)); plans "
+          + "; ".join(f"{n} tile {p['tile']} box {p['box']} chunks {p['chunk']}"
+                      for n, p in plans.items())
+          + f"; bf16 (wgmma, boxes of {nb2} / {nb34} cells in chunks of {na.TC_CHUNK}) cos K2 "
+          f"{res['k2_cos']:.6f} K3 {res['k3_cos']:.6f} K4 {res['k4_cos']:.6f} "
+          f"({res['k4_launches_wgmma']} K4 band(s)); (1, 64^2 <- 16^2, d 32) stays on fma",
+          flush=True)
+    res["plans"] = plans
+    del enc, keys, values, q, k, v, g, want, want_g
+    torch.cuda.empty_cache()
+    return res
+
+
+def _denoise_step(model, dcfg, use_bf16, noise_gen=None):
+    from naf_torch.evals.denoising import DenoisingLoss, NoiseGenerator
+    from naf_torch.train.denoise import make_denoise_step, make_optimizer
+
+    return make_denoise_step(
+        model, make_optimizer(model, dcfg),
+        DenoisingLoss(dcfg.l1_weight, dcfg.l2_weight, dcfg.ssim_weight),
+        noise_gen or NoiseGenerator(dcfg.noise_type), dcfg.noise_params,
+        (dcfg.img_size, dcfg.img_size), use_bf16)
+
+
+def phase_denoiser(dev, card, workdir):
+    """The denoiser at full width through the CLI's own functions: the real
+    shard device-cached, 10 bf16 steps in two chunks (8 K1, 1 K2, 1 K3 and
+    the K4 bands per step), validation in f32 (8 K1 and 1 chunked K2 per
+    batch), the step's time, busy share and peak, and one f32 step on the
+    card against the CPU at 64^2 (still d 256, k 15)."""
+    import numpy as np
+
+    from naf_torch.config import load_config
+    from naf_torch.denoising import build_denoiser, denoise_config, load_data
+    from naf_torch.kernels import na2d_fused as na
+    from naf_torch.kernels.na2d_fused_q import naf_upsample_attention
+    from naf_torch.train.denoise import train_denoiser, validate_denoiser
+    from naf_torch.train.trainer import step_generator
+
+    torch.backends.cudnn.allow_tf32 = True  # the bf16 run as users run it
+    run_dir = os.path.join(workdir, "denoise")
+    cfg = load_config("base_denoising", DENOISE_OVERRIDES + [f"run_dir={run_dir}"])
+    dcfg = denoise_config(cfg)
+    model = build_denoiser(cfg["model"])
+    t0 = time.perf_counter()
+    train_iter, stack, val_iter = load_data(cfg, dcfg, dev)
+    load_s = time.perf_counter() - t0
+    if stack is None or train_iter is not None or tuple(stack.shape) != (60, 448, 448, 3):
+        raise AssertionError("the real shard did not take the device-cache route")
+    torch.cuda.synchronize()
+    _zero_counts()
+    t0 = time.perf_counter()
+    model = train_denoiser(model, None, dcfg, device_stack=stack, batch_size=DENOISE_BATCH,
+                           device=dev)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    c, r2 = _all_counts(), dict(naf_upsample_attention.route_launches)
+    r34 = dict(na.cross_scale_na2d_fused.route_launches)
+    bands = c["k4"] // DENOISE_STEPS
+    want = {"k1": 8 * DENOISE_STEPS, "k2": DENOISE_STEPS, "k3": DENOISE_STEPS}
+    if ({k: c[k] for k in want} != want or r2["wgmma"] != DENOISE_STEPS
+            or r34["wgmma"] != DENOISE_STEPS or r34["wgmma_bwd"] != c["k4"]
+            or c["k4"] != bands * DENOISE_STEPS or bands < 1 or c["k5"] or c["k6"]):
+        raise AssertionError(f"denoiser launches over {DENOISE_STEPS} steps: {c}, K2 routes "
+                             f"{r2}, K3/K4 routes {r34}")
+    launches = dict(k1=c["k1"], k2=c["k2"], k3=c["k3"], k4=c["k4"], k4_bands=bands,
+                    routes={"k2": r2, "k34": r34})
+    recs = [json.loads(line) for line in open(os.path.join(run_dir, "metrics.jsonl"))]
+    losses = [r["loss"] for r in recs]
+    if [r["step"] for r in recs] != [4, 9] or not all(np.isfinite(losses)):
+        raise AssertionError(f"chunk logs {recs}")
+    torch.backends.cudnn.allow_tf32 = False
+    _zero_counts()
+    t0 = time.perf_counter()
+    metrics = validate_denoiser(model, val_iter, dcfg,
+                                viz_path=os.path.join(run_dir, "val_panel.png"))
+    torch.cuda.synchronize()
+    val_s = time.perf_counter() - t0
+    c, r2 = _all_counts(), dict(naf_upsample_attention.route_launches)
+    if (c["k1"], c["k2"], r2["fma_chunked"]) != (8 * DENOISE_VAL, DENOISE_VAL, DENOISE_VAL) or \
+            not (np.isfinite(metrics["psnr"]) and 0 < metrics["ssim"] <= 1):
+        raise AssertionError(f"validation: launches {c}, K2 routes {r2}, metrics {metrics}")
+    launches.update(val_k1=c["k1"], val_k2_fma_chunked=r2["fma_chunked"])
+    print(f"denoiser (NAF dim 256, 1 + 1 heads, k 15; batch {DENOISE_BATCH}, 448^2, real shard "
+          f"device-cached in {load_s:.1f} s): {DENOISE_STEPS} bf16 steps in two chunks in "
+          f"{train_s:.1f} s (first steps build plans), chunk losses "
+          + ", ".join(f"{x:.5f}" for x in losses)
+          + f"; launches per step K1 8, K2 1 (wgmma), K3 1 (wgmma), K4 {bands} bands (wgmma); "
+          f"validation f32 on {DENOISE_VAL} batches of 2 in {val_s:.2f} s: PSNR "
+          f"{metrics['psnr']:.3f} dB, SSIM {metrics['ssim']:.4f}, K1 8 and K2 1 "
+          f"(fma_chunked) per batch ({card})", flush=True)
+
+    # the bf16 step's time (CUDA events), busy share (torch.profiler) and peak
+    torch.backends.cudnn.allow_tf32 = True
+    step = _denoise_step(model, dcfg, True)
+    clean = stack[:DENOISE_BATCH]
+    call = lambda: step(clean, step_generator(0, 0, dev))  # noqa: E731
+    step_ms = _time_ms(call, iters=5)
+    peak = _peak_mib(call)
+    split = _profile_step(call, reps=2, names=("denoise.forward", "denoise.optimizer"))
+    busy = split["device_total"] / step_ms
+    print(f"denoiser step bf16 batch {DENOISE_BATCH} 448^2: {step_ms:.3f} ms/step (5 steps, "
+          f"CUDA events), peak {peak:.1f} MiB above what the step starts with; device time "
+          + "; ".join(f"{k} {v:.3f} ms" for k, v in split.items()
+                      if k not in ("top", "kernels", "wall"))
+          + f"; device busy {100 * busy:.1f}% of the step ({card})", flush=True)
+    print("  top kernels: " + "; ".join(f"{k[:50]} {v:.3f} ms" for k, v in split["top"]),
+          flush=True)
+    # validation's time per batch of 2 in f32, and its peak
+    torch.backends.cudnn.allow_tf32 = False
+    vbatch = stack[:2]
+    val_call = lambda: validate_denoiser(model, iter([vbatch]), dcfg)  # noqa: E731
+    val_ms = _time_ms(val_call, iters=3)
+    val_peak = _peak_mib(val_call)
+    del step, clean, model, stack, val_iter
+    torch.cuda.empty_cache()
+    agree = _denoise_card_vs_cpu(dev, dcfg)
+    split.pop("top")
+    return launches, dict(step_ms=step_ms, peak_mib=peak, busy=busy, split=split,
+                          chunk_losses=losses, train_s=train_s, val_s=val_s,
+                          val_ms_per_batch=val_ms, val_peak_mib=val_peak,
+                          psnr=metrics["psnr"], ssim=metrics["ssim"], **agree)
+
+
+def _denoise_card_vs_cpu(dev, dcfg, size=64):
+    """One f32 denoiser step at full width (dim 256, one head, k 15) at
+    size^2 on the card (K1, chunked K2 forward; K3 and K4 in the twin's
+    backward) and on the CPU (plain code), from the same weights, image and
+    noise: the loss and the flattened gradients."""
+    import dataclasses
+
+    from naf_torch.api import _init_weights
+    from naf_torch.models.naf import NAF
+
+    src = NAF(**DENOISE_NAF)
+    _init_weights(src, 6)
+    gen = torch.Generator().manual_seed(7)
+    clean = torch.rand(1, size, size, 3, generator=gen)
+    noise = 0.5 * torch.randn(1, size, size, 3, generator=gen)
+    cfg = dataclasses.replace(dcfg, img_size=size, use_bf16=False)
+    res = {}
+    for where in ("cpu", dev):
+        model = NAF(**DENOISE_NAF)
+        model.load_state_dict(src.state_dict())
+        model.to(where)
+        n = noise.to(where)
+        step = _denoise_step(model, cfg, False, noise_gen=lambda _g, img, _p: img + n)
+        before = _all_counts()
+        loss = float(step(clean.to(where), None))
+        delta = {k: v - before[k] for k, v in _all_counts().items() if v != before[k]}
+        res[str(where)] = (loss, torch.cat([p.grad.flatten().cpu() for p in model.parameters()]),
+                           delta)
+    (l_cpu, g_cpu, d_cpu), (l_gpu, g_gpu, d_gpu) = res["cpu"], res[str(dev)]
+    if d_cpu or (d_gpu.get("k1"), d_gpu.get("k2_fma_chunked"), d_gpu.get("k3")) != (8, 1, 1) \
+            or not d_gpu.get("k4"):
+        raise AssertionError(f"launches: CPU step {d_cpu}, card step {d_gpu}")
+    if not abs(l_gpu - l_cpu) <= 1e-3 * abs(l_cpu):
+        raise AssertionError(f"card f32 denoiser loss {l_gpu} vs CPU {l_cpu}")
+    c = _check_cos("card vs CPU f32 denoiser gradients", g_gpu, g_cpu, 0.999)
+    print(f"denoiser: f32 step at {size}^2 (dim 256, k 15), card vs CPU: loss {l_gpu:.6f} vs "
+          f"{l_cpu:.6f} (rel {abs(l_gpu - l_cpu) / abs(l_cpu):.2e}); gradient cosine {c:.6f}; "
+          f"card launches {d_gpu}", flush=True)
+    return dict(cpu_loss=l_cpu, card_loss=l_gpu, grad_cos=c)
+
+
+def phase_restorers(dev, card, workdir):
+    """IRCNN, REDNet and Restormer through the CLI's ``main`` with the
+    denoiser's command line (3 bf16 steps at 448^2, batch 8, on the
+    device-cached real shard, one validation batch), then each step's time
+    and peak, and one f32 forward on the card against the model's f32 CPU
+    copy (cosine > 0.999; Restormer at 128^2 to keep the CPU short). The
+    restorers launch none of the port's kernels."""
+    import copy
+
+    from naf_torch.api import _init_weights
+    from naf_torch.config import load_config
+    from naf_torch.denoising import build_denoiser, denoise_config, main
+    from naf_torch.train.trainer import step_generator
+
+    res = {}
+    for name in ("ircnn", "rednet", "restormer"):
+        argv = [f"model={name}" if a == "model=naf" else a for a in DENOISE_OVERRIDES]
+        argv += ["train_steps=3", "val_steps=1", f"run_dir={os.path.join(workdir, name)}"]
+        torch.backends.cudnn.allow_tf32 = True
+        _zero_counts()
+        metrics = main(argv)
+        torch.cuda.synchronize()
+        if any(_all_counts().values()):
+            raise AssertionError(f"{name} launched port kernels: {_all_counts()}")
+        cfg = load_config("base_denoising", argv)
+        dcfg = denoise_config(cfg)
+        model = build_denoiser(cfg["model"])
+        _init_weights(model, 0)
+        cpu_model = copy.deepcopy(model)
+        model.to(dev)
+        step = _denoise_step(model, dcfg, True)
+        clean = torch.rand(DENOISE_BATCH, 448, 448, 3, generator=torch.Generator(
+            device=dev).manual_seed(8), device=dev)
+        call = lambda: step(clean, step_generator(0, 0, dev))  # noqa: E731
+        step_ms = _time_ms(call, iters=3)
+        peak = _peak_mib(call)
+        del step, clean
+        torch.cuda.empty_cache()
+        torch.backends.cudnn.allow_tf32 = False
+        size = 128 if name == "restormer" else 448
+        x = torch.rand(1, size, size, 3, generator=torch.Generator().manual_seed(9))
+        cpu_model.load_state_dict(model.state_dict())
+        with torch.no_grad():
+            want = cpu_model(x, x, (size, size))
+            got = model(x.to(dev), x.to(dev), (size, size)).cpu()
+        cos = _check_cos(f"{name} f32 card vs CPU", got, want, 0.999)
+        res[name] = dict(step_ms=step_ms, peak_mib=peak, psnr=metrics["psnr"],
+                         ssim=metrics["ssim"], cos_cpu=cos)
+        print(f"{name}: CLI 3 bf16 steps, batch {DENOISE_BATCH}, 448^2 + validation (PSNR "
+              f"{metrics['psnr']:.3f} dB, SSIM {metrics['ssim']:.4f}); step {step_ms:.3f} "
+              f"ms (3 steps, CUDA events), peak {peak:.1f} MiB; f32 forward at {size}^2 vs "
+              f"its CPU copy cos {cos:.6f} ({card})", flush=True)
+        del model, cpu_model
+        torch.cuda.empty_cache()
+    return res
+
+
+def _time_denoise_kernels(dev, card):
+    """K2, K3 and K4 at the denoiser's attention: bf16 at the training batch
+    (8, the chunked tensor-core kernels) and f32 at the validation batch (2,
+    the chunked CUDA-core kernels; K3 and K4 there are the f32 step's):
+    device time (torch.profiler), the plain version, the bound. No library
+    call computes this attention: masked SDPA over every key would need a
+    200,704 x 200,704 mask per image (40 GB as bool)."""
+    from naf_torch.kernels import na2d_fused as na
+    from naf_torch.kernels.na2d_fused_q import naf_upsample_attention, naf_upsample_attention_ref
+
+    bw_peak, fl_peak = _peaks(card)
+    gen = torch.Generator(device=dev).manual_seed(13)
+    kw = dict(num_heads=1, kernel_size=DENOISE_K)
+    d, dv, slots = 256, 3, DENOISE_K ** 2
+    res = {}
+    for dt, b, names in (
+            (torch.bfloat16, DENOISE_BATCH, ("fused_q_wgmma_chunked", "na_fwd_wgmma_chunked",
+                                             ("na_bwd_wgmma_chunked", "na_bwd_reduce"))),
+            (torch.float32, 2, ("fused_q_chunked_kernel", "na_fwd_chunked_kernel",
+                                ("na_bwd_chunked_kernel", "na_bwd_reduce")))):
+        (enc, keys, values, rt, ct, dh), (q, k, v, g) = _denoise_attention_inputs(dev, gen, b)
+        enc, keys, values, q, k, v, g = (t.to(dt) for t in (enc, keys, values, q, k, v, g))
+        sc = d ** -0.5
+        esz = 2 if dt == torch.bfloat16 else 4
+        peak = fl_peak if dt == torch.bfloat16 else F32_FLOPS
+        pix = b * 448 * 448
+
+        def bound(nbytes, flops):
+            return (max(nbytes / bw_peak, flops / peak) * 1e3,
+                    "bytes" if nbytes / bw_peak > flops / peak else "operations")
+
+        calls = {
+            "k2": (lambda: naf_upsample_attention(enc, keys, values, rt, ct, dh, **kw),
+                   lambda: naf_upsample_attention_ref(enc, keys, values, rt, ct, dh, **kw),
+                   bound(esz * pix * (2 * d + 2 * dv) + 4 * (rt.numel() + ct.numel()),
+                         2 * pix * slots * (d + dv))),
+            "k3": (lambda: na._launch_fwd(q, k, v, DENOISE_K, sc),
+                   lambda: na.cross_scale_na2d_fused_ref(q, k, v, DENOISE_K),
+                   bound(esz * pix * 2 * (d + dv), 2 * pix * slots * (d + dv))),
+            "k4": (lambda: na._launch_bwd(q, k, v, g, DENOISE_K, sc),
+                   lambda: na.cross_scale_na2d_fused_bwd_ref(q, k, v, g, DENOISE_K),
+                   bound(esz * pix * (2 * d + dv + 2 * (d + dv)),
+                         2 * pix * slots * (3 * d + 2 * dv))),
+        }
+        tag = "bf16" if dt == torch.bfloat16 else "f32"
+        for (name, (fn, plain_fn, (b_ms, b_by))), match in zip(calls.items(), names):
+            ms = _kernel_ms(fn, match, reps=3)
+            plain = _time_ms(plain_fn, iters=1)
+            res[f"{name}_denoise_{tag}"] = dict(ms=ms, plain_ms=plain, bound_ms=b_ms,
+                                                bound_by=b_by, library_ms=None, batch=b)
+            print(f"{name.upper()} {tag} denoiser attention ({b}, 448^2, d 256, dv 3, k 15, "
+                  f"ratio 1), chunked: kernel {ms:.4f} ms; plain {plain:.4f} ms; bound "
+                  f"{b_ms:.4f} ms ({b_by}); library: none feasible (masked SDPA needs a "
+                  f"200,704 x 200,704 mask) ({card})", flush=True)
+        del enc, keys, values, q, k, v, g
+        torch.cuda.empty_cache()
+    return res
+
+
 def _sass(name: str) -> str:
     """The SASS of a kernel library, from the cuobjdump of the toolkit whose
     nvcc built it."""
@@ -1958,7 +2404,7 @@ def _timing_rest(dev, card) -> dict:
 
 
 # the parts of phase 8, each run in a process of its own
-TIMING_PARTS = {"k2": _timing_k2, "rest": _timing_rest}
+TIMING_PARTS = {"k2": _timing_k2, "rest": _timing_rest, "denoise": _time_denoise_kernels}
 
 
 def _timing_child(part: str, path: str) -> int:
@@ -2027,6 +2473,10 @@ def main() -> int:
         train_launches, train = phase_train(dev, card, work)
     k5_err = phase_k5(dev)
     base_launches, baselines, k5_splits = phase_baselines(dev, card)
+    den_kernels = phase_denoise_kernels(dev)
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(os.path.abspath(__file__))) as work:
+        den_launches, denoiser = phase_denoiser(dev, card, work)
+        restorers = phase_restorers(dev, card, work)
     timing = _phase_timing_fresh()
 
     k1, k1b = timing["k1_k3"], timing["k1_k1"]
@@ -2098,6 +2548,20 @@ def main() -> int:
     kernels[2].update({"launches_anyup": base_launches["k3"],
                        **{f"{k}_anyup": v for k, v in timing["k3_anyup"].items()},
                        **{f"{k}_banded": v for k, v in k3_band.items()}})
+    # the denoising path (phases 13-16): launches from its 10 bf16 steps
+    # (K4 in bands) and its f32 validation (K2 on fma_chunked), the chunked
+    # kernels' errors and cosines at its attention, and their times
+    for i, name in ((1, "k2"), (2, "k3"), (3, "k4")):
+        kernels[i].update({
+            "launches_denoise": den_launches[name],
+            "max_abs_err_f32_chunked": den_kernels[f"{name}_err"],
+            "cos_bf16_d256": den_kernels[f"{name}_cos"],
+            **{f"{k}_denoise_{tag}": v for tag in ("bf16", "f32")
+               for k, v in timing[f"{name}_denoise_{tag}"].items()}})
+        kernels[i]["kernel_route"]["float32"] = ("fma; fma_chunked (csrc/na_fma.cuh) where no "
+                                                 "tile's whole box fits shared memory")
+    kernels[1]["launches_denoise_val_fma_chunked"] = den_launches["val_k2_fma_chunked"]
+    kernels[3]["denoise_bands_per_step"] = den_launches["k4_bands"]
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
              "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{**{k: kd[k] for k in order}, **kd} for kd in kernels]
@@ -2108,7 +2572,8 @@ def main() -> int:
                       "train": {k: train[k] for k in train_keys},
                       "baselines": baselines, "k5_splits": k5_splits, "dual_route": dual,
                       "banded": banded, "naf_dim96_cos_cpu": c96, "k2_grad": timing["k2_grad"],
-                      "card": card}))
+                      "denoiser": denoiser, "denoise_plans": den_kernels["plans"],
+                      "restorers": restorers, "card": card}))
     print(_card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -4,18 +4,23 @@ Counterpart of ``naf_tpu/convert.py`` in the other direction: it turns the
 ``image_encoder`` tree of ``naf_tpu.models.NAF`` (a nested dict of arrays,
 read with ``np.asarray``) into a state dict with the reference names, which
 ``naf_torch.models.NAF.load_state_dict`` takes; and the trees of the
-baselines FeatUp, JBU, AnyUp and JAFAR into their port modules' state dicts.
+baselines FeatUp, JBU, AnyUp and JAFAR and of the restorers IRCNN, REDNet
+and Restormer into their port modules' state dicts.
 
 Layout conversions: conv kernel (kh, kw, I, O) -> weight (O, I, kh, kw);
 GroupNorm / LayerNorm scale/bias and RMSNorm scale -> weight/bias;
 DenseGeneral((n, d)) kernel (in, n, d) -> Linear weight (n*d, in);
 ``image_encoder.rope.periods`` from ``rope_base`` (the JAX package recomputes
-it instead of storing it).
+it instead of storing it); flax's ``ConvTranspose`` kernel (kh, kw, I, O),
+which it applies unflipped, -> the ConvTranspose2d weight (I, O, kh, kw)
+flipped in both spatial axes (``naf_torch.models.restorers``).
 """
 
 from __future__ import annotations
 
 from typing import Mapping
+
+import re
 
 import numpy as np
 import torch
@@ -29,6 +34,9 @@ __all__ = [
     "jbu_state_dict_from_jax",
     "anyup_state_dict_from_jax",
     "jafar_state_dict_from_jax",
+    "ircnn_state_dict_from_jax",
+    "rednet_state_dict_from_jax",
+    "restormer_state_dict_from_jax",
 ]
 
 
@@ -143,4 +151,55 @@ def state_dict_from_jax_params(params: Mapping, img_layers: int = 2,
     dim = 2 * out["image_encoder.encoder.0.weight"].shape[0]
     out["image_encoder.rope.periods"] = torch.from_numpy(
         rope_periods(dim // heads_rope, rope_base))
+    return out
+
+
+def ircnn_state_dict_from_jax(params: Mapping) -> dict:
+    """``naf_tpu`` IRCNN params (``conv0`` .. ``conv6``) ->
+    ``naf_torch.models.restorers.IRCNN`` state dict."""
+    out: dict = {}
+    for i in range(7):
+        _flax_conv(params[f"conv{i}"], f"convs.{i}", out)
+    return out
+
+
+def rednet_state_dict_from_jax(params: Mapping) -> dict:
+    """``naf_tpu`` REDNet params -> ``naf_torch.models.restorers.REDNet``
+    state dict: the stride-1 ``deconv{i}`` as convs (flax applies their
+    kernels unflipped), the last one's kernel flipped into a ConvTranspose2d
+    weight."""
+    layers = sum(1 for name in params if name.startswith("conv"))
+    out: dict = {}
+    for i in range(layers):
+        _flax_conv(params[f"conv{i}"], f"convs.{i}", out)
+    for i in range(layers - 1):
+        _flax_conv(params[f"deconv{i}"], f"deconvs.{i}", out)
+    last = params[f"deconv{layers - 1}"]
+    out[f"deconvs.{layers - 1}.weight"] = _t(
+        np.flip(np.asarray(last["kernel"]), (0, 1)).transpose(2, 3, 0, 1))
+    out[f"deconvs.{layers - 1}.bias"] = _t(last["bias"])
+    return out
+
+
+_BLOCK_LIST = re.compile(r"^(enc1|enc2|enc3|latent|dec3|dec2|dec1|refine)_(\d+)$")
+
+
+def restormer_state_dict_from_jax(params: Mapping) -> dict:
+    """``naf_tpu`` Restormer params -> ``naf_torch.models.restormer.Restormer``
+    state dict: block ``enc1_0`` -> ``enc1.0``; a conv ``kernel`` (kh, kw, I,
+    O), depthwise ones (kh, kw, 1, C) included, -> ``weight`` (O, I, kh, kw);
+    norms' weight and bias and MDTA's temperature as they are."""
+    out: dict = {}
+
+    def walk(tree: Mapping, path: list):
+        for name, sub in tree.items():
+            if isinstance(sub, Mapping):
+                m = _BLOCK_LIST.match(name)
+                walk(sub, path + ([m.group(1), m.group(2)] if m else [name]))
+            elif name == "kernel":
+                out[".".join(path + ["weight"])] = _t(np.asarray(sub).transpose(3, 2, 0, 1))
+            else:
+                out[".".join(path + [name])] = _t(sub)
+
+    walk(params, [])
     return out

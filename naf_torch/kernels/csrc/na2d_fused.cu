@@ -26,7 +26,9 @@
 // run every product on wgmma, so that the arithmetic stays under the bytes;
 // what they add to the bound is K4's box partials (below) and the K/V box
 // each 64-query tile reads again from L2. The f32 kernels stay on the CUDA
-// cores, a warp per query (TF32 would miss the f32 tolerance of 2e-4).
+// cores, a warp per query (TF32 would miss the f32 tolerance of 2e-4);
+// where no tile's whole K/V box fits shared memory they walk it in chunks
+// (na_fma.cuh: a statistics pass, then exact P chunk by chunk).
 //
 // Design of the f32 kernels:
 //  - a block per (b, tile of tqh x tqw queries, head); 8 warps;
@@ -63,39 +65,16 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include "na_fma.cuh"
 #include "na_tc.cuh"
 
 namespace {
 
-constexpr int WARPS = 8;
-constexpr int THREADS = 32 * WARPS;
-
-__device__ __forceinline__ float dot4(const float* __restrict__ a, const float* __restrict__ b,
-                                      int n4) {
-  const float4* a4 = reinterpret_cast<const float4*>(a);
-  const float4* b4 = reinterpret_cast<const float4*>(b);
-  float acc = 0.f;
-  for (int c = 0; c < n4; ++c) {
-    const float4 x = a4[c], y = b4[c];
-    acc = fmaf(x.x, y.x, acc);
-    acc = fmaf(x.y, y.y, acc);
-    acc = fmaf(x.z, y.z, acc);
-    acc = fmaf(x.w, y.w, acc);
-  }
-  return acc;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
+using nafma::dot4;
+using nafma::THREADS;
+using nafma::warp_max;
+using nafma::warp_sum;
+using nafma::WARPS;
 
 struct Geometry {
   int Hq, Wq, hk, wk, n, d, dv, ks, tqh, tqw, urh, urw, tiles_w;
@@ -288,6 +267,210 @@ na_bwd_tile_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int e = threadIdx.x; e < ncell * dc; e += THREADS) dst[e] = acc[e];
 }
 
+// ------------------------------------------ K3 forward, f32, chunked box
+// Boxes that do not fit shared memory whole (na_fma.cuh): the box in chunks
+// of cr x cc cells, a statistics pass and an output pass over them.
+// Shared memory: the chunk's K [cells][d + 4] and V [cells][dv + 4], per warp
+// the query row and its slots' logits and cells, per query of the tile
+// {m, l}.
+// one block per SM (the planner sizes the chunk to shared memory): 102-128
+// registers a thread, without the spills of ptxas's default of 64
+__global__ void __launch_bounds__(THREADS, 1)
+na_fwd_chunked_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, const int* __restrict__ idx_h,
+                      const int* __restrict__ idx_w, const int* __restrict__ row_lo,
+                      const int* __restrict__ col_lo, float* __restrict__ out, float scale,
+                      Geometry g, int cr, int cc) {
+  const int kk2 = g.ks * g.ks;
+  const int nc = cr * cc;
+  const int nq = g.tqh * g.tqw;
+  const int dpad = g.d + 4, dvpad = g.dv + 4;
+  extern __shared__ __align__(16) float smem[];
+  float* Ks = smem;                                       // [nc][d + 4]
+  float* Vs = Ks + nc * dpad;                             // [nc][dv + 4]
+  float* qs = Vs + nc * dvpad;                            // [WARPS][d]
+  float* ps = qs + WARPS * g.d;                           // [WARPS][kk2]
+  int* slots = reinterpret_cast<int*>(ps + WARPS * kk2);  // [WARPS][kk2]
+  float* stats = reinterpret_cast<float*>(slots + WARPS * kk2);  // [nq][2]
+
+  const int tr = blockIdx.x / g.tiles_w, tc = blockIdx.x % g.tiles_w;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int r0 = row_lo[tr], c0 = col_lo[tc];
+  for (int e = threadIdx.x; e < nq; e += THREADS) {
+    stats[2 * e] = -CUDART_INF_F;
+    stats[2 * e + 1] = 0.f;
+  }
+  float* qrow = qs + warp * g.d;
+  float* p = ps + warp * kk2;
+  int* sl = slots + warp * kk2;
+  const int chunks = nafma::chunk_count(g.urh, g.urw, cr, cc);
+  for (int pass = 0; pass < 2; ++pass) {
+    if (pass == 1)  // out rows start at zero, each added to by its own lanes
+      for (int qi = warp; qi < nq; qi += WARPS) {
+        const int y = tr * g.tqh + qi / g.tqw, x = tc * g.tqw + qi % g.tqw;
+        if (y >= g.Hq || x >= g.Wq) continue;
+        float* o = out + (((size_t)b * g.Hq + y) * g.Wq + x) * (g.n * g.dv) + h * g.dv;
+        for (int c = lane; c < g.dv; c += 32) o[c] = 0.f;
+      }
+    for (int ci = 0; ci < chunks; ++ci) {
+      const nafma::Chunk ch = nafma::chunk_at(ci, r0, c0, g.urh, g.urw, cr, cc);
+      __syncthreads();  // every warp is done with the last chunk
+      nafma::stage_chunk(k, v, Ks, Vs, scale, g.hk, g.wk, g.n, g.d, g.dv, dpad, dvpad, b, h, ch);
+      __syncthreads();
+      for (int qi = warp; qi < nq; qi += WARPS) {
+        const int y = tr * g.tqh + qi / g.tqw, x = tc * g.tqw + qi % g.tqw;
+        if (y >= g.Hq || x >= g.Wq) continue;  // uniform across the warp
+        const size_t pix = ((size_t)b * g.Hq + y) * g.Wq + x;
+        const float* qg = q + pix * (g.n * g.d) + h * g.d;
+        for (int c = lane; c < g.d; c += 32) qrow[c] = qg[c];
+        __syncwarp();
+        float mx;
+        const int ns = nafma::chunk_logits(qrow, Ks, dpad, g.d, idx_h + y * g.ks,
+                                           idx_w + x * g.ks, g.ks, ch, p, sl, &mx);
+        if (ns > 0) {
+          float* st = stats + 2 * qi;
+          if (pass == 0) {
+            nafma::online_stats(p, nullptr, ns, mx, st);
+          } else {
+            nafma::chunk_probs(p, ns, st);
+            nafma::add_weighted_rows(p, sl, ns, Vs, dvpad, g.dv,
+                                     out + pix * (g.n * g.dv) + h * g.dv);
+          }
+        }
+        __syncwarp();  // p, sl and qrow are free for the warp's next query
+      }
+    }
+  }
+}
+
+// -------------------------------------- K4 backward, f32, chunked box
+// Pass 1: {m, l, dacc} per query (dacc / l = delta = rowsum(P * dP)). Pass
+// 2, per chunk: rounds of 8 queries as the whole-box kernel takes them (P,
+// dP, dL and dq += dL . K_chunk per warp; then each thread owns channels of
+// the chunk's dk | dv accumulator, summing the round's slots in a fixed
+// order), and the chunk's cells of the box partials written at their box
+// positions, so the reduce pass is the whole-box kernel's.
+// one block per SM (the planner sizes the chunk to shared memory): 102-128
+// registers a thread, without the spills of ptxas's default of 64
+__global__ void __launch_bounds__(THREADS, 1)
+na_bwd_chunked_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, const float* __restrict__ dout,
+                      const int* __restrict__ idx_h, const int* __restrict__ idx_w,
+                      const int* __restrict__ row_lo, const int* __restrict__ col_lo,
+                      float* __restrict__ dq, float* __restrict__ partial, float scale, Geometry g,
+                      int cr, int cc) {
+  const int kk2 = g.ks * g.ks;
+  const int nc = cr * cc;
+  const int nq = g.tqh * g.tqw;
+  const int ncell = g.urh * g.urw;
+  const int dpad = g.d + 4, dvpad = g.dv + 4;
+  const int dc = g.d + g.dv;
+  extern __shared__ __align__(16) float smem[];
+  float* Ks = smem;                            // [nc][d + 4]
+  float* Vs = Ks + nc * dpad;                  // [nc][dv + 4]
+  float* acc = Vs + nc * dvpad;                // [nc][d + dv]: dk | dv of the chunk
+  float* qs = acc + nc * dc;                   // [WARPS][d]
+  float* gs = qs + WARPS * g.d;                // [WARPS][dv]
+  float* ps = gs + WARPS * g.dv;               // [WARPS][kk2]  logits, then P
+  float* ls = ps + WARPS * kk2;                // [WARPS][kk2]  dP, then dL
+  int* slots = reinterpret_cast<int*>(ls + WARPS * kk2);  // [WARPS][kk2]
+  int* nslots = slots + WARPS * kk2;                       // [WARPS]
+  float* stats = reinterpret_cast<float*>(nslots + WARPS);  // [nq][3]
+
+  const int tr = blockIdx.x / g.tiles_w, tc = blockIdx.x % g.tiles_w;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int r0 = row_lo[tr], c0 = col_lo[tc];
+  for (int e = threadIdx.x; e < nq; e += THREADS) {
+    stats[3 * e] = -CUDART_INF_F;
+    stats[3 * e + 1] = 0.f;
+    stats[3 * e + 2] = 0.f;
+  }
+  float* qrow = qs + warp * g.d;
+  float* grow = gs + warp * g.dv;
+  float* p = ps + warp * kk2;
+  float* dl = ls + warp * kk2;
+  int* sl = slots + warp * kk2;
+  float* dst = partial + (((size_t)b * gridDim.x + blockIdx.x) * g.n + h) * ((size_t)ncell * dc);
+  const int chunks = nafma::chunk_count(g.urh, g.urw, cr, cc);
+  for (int pass = 0; pass < 2; ++pass) {
+    if (pass == 1)  // dq rows start at zero, each added to by its own lanes
+      for (int qi = warp; qi < nq; qi += WARPS) {
+        const int y = tr * g.tqh + qi / g.tqw, x = tc * g.tqw + qi % g.tqw;
+        if (y >= g.Hq || x >= g.Wq) continue;
+        float* dqg = dq + (((size_t)b * g.Hq + y) * g.Wq + x) * (g.n * g.d) + h * g.d;
+        for (int c = lane; c < g.d; c += 32) dqg[c] = 0.f;
+      }
+    for (int ci = 0; ci < chunks; ++ci) {
+      const nafma::Chunk ch = nafma::chunk_at(ci, r0, c0, g.urh, g.urw, cr, cc);
+      const int cells = ch.rows * ch.cols;
+      __syncthreads();  // every thread is done with the last chunk
+      nafma::stage_chunk(k, v, Ks, Vs, scale, g.hk, g.wk, g.n, g.d, g.dv, dpad, dvpad, b, h, ch);
+      if (pass == 1)
+        for (int e = threadIdx.x; e < cells * dc; e += THREADS) acc[e] = 0.f;
+      __syncthreads();
+      for (int q0 = 0; q0 < nq; q0 += WARPS) {
+        // phase A: one query per warp -> logits, dP (pass 1: statistics;
+        // pass 2: P, dL and dq)
+        const int qi = q0 + warp;
+        const int y = tr * g.tqh + qi / g.tqw, x = tc * g.tqw + qi % g.tqw;
+        int ns = 0;
+        if (qi < nq && y < g.Hq && x < g.Wq) {  // uniform across the warp
+          const size_t pix = ((size_t)b * g.Hq + y) * g.Wq + x;
+          const float* qg = q + pix * (g.n * g.d) + h * g.d;
+          const float* gg = dout + pix * (g.n * g.dv) + h * g.dv;
+          for (int c = lane; c < g.d; c += 32) qrow[c] = qg[c];
+          for (int c = lane; c < g.dv; c += 32) grow[c] = gg[c];
+          __syncwarp();
+          float mx;
+          ns = nafma::chunk_logits(qrow, Ks, dpad, g.d, idx_h + y * g.ks, idx_w + x * g.ks,
+                                   g.ks, ch, p, sl, &mx);
+          for (int i = lane; i < ns; i += 32)
+            dl[i] = nafma::dot4(grow, Vs + sl[i] * dvpad, g.dv / 4);
+          __syncwarp();
+          float* st = stats + 3 * qi;
+          if (ns > 0 && pass == 0) {
+            nafma::online_stats(p, dl, ns, mx, st);
+          } else if (ns > 0) {
+            nafma::chunk_probs(p, ns, st);
+            const float delta = st[2] / st[1];
+            for (int i = lane; i < ns; i += 32) dl[i] = p[i] * (dl[i] - delta);
+            __syncwarp();
+            nafma::add_weighted_rows(dl, sl, ns, Ks, dpad, g.d,
+                                     dq + pix * (g.n * g.d) + h * g.d);
+          }
+        }
+        if (pass == 0) {
+          __syncwarp();  // the warp's rows are free for its next query
+          continue;
+        }
+        if (lane == 0) nslots[warp] = ns;
+        __syncthreads();
+        // phase B: each thread owns channels of the chunk's dk | dv; fixed
+        // order over the round's queries and their slots
+        for (int chn = threadIdx.x; chn < dc; chn += THREADS) {
+          const bool is_k = chn < g.d;
+          for (int w = 0; w < WARPS; ++w) {
+            const int n_w = nslots[w];
+            const float val = is_k ? scale * qs[w * g.d + chn] : gs[w * g.dv + chn - g.d];
+            const float* coef = (is_k ? ls : ps) + w * kk2;
+            const int* wc = slots + w * kk2;
+            for (int j = 0; j < n_w; ++j) acc[wc[j] * dc + chn] += coef[j] * val;
+          }
+        }
+        __syncthreads();
+      }
+      if (pass == 1)  // the chunk's cells of the box partials, at their box positions
+        for (int e = threadIdx.x; e < cells * dc; e += THREADS) {
+          const int cell = e / dc, c = e % dc;
+          const int box = (ch.r0 - r0 + cell / ch.cols) * g.urw + ch.c0 - c0 + cell % ch.cols;
+          dst[(size_t)box * dc + c] = acc[e];
+        }
+    }
+  }
+}
+
 // ------------------------------------------------- K4 backward, reduce pass
 // [first, last) of the tiles on one axis whose boxes [lo, lo + ext) hold
 // cell c: box origins never decrease along an axis, so they are a range.
@@ -386,6 +569,17 @@ size_t bwd_smem(int d, int dv, int ks, int urh, int urw) {
           3 * WARPS * ks * ks) * sizeof(float);
 }
 
+// The chunked kernels at nc cells a chunk and nq queries a tile.
+size_t fwd_chunk_smem(int d, int dv, int ks, int nq, int nc) {
+  return ((size_t)nc * (d + 4) + (size_t)nc * (dv + 4) + WARPS * d + 2 * WARPS * ks * ks +
+          2 * nq) * sizeof(float);
+}
+
+size_t bwd_chunk_smem(int d, int dv, int ks, int nq, int nc) {
+  return ((size_t)nc * (d + 4) + (size_t)nc * (dv + 4) + (size_t)nc * (d + dv) +
+          WARPS * (d + dv) + 3 * WARPS * ks * ks + WARPS + 3 * nq) * sizeof(float);
+}
+
 Geometry make_geometry(int Hq, int Wq, int hk, int wk, int n, int d, int dv, int ks, int tqh,
                        int tqw, int urh, int urw) {
   return Geometry{Hq, Wq, hk, wk, n, d, dv, ks, tqh, tqw, urh, urw, (Wq + tqw - 1) / tqw};
@@ -432,7 +626,7 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, const void* 
 cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* dout,
                        const void* idx_h, const void* idx_w, const void* row_lo,
                        const void* col_lo, void* dq, void* dk, void* dv, void* partial,
-                       float scale, int B, const Geometry& g, cudaStream_t stream) {
+                       float scale, int B, const Geometry& g, bool add, cudaStream_t stream) {
   const size_t smem = bwd_smem(g.d, g.dv, g.ks, g.urh, g.urw);
   cudaError_t err = cudaFuncSetAttribute(na_bwd_tile_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -446,6 +640,42 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* 
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   return launch_reduce<float>(partial, row_lo, col_lo, dk, dv, B, g, stream);
+}
+
+cudaError_t launch_fwd_chunked(const void* q, const void* k, const void* v, const void* idx_h,
+                               const void* idx_w, const void* row_lo, const void* col_lo,
+                               void* out, float scale, int B, const Geometry& g, int cr, int cc,
+                               cudaStream_t stream) {
+  const size_t smem = fwd_chunk_smem(g.d, g.dv, g.ks, g.tqh * g.tqw, cr * cc);
+  cudaError_t err = cudaFuncSetAttribute(na_fwd_chunked_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  na_fwd_chunked_kernel<<<dim3(tiles_of(g), g.n, B), THREADS, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const int*>(idx_h), static_cast<const int*>(idx_w),
+      static_cast<const int*>(row_lo), static_cast<const int*>(col_lo),
+      static_cast<float*>(out), scale, g, cr, cc);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_bwd_chunked(const void* q, const void* k, const void* v, const void* dout,
+                               const void* idx_h, const void* idx_w, const void* row_lo,
+                               const void* col_lo, void* dq, void* dk, void* dv, void* partial,
+                               float scale, int B, const Geometry& g, int cr, int cc, bool add,
+                               cudaStream_t stream) {
+  const size_t smem = bwd_chunk_smem(g.d, g.dv, g.ks, g.tqh * g.tqw, cr * cc);
+  cudaError_t err = cudaFuncSetAttribute(na_bwd_chunked_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  na_bwd_chunked_kernel<<<dim3(tiles_of(g), g.n, B), THREADS, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(dout), static_cast<const int*>(idx_h),
+      static_cast<const int*>(idx_w), static_cast<const int*>(row_lo),
+      static_cast<const int*>(col_lo), static_cast<float*>(dq), static_cast<float*>(partial),
+      scale, g, cr, cc);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return launch_reduce<float>(partial, row_lo, col_lo, dk, dv, B, g, stream, add);
 }
 
 template <int NB>
@@ -572,14 +802,52 @@ int naf_na_fwd_fma(const void* q, const void* k, const void* v, const void* idx_
 }
 
 // partial: (B, tiles, n, urh*urw, d+dv) f32 scratch, written before read.
+// add_f32 = 1: the sums added to what dk, dv hold (a band of query rows at
+// a time, q / dO / dq the band's rows).
 int naf_na_bwd_fma(const void* q, const void* k, const void* v, const void* dout,
                    const void* idx_h, const void* idx_w, const void* row_lo, const void* col_lo,
                    void* dq, void* dk, void* dv_out, void* partial, float scale, int B, int Hq,
                    int Wq, int hk, int wk, int n, int d, int dv, int ks, int tqh, int tqw, int urh,
-                   int urw, void* stream) {
+                   int urw, int add_f32, void* stream) {
   const Geometry g = make_geometry(Hq, Wq, hk, wk, n, d, dv, ks, tqh, tqw, urh, urw);
   return launch_bwd(q, k, v, dout, idx_h, idx_w, row_lo, col_lo, dq, dk, dv_out, partial, scale,
-                    B, g, static_cast<cudaStream_t>(stream));
+                    B, g, add_f32 != 0, static_cast<cudaStream_t>(stream));
+}
+
+// Dynamic shared memory one block of the chunked f32 K3 / K4 needs at nq
+// queries a tile and nc cells a chunk.
+long long naf_na_fwd_chunk_smem(int d, int dv, int ks, int nq, int nc) {
+  return (long long)fwd_chunk_smem(d, dv, ks, nq, nc);
+}
+
+long long naf_na_bwd_chunk_smem(int d, int dv, int ks, int nq, int nc) {
+  return (long long)bwd_chunk_smem(d, dv, ks, nq, nc);
+}
+
+// f32, chunked (boxes that do not fit shared memory whole): the box in
+// chunks of at most cr x cc cells. Shape rules as naf_na_fwd_fma's.
+int naf_na_fwd_fma_chunked(const void* q, const void* k, const void* v, const void* idx_h,
+                           const void* idx_w, const void* row_lo, const void* col_lo, void* out,
+                           float scale, int B, int Hq, int Wq, int hk, int wk, int n, int d,
+                           int dv, int ks, int tqh, int tqw, int urh, int urw, int cr, int cc,
+                           void* stream) {
+  if (cr < 1 || cc < 1 || cr > urh || cc > urw) return cudaErrorInvalidValue;
+  const Geometry g = make_geometry(Hq, Wq, hk, wk, n, d, dv, ks, tqh, tqw, urh, urw);
+  return launch_fwd_chunked(q, k, v, idx_h, idx_w, row_lo, col_lo, out, scale, B, g, cr, cc,
+                            static_cast<cudaStream_t>(stream));
+}
+
+// partial and add_f32 as naf_na_bwd_fma's.
+int naf_na_bwd_fma_chunked(const void* q, const void* k, const void* v, const void* dout,
+                           const void* idx_h, const void* idx_w, const void* row_lo,
+                           const void* col_lo, void* dq, void* dk, void* dv_out, void* partial,
+                           float scale, int B, int Hq, int Wq, int hk, int wk, int n, int d,
+                           int dv, int ks, int tqh, int tqw, int urh, int urw, int cr, int cc,
+                           int add_f32, void* stream) {
+  if (cr < 1 || cc < 1 || cr > urh || cc > urw) return cudaErrorInvalidValue;
+  const Geometry g = make_geometry(Hq, Wq, hk, wk, n, d, dv, ks, tqh, tqw, urh, urw);
+  return launch_bwd_chunked(q, k, v, dout, idx_h, idx_w, row_lo, col_lo, dq, dk, dv_out, partial,
+                            scale, B, g, cr, cc, add_f32 != 0, static_cast<cudaStream_t>(stream));
 }
 
 // bf16, on the tensor cores (na_tc.cuh). cnt_h (Hq, urh) / cnt_w (Wq, urw)

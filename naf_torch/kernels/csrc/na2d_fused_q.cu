@@ -66,6 +66,7 @@
 
 #include <climits>
 
+#include "na_fma.cuh"
 #include "na_tc.cuh"
 
 namespace {
@@ -268,10 +269,44 @@ cudaError_t launch_tc(const QSrc& src, const bf16* k, const bf16* v, const uint8
 
 // ------------------------------------------------------ f32, CUDA cores
 
-constexpr int WARPS = 8;
-constexpr int THREADS = 32 * WARPS;
+using nafma::THREADS;
+using nafma::WARPS;
 
 __device__ __forceinline__ int round4(int v) { return (v + 3) & ~3; }
+
+// Steps 1-2 for one warp: the pooled, RoPE'd query of head h at global row
+// y (enc's input rows from enc_row0 on of an hi_full-row grid) and column x
+// into q[0, d) (shared), lanes over channels; complete after the __syncwarp.
+__device__ __forceinline__ void pooled_query(const float* __restrict__ encb,
+                                             const float* __restrict__ rows_tab,
+                                             const float* __restrict__ cols_tab, int hi_full,
+                                             int enc_row0, int Hq, int wi, int Wq, int C, int d,
+                                             int dh, int h, int y, int x, float* q) {
+  const int half = dh / 2;
+  const int iy0 = (int)(((long long)y * hi_full) / Hq) - enc_row0;
+  const int iy1 = (int)(((long long)(y + 1) * hi_full + Hq - 1) / Hq) - enc_row0;
+  const int ix0 = (int)(((long long)x * wi) / Wq);
+  const int ix1 = (int)(((long long)(x + 1) * wi + Wq - 1) / Wq);
+  const float inv = 1.f / (float)((iy1 - iy0) * (ix1 - ix0));
+  const float* rt = rows_tab + (size_t)y * 2 * C;
+  const float* ct = cols_tab + (size_t)x * 2 * C;
+  for (int c = threadIdx.x & 31; c < d; c += 32) {
+    const int gc = h * d + c;
+    const bool first = (gc % dh) < half;
+    const int pc = first ? gc + half : gc - half;
+    float xv = 0.f, xr = 0.f;
+    for (int iy = iy0; iy < iy1; ++iy)
+      for (int ix = ix0; ix < ix1; ++ix) {
+        const float* px = encb + ((size_t)iy * wi + ix) * C;
+        xv += px[gc];
+        xr += px[pc];
+      }
+    xv *= inv;
+    xr *= first ? -inv : inv;
+    q[c] = xv * (rt[gc] * ct[gc]) + xr * (rt[C + gc] * ct[C + gc]);
+  }
+  __syncwarp();
+}
 
 __global__ void __launch_bounds__(THREADS)
 fused_q_kernel(const float* __restrict__ enc, const float* __restrict__ keys,
@@ -319,7 +354,6 @@ fused_q_kernel(const float* __restrict__ enc, const float* __restrict__ keys,
   float* q = qs + warp * d;
   float* p = ps + warp * kk2;
   int* sl = slots + warp * kk2;
-  const int half = dh / 2;
   const float* encb = enc + (size_t)b * hi * wi * C;
 
   for (int qi = warp; qi < tqh * tqw; qi += WARPS) {
@@ -329,29 +363,7 @@ fused_q_kernel(const float* __restrict__ enc, const float* __restrict__ keys,
     const int y = y0 + yl;                  // global query row
 
     // 1-2: pooled, RoPE'd query for this head
-    const int iy0 = (int)(((long long)y * hi_full) / Hq) - enc_row0;
-    const int iy1 = (int)(((long long)(y + 1) * hi_full + Hq - 1) / Hq) - enc_row0;
-    const int ix0 = (int)(((long long)x * wi) / Wq);
-    const int ix1 = (int)(((long long)(x + 1) * wi + Wq - 1) / Wq);
-    const float inv = 1.f / (float)((iy1 - iy0) * (ix1 - ix0));
-    const float* rt = rows_tab + (size_t)y * 2 * C;
-    const float* ct = cols_tab + (size_t)x * 2 * C;
-    for (int c = lane; c < d; c += 32) {
-      const int gc = h * d + c;
-      const bool first = (gc % dh) < half;
-      const int pc = first ? gc + half : gc - half;
-      float xv = 0.f, xr = 0.f;
-      for (int iy = iy0; iy < iy1; ++iy)
-        for (int ix = ix0; ix < ix1; ++ix) {
-          const float* px = encb + ((size_t)iy * wi + ix) * C;
-          xv += px[gc];
-          xr += px[pc];
-        }
-      xv *= inv;
-      xr *= first ? -inv : inv;
-      q[c] = xv * (rt[gc] * ct[gc]) + xr * (rt[C + gc] * ct[C + gc]);
-    }
-    __syncwarp();
+    pooled_query(encb, rows_tab, cols_tab, hi_full, enc_row0, Hq, wi, Wq, C, d, dh, h, y, x, q);
 
     // 3: logits over the k x k window
     float m = -CUDART_INF_F;
@@ -393,6 +405,95 @@ fused_q_kernel(const float* __restrict__ enc, const float* __restrict__ keys,
     }
     __syncwarp();
   }
+}
+
+// f32, chunked (na_fma.cuh): boxes that do not fit shared memory whole, in
+// chunks of cr x cc cells, a statistics pass and an output pass; each query
+// is pooled and RoPE'd again per chunk (from L1/L2: one read of its pool
+// window and tables against k^2 d multiply-adds). Shared memory: the
+// chunk's K [cells][d + 4] and V [cells][dv], per warp the query and its
+// slots' logits and cells, per query of the tile {m, l}.
+// one block per SM (the planner sizes the chunk to shared memory): 102-128
+// registers a thread, without the spills of ptxas's default of 64
+__global__ void __launch_bounds__(THREADS, 1)
+fused_q_chunked_kernel(const float* __restrict__ enc, const float* __restrict__ keys,
+                       const float* __restrict__ values, const float* __restrict__ rows_tab,
+                       const float* __restrict__ cols_tab, const int* __restrict__ idx_h,
+                       const int* __restrict__ idx_w, const int* __restrict__ row_lo,
+                       const int* __restrict__ col_lo, float* __restrict__ out, int hi, int wi,
+                       int hi_full, int enc_row0, int Hq, int Wq, int y0, int band_h,
+                       int out_rows, int out_row0, int hk, int wk, int C, int n, int Cv, int ks,
+                       int dh, int tqh, int tqw, int urh, int urw, int tiles_w, int cr, int cc) {
+  const int d = C / n;
+  const int dv = Cv / n;
+  const int kk2 = ks * ks;
+  const int dpad = d + 4;
+  const int nc = cr * cc;
+  const int nq = tqh * tqw;
+  extern __shared__ __align__(16) float smem[];
+  float* Ks = smem;                           // [nc][dpad]
+  float* Vs = Ks + nc * dpad;                 // [nc][dv]
+  float* qs = Vs + round4(nc * dv);           // [WARPS][d]
+  float* ps = qs + WARPS * d;                 // [WARPS][kk2]
+  int* slots = reinterpret_cast<int*>(ps + WARPS * kk2);         // [WARPS][kk2]
+  float* stats = reinterpret_cast<float*>(slots + WARPS * kk2);  // [nq][2]
+
+  const int tr = blockIdx.x / tiles_w, tc = blockIdx.x % tiles_w;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int r0 = row_lo[tr], c0 = col_lo[tc];
+  for (int e = threadIdx.x; e < nq; e += THREADS) {
+    stats[2 * e] = -CUDART_INF_F;
+    stats[2 * e + 1] = 0.f;
+  }
+  float* q = qs + warp * d;
+  float* p = ps + warp * kk2;
+  int* sl = slots + warp * kk2;
+  const float* encb = enc + (size_t)b * hi * wi * C;
+  auto out_row = [&](int y, int x) {
+    return out + (((size_t)b * out_rows + y - out_row0) * Wq + x) * Cv + h * dv;
+  };
+  const int chunks = nafma::chunk_count(urh, urw, cr, cc);
+  for (int pass = 0; pass < 2; ++pass) {
+    if (pass == 1)  // out rows start at zero, each added to by its own lanes
+      for (int qi = warp; qi < nq; qi += WARPS) {
+        const int yl = tr * tqh + qi / tqw, x = tc * tqw + qi % tqw;
+        if (yl >= band_h || x >= Wq) continue;
+        float* o = out_row(y0 + yl, x);
+        for (int c = lane; c < dv; c += 32) o[c] = 0.f;
+      }
+    for (int ci = 0; ci < chunks; ++ci) {
+      const nafma::Chunk ch = nafma::chunk_at(ci, r0, c0, urh, urw, cr, cc);
+      __syncthreads();  // every warp is done with the last chunk
+      nafma::stage_chunk(keys, values, Ks, Vs, 1.f, hk, wk, n, d, dv, dpad, dv, b, h, ch);
+      __syncthreads();
+      for (int qi = warp; qi < nq; qi += WARPS) {
+        const int yl = tr * tqh + qi / tqw, x = tc * tqw + qi % tqw;
+        if (yl >= band_h || x >= Wq) continue;  // uniform across the warp
+        const int y = y0 + yl;
+        pooled_query(encb, rows_tab, cols_tab, hi_full, enc_row0, Hq, wi, Wq, C, d, dh, h, y, x,
+                     q);
+        float mx;
+        const int ns = nafma::chunk_logits(q, Ks, dpad, d, idx_h + yl * ks, idx_w + x * ks, ks,
+                                           ch, p, sl, &mx);
+        if (ns > 0) {
+          float* st = stats + 2 * qi;
+          if (pass == 0) {
+            nafma::online_stats(p, nullptr, ns, mx, st);
+          } else {
+            nafma::chunk_probs(p, ns, st);
+            nafma::add_weighted_rows(p, sl, ns, Vs, dv, dv, out_row(y, x));
+          }
+        }
+        __syncwarp();  // q, p and sl are free for the warp's next query
+      }
+    }
+  }
+}
+
+size_t chunk_smem_bytes(int d, int dv, int ks, int nq, int nc) {
+  return (size_t)(nc * (d + 4) + ((nc * dv + 3) & ~3) + WARPS * d + 2 * WARPS * ks * ks +
+                  2 * nq) * sizeof(float);
 }
 
 size_t smem_bytes(int d, int dv, int ks, int urh, int urw) {
@@ -442,6 +543,39 @@ int naf_fused_q_fma(const void* enc, const void* keys, const void* values, const
       static_cast<const int*>(idx_w), static_cast<const int*>(row_lo),
       static_cast<const int*>(col_lo), static_cast<float*>(out), hi, wi, hi_full, enc_row0, Hq,
       Wq, y0, band_h, out_rows, out_row0, hk, wk, C, n, Cv, ks, dh, tqh, tqw, urh, urw, tiles_w);
+  return cudaGetLastError();
+}
+
+// Dynamic shared memory one block of the chunked f32 kernel needs at nq
+// queries a tile and nc cells a chunk.
+long long naf_fused_q_chunk_smem(int d, int dv, int ks, int nq, int nc) {
+  return (long long)chunk_smem_bytes(d, dv, ks, nq, nc);
+}
+
+// f32, chunked: arguments and shape rules as naf_fused_q_fma's, the box in
+// chunks of at most cr x cc cells.
+int naf_fused_q_fma_chunked(const void* enc, const void* keys, const void* values,
+                            const void* rows_tab, const void* cols_tab, const void* idx_h,
+                            const void* idx_w, const void* row_lo, const void* col_lo, void* out,
+                            int B, int hi, int wi, int hi_full, int enc_row0, int Hq, int Wq,
+                            int y0, int band_h, int out_rows, int out_row0, int hk, int wk, int C,
+                            int n, int Cv, int ks, int dh, int tqh, int tqw, int urh, int urw,
+                            int cr, int cc, void* stream) {
+  if (cr < 1 || cc < 1 || cr > urh || cc > urw) return cudaErrorInvalidValue;
+  const int tiles_w = (Wq + tqw - 1) / tqw;
+  const int tiles = ((band_h + tqh - 1) / tqh) * tiles_w;
+  const size_t smem = chunk_smem_bytes(C / n, Cv / n, ks, tqh * tqw, cr * cc);
+  cudaError_t err = cudaFuncSetAttribute(fused_q_chunked_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  fused_q_chunked_kernel<<<dim3(tiles, n, B), THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(enc), static_cast<const float*>(keys),
+      static_cast<const float*>(values), static_cast<const float*>(rows_tab),
+      static_cast<const float*>(cols_tab), static_cast<const int*>(idx_h),
+      static_cast<const int*>(idx_w), static_cast<const int*>(row_lo),
+      static_cast<const int*>(col_lo), static_cast<float*>(out), hi, wi, hi_full, enc_row0, Hq,
+      Wq, y0, band_h, out_rows, out_row0, hk, wk, C, n, Cv, ks, dh, tqh, tqw, urh, urw, tiles_w,
+      cr, cc);
   return cudaGetLastError();
 }
 

@@ -16,12 +16,14 @@ come from the host-built tables of ``ops.window`` (natten's rule), so the
 kernels take every ratio the oracle takes; for each tile of queries the host
 also finds the box of LR cells its windows touch, which the kernels stage in
 shared memory. The f32 route shrinks its tile until the box fits
-(:func:`_plan`); the bf16 route takes 64-query tiles, the shape with the
-smallest box (boxes above 192 cells in chunks of 128), and per-axis tables
-of how often each box cell occurs in each query's window
-(:func:`_plan_tc`). Either raises where nothing fits. K4's bf16 launches
-run in bands of query rows where their f32 box partials would exceed
-``PARTIAL_BUDGET`` (:func:`_bwd_bands`).
+(:func:`_plan`), and where no tile's whole box fits (one head of d 256 at
+k 15) takes the chunked kernels, which walk the box in chunks of whole box
+rows ("fma_chunked", :func:`_plan_fma`); the bf16 route takes 64-query
+tiles, the shape with the smallest box (boxes above 192 cells in chunks of
+128), and per-axis tables of how often each box cell occurs in each
+query's window (:func:`_plan_tc`). Either raises where nothing fits. K4's bf16 and
+chunked f32 launches run in bands of query rows where their f32 box
+partials would exceed ``PARTIAL_BUDGET`` (:func:`_bwd_bands`).
 
 Widths the kernels do not take are padded, not refused: d and dv get zero
 channels up to the route's multiple (:func:`_pad_heads`). Zero channels of q
@@ -194,6 +196,31 @@ def _box(idx: np.ndarray, tile: int, lr: int):
     return np.minimum(lo, lr - ext).astype(np.int32), ext
 
 
+def _tables(hq, wq, hk, wk, ks, rows=None):
+    """int32 window tables (the rows [y0, y1) of idx_h where ``rows``)."""
+    idx_h = cross_scale_lr_indices(hq, hk, ks).astype(np.int32)
+    if rows is not None:
+        idx_h = idx_h[rows[0] : rows[1]]
+    return idx_h, cross_scale_lr_indices(wq, wk, ks).astype(np.int32)
+
+
+def _fit_tile(smem_bytes, tiles, limits, idx_h, idx_w, hk, wk, ks, d, dv):
+    """(tqh, tqw, urh, urw, row_lo, col_lo) of the first tile of ``tiles``
+    whose whole box needs at most a limit of ``limits`` bytes (the limits
+    in order), or None."""
+    for limit in limits:
+        for tqh, tqw in tiles:
+            row_lo, urh = _box(idx_h, tqh, hk)
+            col_lo, urw = _box(idx_w, tqw, wk)
+            if smem_bytes(d, dv, ks, urh, urw) <= limit:
+                return tqh, tqw, urh, urw, row_lo, col_lo
+    return None
+
+
+def _on(device, *arrays):
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in arrays)
+
+
 @functools.lru_cache(maxsize=64)
 def _plan(lib, smem, tiles, limits, hq, wq, hk, wk, ks, d, dv, device, rows=None):
     """Tile size, K/V box and window tables (on ``device``) of one kernel at
@@ -203,19 +230,54 @@ def _plan(lib, smem, tiles, limits, hq, wq, hk, wk, ks, d, dv, device, rows=None
     gives the bytes: ``smem(d, dv, ks, box_rows, box_cols)``. ``rows``
     (y0, y1) plans a band: the row tables and boxes are those of the global
     query rows [y0, y1) of the hq-row grid."""
-    smem_bytes = getattr(lib(), smem)
-    idx_h = cross_scale_lr_indices(hq, hk, ks).astype(np.int32)
-    if rows is not None:
-        idx_h = idx_h[rows[0] : rows[1]]
-    idx_w = cross_scale_lr_indices(wq, wk, ks).astype(np.int32)
-    for limit in limits:
-        for tqh, tqw in tiles:
-            row_lo, urh = _box(idx_h, tqh, hk)
-            col_lo, urw = _box(idx_w, tqw, wk)
-            if smem_bytes(d, dv, ks, urh, urw) <= limit:
-                to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
-                return (tqh, tqw, urh, urw, to(idx_h), to(idx_w), to(row_lo), to(col_lo))
-    raise ValueError(f"no query tile fits shared memory by {smem} for d={d}, dv={dv}, k={ks}")
+    idx_h, idx_w = _tables(hq, wq, hk, wk, ks, rows)
+    fit = _fit_tile(getattr(lib(), smem), tiles, limits, idx_h, idx_w, hk, wk, ks, d, dv)
+    if fit is None:
+        raise ValueError(f"no query tile fits shared memory by {smem} for d={d}, dv={dv}, k={ks}")
+    tqh, tqw, urh, urw, row_lo, col_lo = fit
+    return (tqh, tqw, urh, urw, *_on(device, idx_h, idx_w, row_lo, col_lo))
+
+
+def _chunk_shape(fits, urh: int, urw: int):
+    """(rows, cols) of the largest chunk of a urh x urw box for which
+    ``fits(cells)`` holds (monotone in cells): whole box rows where one row
+    fits, else part of one row; None where not even one cell fits."""
+    if fits(urw):
+        return max(r for r in range(1, urh + 1) if fits(r * urw)), urw
+    cols = [c for c in range(1, urw) if fits(c)]
+    return (1, max(cols)) if cols else None
+
+
+@functools.lru_cache(maxsize=64)
+def _plan_fma(lib, smem, chunk_smem, tiles, limits, hq, wq, hk, wk, ks, d, dv, device,
+              rows=None):
+    """The f32 route's plan: ("fma", :func:`_plan`'s plan) where some tile's
+    whole box fits; else the chunked kernels, ("fma_chunked", the plan +
+    (cr, cc)): the first tile of ``tiles`` whose box takes chunks of whole
+    box rows under the last limit (``chunk_smem(d, dv, ks, queries,
+    cells)`` bytes), else the last tile that takes a part of a row. Raises
+    where not even a chunk of one cell fits."""
+    idx_h, idx_w = _tables(hq, wq, hk, wk, ks, rows)
+    lib_ = lib()
+    if _fit_tile(getattr(lib_, smem), tiles, limits, idx_h, idx_w, hk, wk, ks, d, dv):
+        return "fma", _plan(lib, smem, tiles, limits, hq, wq, hk, wk, ks, d, dv, device, rows)
+    chunk_bytes = getattr(lib_, chunk_smem)
+    fit = chunk = None
+    for tqh, tqw in tiles:
+        row_lo, urh = _box(idx_h, tqh, hk)
+        col_lo, urw = _box(idx_w, tqw, wk)
+        shape = _chunk_shape(
+            lambda nc: chunk_bytes(d, dv, ks, tqh * tqw, nc) <= limits[-1], urh, urw)
+        if shape is not None:
+            fit, chunk = (tqh, tqw, urh, urw, row_lo, col_lo), shape
+            if shape[1] == urw:
+                break
+    if fit is None:
+        raise ValueError(f"no query tile fits shared memory by {chunk_smem}, not even in "
+                         f"chunks of one cell, for d={d}, dv={dv}, k={ks}")
+    tqh, tqw, urh, urw, row_lo, col_lo = fit
+    return "fma_chunked", (tqh, tqw, urh, urw, *_on(device, idx_h, idx_w, row_lo, col_lo),
+                           *chunk)
 
 
 def _tc_smem(d: int, dv: int, nb: int, backward: bool) -> int:
@@ -295,18 +357,21 @@ def _plan_tc(hq, wq, hk, wk, ks, d, dv, backward, device, rows=None):
 def _lib():
     lib = _build.load("na2d_fused")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    for fn in (lib.naf_na_fwd_smem, lib.naf_na_bwd_smem):
+    for fn in (lib.naf_na_fwd_smem, lib.naf_na_bwd_smem, lib.naf_na_fwd_chunk_smem,
+               lib.naf_na_bwd_chunk_smem):
         fn.argtypes = [i32] * 5
         fn.restype = ctypes.c_longlong
     lib.naf_na_tc_smem.argtypes = [i32] * 4
     lib.naf_na_tc_smem.restype = ctypes.c_longlong
     f32 = ctypes.c_float
     lib.naf_na_fwd_fma.argtypes = [ptr] * 8 + [f32] + [i32] * 13 + [ptr]
-    lib.naf_na_bwd_fma.argtypes = [ptr] * 12 + [f32] + [i32] * 13 + [ptr]
+    lib.naf_na_bwd_fma.argtypes = [ptr] * 12 + [f32] + [i32] * 14 + [ptr]
+    lib.naf_na_fwd_fma_chunked.argtypes = [ptr] * 8 + [f32] + [i32] * 15 + [ptr]
+    lib.naf_na_bwd_fma_chunked.argtypes = [ptr] * 12 + [f32] + [i32] * 16 + [ptr]
     lib.naf_na_fwd_wgmma.argtypes = [ptr] * 8 + [f32] + [i32] * 13 + [ptr]
     lib.naf_na_bwd_wgmma.argtypes = [ptr] * 12 + [f32] + [i32] * 14 + [ptr]
-    for fn in (lib.naf_na_fwd_fma, lib.naf_na_bwd_fma, lib.naf_na_fwd_wgmma,
-               lib.naf_na_bwd_wgmma):
+    for fn in (lib.naf_na_fwd_fma, lib.naf_na_bwd_fma, lib.naf_na_fwd_fma_chunked,
+               lib.naf_na_bwd_fma_chunked, lib.naf_na_fwd_wgmma, lib.naf_na_bwd_wgmma):
         fn.restype = i32
     return lib
 
@@ -357,13 +422,14 @@ def _launch_fwd(q, k, v, kernel_size, scale, row0: int = 0, full_hq=None):
                 col_lo.data_ptr(), out.data_ptr(), scale, b, hq, wq, hk, wk, n, dp, dvp, tqh,
                 tqw, urh, urw, nb, stream)
         else:
-            tqh, tqw, urh, urw, idx_h, idx_w, row_lo, col_lo = _plan(
-                _lib, "naf_na_fwd_smem", _TILES, (SMEM_BUDGET, SMEM_MAX), full, wq, hk, wk,
-                kernel_size, dp, dvp, str(q.device), rows)
-            err = lib.naf_na_fwd_fma(
-                *ptrs, idx_h.data_ptr(), idx_w.data_ptr(), row_lo.data_ptr(),
-                col_lo.data_ptr(), out.data_ptr(), scale, b, hq, wq, hk, wk, n, dp, dvp,
-                kernel_size, tqh, tqw, urh, urw, stream)
+            route, plan = _plan_fma(_lib, "naf_na_fwd_smem", "naf_na_fwd_chunk_smem", _TILES,
+                                    (SMEM_BUDGET, SMEM_MAX), full, wq, hk, wk, kernel_size, dp,
+                                    dvp, str(q.device), rows)
+            tqh, tqw, urh, urw, idx_h, idx_w, row_lo, col_lo, *chunk = plan
+            fn = lib.naf_na_fwd_fma if route == "fma" else lib.naf_na_fwd_fma_chunked
+            err = fn(*ptrs, idx_h.data_ptr(), idx_w.data_ptr(), row_lo.data_ptr(),
+                     col_lo.data_ptr(), out.data_ptr(), scale, b, hq, wq, hk, wk, n, dp, dvp,
+                     kernel_size, tqh, tqw, urh, urw, *chunk, stream)
     if err:
         raise RuntimeError(f"na2d_fused forward kernel ({route}) launch failed: cudaError {err}")
     cross_scale_na2d_fused.launches += 1
@@ -392,7 +458,7 @@ def _bwd_launch(route, plan, q, k, v, g, dq, dk, dv, scale, kernel_size, add=Fal
     if route == "wgmma":
         tqh, tqw, urh, urw, nb, tab_h, tab_w, row_lo, col_lo = plan
     else:
-        tqh, tqw, urh, urw, tab_h, tab_w, row_lo, col_lo = plan
+        tqh, tqw, urh, urw, tab_h, tab_w, row_lo, col_lo, *chunk = plan
     tiles = -(-hq // tqh) * -(-wq // tqw)
     partial = torch.empty((b, tiles, n, urh * urw, dp + dvp), dtype=torch.float32,
                           device=q.device)
@@ -406,29 +472,39 @@ def _bwd_launch(route, plan, q, k, v, g, dq, dk, dv, scale, kernel_size, add=Fal
         if route == "wgmma":
             err = lib.naf_na_bwd_wgmma(*args, tqh, tqw, urh, urw, nb, int(add), stream)
         else:
-            err = lib.naf_na_bwd_fma(*args, kernel_size, tqh, tqw, urh, urw, stream)
+            fn = lib.naf_na_bwd_fma if route == "fma" else lib.naf_na_bwd_fma_chunked
+            err = fn(*args, kernel_size, tqh, tqw, urh, urw, *chunk, int(add), stream)
     if err:
         raise RuntimeError(f"na2d_fused backward kernel ({route}) launch failed: cudaError {err}")
     cross_scale_na2d_fused.bwd_launches += 1
     cross_scale_na2d_fused.route_launches[f"{route}_bwd"] += 1
 
 
+def _bwd_plan(route, hq, wq, hk, wk, ks, dp, dvp, dev, rows=None):
+    """(route, plan) of K4 on one band of query rows (all where None):
+    bf16 the tensor-core kernels, f32 the whole-box kernel where a tile's
+    box fits, else the chunked one."""
+    if route == "wgmma":
+        return route, _plan_tc(hq, wq, hk, wk, ks, dp, dvp, True, dev, rows)
+    return _plan_fma(_lib, "naf_na_bwd_smem", "naf_na_bwd_chunk_smem", _TILES, (SMEM_MAX,), hq,
+                     wq, hk, wk, ks, dp, dvp, dev, rows)
+
+
 def _launch_bwd(q, k, v, dout, kernel_size, scale):
     """Launch K4 on CUDA tensors; returns (dq, dk, dv) in q's / k's / v's
-    dtype. The bf16 route runs one launch per band of :func:`_bwd_bands`."""
+    dtype. The tensor-core and chunked routes run one launch per band of
+    :func:`_bwd_bands` (a band's plan may take another f32 route: its boxes
+    are those of its own rows)."""
     b, hq, wq, n, d, hk, wk, dv = _check(q, k, v, dout)
     if dout.shape != (b, hq, wq, n, dv):
         raise ValueError(f"dO {tuple(dout.shape)} does not fit the output {(b, hq, wq, n, dv)}")
     route, qc, kc, vc, gc = _operands(q, k, v, dout)
     dp, dvp = qc.shape[-1], vc.shape[-1]
     dev = str(q.device)
+    route, plan = _bwd_plan(route, hq, wq, hk, wk, kernel_size, dp, dvp, dev)
     bands = [(0, hq)]
-    if route == "wgmma":
-        plan = _plan_tc(hq, wq, hk, wk, kernel_size, dp, dvp, True, dev)
+    if route != "fma":
         bands = _bwd_bands(b, hq, wq, n, dp + dvp, plan[0], plan[1], plan[2] * plan[3])
-    else:
-        plan = _plan(_lib, "naf_na_bwd_smem", _TILES, (SMEM_MAX,), hq, wq, hk, wk, kernel_size,
-                     dp, dvp, dev)
     dq = torch.empty_like(qc)
     if len(bands) == 1:
         dk = torch.empty((b, hk, wk, n, dp), dtype=k.dtype, device=q.device)
@@ -439,9 +515,10 @@ def _launch_bwd(q, k, v, dout, kernel_size, scale):
         dk = torch.zeros((b, hk, wk, n, dp), dtype=torch.float32, device=q.device)
         dvv = torch.zeros((b, hk, wk, n, dvp), dtype=torch.float32, device=q.device)
         for y0, y1 in bands:
-            plan = _plan_tc(hq, wq, hk, wk, kernel_size, dp, dvp, True, dev, (y0, y1))
+            band_route, plan = _bwd_plan(route, hq, wq, hk, wk, kernel_size, dp, dvp, dev,
+                                         (y0, y1))
             dq_band = torch.empty_like(qc[:, y0:y1])
-            _bwd_launch(route, plan, qc[:, y0:y1].contiguous(), kc, vc,
+            _bwd_launch(band_route, plan, qc[:, y0:y1].contiguous(), kc, vc,
                         gc[:, y0:y1].contiguous(), dq_band, dk, dvv, scale, kernel_size, True)
             dq[:, y0:y1] = dq_band
         dk, dvv = dk.to(k.dtype), dvv.to(v.dtype)
@@ -493,4 +570,5 @@ def cross_scale_na2d_fused(q, k, v, kernel_size: int, scale=None, row_cell0: int
 
 cross_scale_na2d_fused.launches = 0
 cross_scale_na2d_fused.bwd_launches = 0
-cross_scale_na2d_fused.route_launches = dict.fromkeys(("wgmma", "fma", "wgmma_bwd", "fma_bwd"), 0)
+cross_scale_na2d_fused.route_launches = dict.fromkeys(
+    ("wgmma", "fma", "fma_chunked", "wgmma_bwd", "fma_bwd", "fma_chunked_bwd"), 0)

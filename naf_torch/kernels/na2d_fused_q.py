@@ -19,7 +19,9 @@ counts, boxes above 192 cells in chunks) with the keys' and values' head
 channels zero-padded to a multiple of 16, the softmax scale passed to the
 kernel, which stores only the real value channels, and the tiles whose
 queries share one window ordered first (:func:`_plan_k2`); the f32 route
-shrinks its tile until the box fits (``na2d_fused._plan``) and takes keys
+shrinks its tile until the box fits (``na2d_fused._plan_fma``), and where no
+tile's whole box fits (one head of d 256 at k 15) walks the box in chunks
+("fma_chunked": a statistics pass, then exact P per chunk); it takes keys
 with the scale folded in, as the JAX wrapper does.
 
 Banded variants (the JAX kernel's ``row_cell0`` / ``band_cells`` /
@@ -48,7 +50,7 @@ import torch
 from naf_torch.kernels import _build, na2d_fused
 from naf_torch.kernels.encoder_fused import _detached, _grads
 from naf_torch.kernels.na2d_fused import (
-    PAD, SMEM_BUDGET, SMEM_MAX, TC_NB, _aligned, _pad_heads, _plan, _plan_tc, _route,
+    PAD, SMEM_BUDGET, SMEM_MAX, TC_NB, _aligned, _pad_heads, _plan_fma, _plan_tc, _route,
     _scaled_keys, cross_scale_na2d_fused,
 )
 from naf_torch.nn.rope import rotate_half
@@ -157,12 +159,15 @@ def naf_upsample_attention_ref(enc, keys, values, rows_tab, cols_tab, rope_d_hea
 def _lib():
     lib = _build.load("na2d_fused_q")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.naf_fused_q_smem.argtypes = [i32] * 5
+    lib.naf_fused_q_smem.argtypes = lib.naf_fused_q_chunk_smem.argtypes = [i32] * 5
     lib.naf_fused_q_tc_smem.argtypes = [i32] * 3
-    lib.naf_fused_q_smem.restype = lib.naf_fused_q_tc_smem.restype = ctypes.c_longlong
+    for fn in (lib.naf_fused_q_smem, lib.naf_fused_q_chunk_smem, lib.naf_fused_q_tc_smem):
+        fn.restype = ctypes.c_longlong
     lib.naf_fused_q_fma.argtypes = [ptr] * 10 + [i32] * 22 + [ptr]
+    lib.naf_fused_q_fma_chunked.argtypes = [ptr] * 10 + [i32] * 24 + [ptr]
     lib.naf_fused_q_wgmma.argtypes = [ptr] * 11 + [ctypes.c_float] + [i32] * 25 + [ptr]
-    lib.naf_fused_q_fma.restype = lib.naf_fused_q_wgmma.restype = i32
+    for fn in (lib.naf_fused_q_fma, lib.naf_fused_q_fma_chunked, lib.naf_fused_q_wgmma):
+        fn.restype = i32
     return lib
 
 
@@ -259,15 +264,16 @@ def _launch(enc, keys, values, rows_tab, cols_tab, rope_d_head, num_heads, kerne
                 *(t.data_ptr() for t in tables), out.data_ptr(), scale, *band, c, n, dp, dvp,
                 dv, rope_d_head, tqh, tqw, urh, urw, nb, n_uniform, stream)
         else:
-            tqh, tqw, urh, urw, idx_h, idx_w, row_lo, col_lo = _plan(
-                _lib, "naf_fused_q_smem", _TILES, (SMEM_BUDGET, SMEM_MAX), hq, wq, hk, wk,
-                kernel_size, d, dv, dev, rows)
+            route, plan = _plan_fma(_lib, "naf_fused_q_smem", "naf_fused_q_chunk_smem", _TILES,
+                                    (SMEM_BUDGET, SMEM_MAX), hq, wq, hk, wk, kernel_size, d, dv,
+                                    dev, rows)
+            tqh, tqw, urh, urw, idx_h, idx_w, row_lo, col_lo, *chunk = plan
             k_scaled = _scaled_keys(keys, scale, enc.dtype).contiguous()
-            err = _lib().naf_fused_q_fma(
-                enc.data_ptr(), k_scaled.data_ptr(), values.data_ptr(), rt.data_ptr(),
-                ct.data_ptr(), idx_h.data_ptr(), idx_w.data_ptr(), row_lo.data_ptr(),
-                col_lo.data_ptr(), out.data_ptr(), *band, c, n, cv, kernel_size, rope_d_head,
-                tqh, tqw, urh, urw, stream)
+            fn = _lib().naf_fused_q_fma if route == "fma" else _lib().naf_fused_q_fma_chunked
+            err = fn(enc.data_ptr(), k_scaled.data_ptr(), values.data_ptr(), rt.data_ptr(),
+                     ct.data_ptr(), idx_h.data_ptr(), idx_w.data_ptr(), row_lo.data_ptr(),
+                     col_lo.data_ptr(), out.data_ptr(), *band, c, n, cv, kernel_size,
+                     rope_d_head, tqh, tqw, urh, urw, *chunk, stream)
     if err:
         raise RuntimeError(f"na2d_fused_q kernel ({route}) launch failed: cudaError {err}")
     naf_upsample_attention.launches += 1
@@ -321,7 +327,8 @@ def naf_upsample_attention(enc, keys, values, rows_tab, cols_tab, rope_d_head=64
     """Fused pool-up + RoPE + cross-scale NA (arguments as in the plain
     version). CPU tensors take the plain version; CUDA tensors launch K2
     (count in ``naf_upsample_attention.launches``, per route in
-    ``naf_upsample_attention.route_launches``: bf16 "wgmma", f32 "fma"). The
+    ``naf_upsample_attention.route_launches``: bf16 "wgmma", f32 "fma", or
+"fma_chunked" where no tile's whole K/V box fits shared memory). The
     full-grid call is differentiable; the banded variants are inference-only
     and raise if a gradient is required, as the JAX package sends them
     straight to its kernel."""
@@ -343,4 +350,4 @@ def naf_upsample_attention(enc, keys, values, rows_tab, cols_tab, rope_d_head=64
 
 
 naf_upsample_attention.launches = 0
-naf_upsample_attention.route_launches = {"wgmma": 0, "fma": 0}
+naf_upsample_attention.route_launches = {"wgmma": 0, "fma": 0, "fma_chunked": 0}

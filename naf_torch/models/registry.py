@@ -1,8 +1,9 @@
 """Model registry (counterpart of ``naf_tpu/models/registry.py``).
 
 ``build_model(name, embed_dim, ratio)`` returns an NHWC module with the
-upsampler contract ``forward(image, features, output_size)``, or, for the
-restorers JBU and JBF, ``forward(image_norm, image, output_size)``.
+upsampler contract ``forward(image, features, output_size)``, or, for JBU
+and JBF and the restorers IRCNN, REDNet and Restormer, ``forward(image_norm,
+image, output_size)``.
 ``ModelWrapper`` owns one such model with seeded random weights or a
 converted checkpoint and serves it like ``naf_torch.api.NAFUpsampler``:
 
@@ -22,27 +23,28 @@ from naf_torch.api import _device, _init_weights
 
 __all__ = ["build_model", "ModelWrapper", "register", "MODEL_REGISTRY"]
 
-# Restorers of the JAX registry that the denoising slice ports.
-_DENOISING_SLICE = ("IRCNN", "REDNet", "Restormer")
-
-
 def _factories() -> Dict[str, Callable]:
     from naf_torch.models.anyup import AnyUpsampler
     from naf_torch.models.featup import JBU, FeatUp
     from naf_torch.models.jafar import JAFAR
     from naf_torch.models.jbf import JBF
     from naf_torch.models.naf import NAF
+    from naf_torch.models.restorers import IRCNN, REDNet
+    from naf_torch.models.restormer import Restormer
     from naf_torch.models.simple import Bilinear, Nearest
 
     return {
         "AnyUp": lambda embed_dim, ratio: AnyUpsampler(),
         "Bilinear": lambda embed_dim, ratio: Bilinear(),
         "FeatUp": lambda embed_dim, ratio: FeatUp(feature_dim=embed_dim, ratio=ratio),
+        "IRCNN": lambda embed_dim, ratio: IRCNN(),
         "JAFAR": lambda embed_dim, ratio: JAFAR(v_dim=embed_dim),
         "JBF": lambda embed_dim, ratio: JBF(),
         "JBU": lambda embed_dim, ratio: JBU(),
         "NAF": lambda embed_dim, ratio: NAF(),
         "Nearest": lambda embed_dim, ratio: Nearest(),
+        "REDNet": lambda embed_dim, ratio: REDNet(),
+        "Restormer": lambda embed_dim, ratio: Restormer(),
     }
 
 
@@ -58,9 +60,6 @@ def build_model(name: str, embed_dim: int = 384, ratio: int = 16) -> nn.Module:
     factories = {**_factories(), **MODEL_REGISTRY}
     if name in factories:
         return factories[name](embed_dim, ratio)
-    if name in _DENOISING_SLICE:
-        raise NotImplementedError(f"{name} is ported with the denoising slice of naf_torch "
-                                  "(ROADMAP.md)")
     raise ValueError(f"Unknown upsampler: {name} (have {sorted(factories)})")
 
 
@@ -103,7 +102,8 @@ class ModelWrapper:
 
     def __call__(self, image, features, output_size, channels_last: bool = False):
         """``(image, features, output_size)``, or ``(image_norm, image,
-        output_size)`` for JBU and JBF, passed through unchanged. NCHW in and
+        output_size)`` for JBU, JBF and the restorers, passed through
+        unchanged. NCHW in and
         out by default, NHWC with ``channels_last=True``; inputs move to the
         model's device and dtype."""
         with torch.inference_mode():

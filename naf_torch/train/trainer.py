@@ -22,8 +22,13 @@ Each step is annotated for ``torch.profiler`` with the ranges
 Metrics stream to ``metrics.jsonl``; checkpoints (parameters, AdamW state and
 step, ``torch.save``) make a resume exact.
 
-Not ported yet: the scanned-dispatch ``device_stack`` path and the
-data-parallel ``mesh``.
+With ``device_stack`` (the whole corpus resident on the card, see
+``naf_torch.data.device_cached_stack``) training runs ``log_every`` steps per
+call of :func:`make_train_chunk`, each batch gathered on the device by an
+index vector and the chunk's losses read once at its end; ``lr_size`` is
+drawn per chunk, as the JAX package's scanned chunk draws it.
+
+Not ported yet: the data-parallel ``mesh``.
 """
 
 from __future__ import annotations
@@ -41,13 +46,14 @@ from torch.profiler import record_function
 
 from naf_torch.api import _device, _init_weights
 from naf_torch.backbones.wrapper import IMAGENET_DEFAULT_MEAN, IMAGENET_DEFAULT_STD
+from naf_torch.data.device_cache import index_batches
 from naf_torch.nn.rope import RopeDraws
 from naf_torch.ops.resize import resize_bilinear
 from naf_torch.train.distill import sample_lr_size
 from naf_torch.train.losses import mse_loss
 
 __all__ = [
-    "TrainConfig", "make_train_step", "make_optimizer", "train_upsampler",
+    "TrainConfig", "make_train_step", "make_train_chunk", "make_optimizer", "train_upsampler",
     "step_generator", "save_checkpoint", "load_checkpoint", "versioned_dir",
 ]
 
@@ -71,10 +77,11 @@ class TrainConfig:
     seed: int = 0
 
 
-def step_generator(seed: int, step: int) -> torch.Generator:
-    """The CPU generator of one step's RoPE augmentation, from (seed, step)."""
+def step_generator(seed: int, step: int, device="cpu") -> torch.Generator:
+    """The generator of one step's random draws (the RoPE augmentation on the
+    CPU, a denoising step's noise on its batch's device), from (seed, step)."""
     state = np.random.SeedSequence([seed, step]).generate_state(1, np.uint64)[0]
-    return torch.Generator().manual_seed(int(state))
+    return torch.Generator(device=device).manual_seed(int(state))
 
 
 def make_optimizer(model: torch.nn.Module, cfg: TrainConfig) -> torch.optim.AdamW:
@@ -128,6 +135,30 @@ def make_train_step(model, backbone, optimizer, use_bf16: bool,
     return step
 
 
+def make_train_chunk(step, imagenet_stats, backbone_stats):
+    """K train steps per call (counterpart of the JAX ``make_train_chunk``,
+    whose ``lax.scan`` is a Python loop here): returns ``chunk(stack, idx,
+    step0, lr_size, out_hw, crop_hw) -> losses``, where ``idx`` (K, B) holds
+    batch indices into the resident ``stack`` (N, H, W, 3) in [0, 1], step
+    ``step0 + i`` gathers its batch on the device and normalizes it with the
+    model's (``imagenet_stats``) and the backbone's (``backbone_stats``)
+    (mean, std) tensors, and the K losses come back as one device tensor.
+    ``lr_size`` is one per chunk, as in the JAX package (a coarser draw of
+    the reference's per-step distribution)."""
+    (im_mean, im_std), (b_mean, b_std) = imagenet_stats, backbone_stats
+
+    def chunk(stack, idx, step0: int, lr_size, out_hw, crop_hw) -> torch.Tensor:
+        idx_dev = torch.from_numpy(np.ascontiguousarray(idx, np.int64)).to(stack.device)
+        losses = torch.empty(idx_dev.shape[0], device=stack.device)
+        for i in range(idx_dev.shape[0]):
+            img = stack.index_select(0, idx_dev[i])
+            losses[i] = step((img - im_mean) / im_std, (img - b_mean) / b_std, step0 + i,
+                             lr_size, out_hw, crop_hw)
+        return losses
+
+    return chunk
+
+
 @torch.no_grad()
 def _viz(model, backbone, use_bf16, image_ups, image_back, lr_size, out_hw, crop_hw):
     """The distillation triple at eval time (no augmentation): (hr_feats,
@@ -152,18 +183,27 @@ def write_viz_panel(log_dir, step, image, hr_feats, lr_feats, pred):
     return path
 
 
-def train_upsampler(model, backbone, data_iter: Iterator[np.ndarray], cfg: TrainConfig,
-                    params: Optional[dict] = None, opt_state: Optional[dict] = None,
-                    start_step: int = 0, device="cuda"):
+def train_upsampler(model, backbone, data_iter: Optional[Iterator[np.ndarray]],
+                    cfg: TrainConfig, params: Optional[dict] = None,
+                    opt_state: Optional[dict] = None, start_step: int = 0, device="cuda",
+                    device_stack: Optional[torch.Tensor] = None,
+                    batch_size: Optional[int] = None):
     """Train ``model`` against the frozen ``backbone`` on images from
     ``data_iter`` (NHWC float [0, 1], (B, img_size, img_size, 3)), on
     ``device`` (CUDA unless asked otherwise; without CUDA it raises).
 
     ``params`` (a state dict) and ``opt_state`` (an AdamW state dict) resume
     from a checkpoint at ``start_step``; without ``params`` the model's
-    weights are drawn from ``cfg.seed``. Returns the model, its parameters
-    f32 on ``device``."""
+    weights are drawn from ``cfg.seed``. ``device_stack`` ((N, H, W, 3) f32
+    on ``device``) replaces ``data_iter``: batches of ``batch_size``
+    (default ``cfg.batch_size``) in the JAX package's epoch order, gathered
+    on the device, ``log_every`` steps per chunk (:func:`make_train_chunk`),
+    with the chunk's last loss logged and panels and checkpoints at the
+    chunk that reaches their step. Returns the model, its parameters f32 on
+    ``device``."""
     dev = _device(device)
+    if device_stack is not None and start_step:
+        raise ValueError("the device-stack route starts at step 0, as the JAX package's does")
     if params is None:
         _init_weights(model, cfg.seed)
     else:
@@ -189,6 +229,20 @@ def train_upsampler(model, backbone, data_iter: Iterator[np.ndarray], cfg: Train
     ckpt_every = cfg.ckpt_every or max(cfg.train_steps // 4, 1)
     viz_every = ckpt_every if cfg.viz_every is None else cfg.viz_every
     t0 = time.time()
+
+    def panel(step, img, img_ups, img_back, lr_size, hr_hw, crop_hw):
+        try:
+            triple = _viz(model, backbone, cfg.use_bf16, img_ups, img_back, lr_size, hr_hw,
+                          crop_hw)
+            write_viz_panel(log_dir, step, img, *triple)
+        except Exception as e:  # a panel never stops a run, as in the JAX loop
+            print(f"viz panel failed at step {step}: {e}", flush=True)
+
+    if device_stack is not None:
+        _train_chunked(model, optimizer, step_fn, device_stack, batch_size or cfg.batch_size,
+                       cfg, rng, ps, (im_mean, im_std), (b_mean, b_std), log_dir, ckpt_every,
+                       viz_every, panel, t0)
+        return model
     with open(os.path.join(log_dir, "metrics.jsonl"), "a") as mf:
         for step in range(start_step, cfg.train_steps):
             batch = next(data_iter)
@@ -208,15 +262,40 @@ def train_upsampler(model, backbone, data_iter: Iterator[np.ndarray], cfg: Train
                 mf.flush()
                 print(f"step {step}/{cfg.train_steps} loss {loss_v:.5f}", flush=True)
             if viz_every and ((step + 1) % viz_every == 0 or step + 1 == cfg.train_steps):
-                try:
-                    triple = _viz(model, backbone, cfg.use_bf16, img_ups, img_back, lr_size,
-                                  hr_hw, crop_hw)
-                    write_viz_panel(log_dir, step + 1, img, *triple)
-                except Exception as e:  # a panel never stops a run, as in the JAX loop
-                    print(f"viz panel failed at step {step + 1}: {e}", flush=True)
+                panel(step + 1, img, img_ups, img_back, lr_size, hr_hw, crop_hw)
             if (step + 1) % ckpt_every == 0 or step + 1 == cfg.train_steps:
                 save_checkpoint(log_dir, step + 1, model, optimizer)
     return model
+
+
+def _train_chunked(model, optimizer, step_fn, stack, batch_size, cfg, rng, ps, im_stats,
+                   b_stats, log_dir, ckpt_every, viz_every, panel, t0):
+    """``train_upsampler``'s device-stack loop (the JAX package's, chunk by
+    chunk): ``rng`` draws each chunk's batch indices, then its lr size."""
+    chunk_fn = make_train_chunk(step_fn, im_stats, b_stats)
+    img_hw = tuple(int(v) for v in stack.shape[1:3])
+    hr_hw = (img_hw[0] // ps, img_hw[1] // ps)
+    crop_hw = tuple(min(224, 4 * v) for v in hr_hw)
+    stream = index_batches(stack.shape[0], batch_size, rng=rng)
+    done = 0
+    with open(os.path.join(log_dir, "metrics.jsonl"), "a") as mf:
+        while done < cfg.train_steps:
+            k = min(max(cfg.log_every, 1), cfg.train_steps - done)
+            idx = np.stack([next(stream) for _ in range(k)])
+            lr_size = sample_lr_size(img_hw, ps, cfg.down_factor, rng)
+            losses = chunk_fn(stack, idx, done, lr_size, hr_hw, crop_hw)
+            done += k
+            rec = {"step": done - 1, "loss": float(losses[-1]), "lr_size": list(lr_size),
+                   "elapsed_s": round(time.time() - t0, 1)}
+            mf.write(json.dumps(rec) + "\n")
+            mf.flush()
+            print(f"step {done}/{cfg.train_steps} loss {rec['loss']:.5f}", flush=True)
+            if viz_every and (done % max(viz_every, 1) < k or done >= cfg.train_steps):
+                img = stack.index_select(0, torch.from_numpy(idx[-1]).to(stack.device))
+                panel(done, img, (img - im_stats[0]) / im_stats[1],
+                      (img - b_stats[0]) / b_stats[1], lr_size, hr_hw, crop_hw)
+            if done % ckpt_every < k or done >= cfg.train_steps:
+                save_checkpoint(log_dir, done, model, optimizer)
 
 
 def versioned_dir(base: str) -> str:

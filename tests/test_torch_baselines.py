@@ -252,14 +252,12 @@ def test_anyup_key_map_matches_jax_convert_checkpoint(tmp_path):
 
 
 def test_registry_names_and_refusals(monkeypatch):
-    names = ["AnyUp", "Bilinear", "FeatUp", "JAFAR", "JBF", "JBU", "NAF", "Nearest"]
+    names = ["AnyUp", "Bilinear", "FeatUp", "JAFAR", "JBF", "JBU", "NAF", "Nearest", "IRCNN",
+             "REDNet", "Restormer"]
     for name in names:
         assert isinstance(build_model(name, embed_dim=16, ratio=4), torch.nn.Module)
     with pytest.raises(ValueError, match="Unknown upsampler"):
         build_model("NoSuchModel")
-    for name in ("IRCNN", "REDNet", "Restormer"):
-        with pytest.raises(NotImplementedError, match="denoising slice"):
-            build_model(name)
     register("Twice", lambda embed_dim, ratio: Bilinear())
     assert isinstance(build_model("Twice"), Bilinear)
     with pytest.raises(NotImplementedError, match="key map"):

@@ -340,7 +340,7 @@ def test_k2_counts_launches_per_route():
         torch.from_numpy(a) for a in arrays[3:]]
     before = (naf_upsample_attention.launches, dict(naf_upsample_attention.route_launches))
     naf_upsample_attention(*args, dh, **kw)
-    assert set(naf_upsample_attention.route_launches) == {"wgmma", "fma"}
+    assert set(naf_upsample_attention.route_launches) == {"wgmma", "fma", "fma_chunked"}
     assert (naf_upsample_attention.launches,
             dict(naf_upsample_attention.route_launches)) == before
 
