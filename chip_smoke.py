@@ -140,9 +140,17 @@ take phase 16:
    cores), finite chunk losses; validation in f32 on 4 batches of 2 of the 9
    validation photos (8 K1 and 1 chunked K2 per batch), PSNR and SSIM; the
    bf16 step's time (CUDA events), device busy share (torch.profiler) and
-   peak memory, validation's time and peak; one f32 step at 64^2 (still dim
-   256, k 15) on the card against the same step on the CPU (loss rtol 1e-3,
-   gradient cosine > 0.999);
+   peak memory, validation's time and peak; the step's peak attributed by
+   allocating frame (the allocator's history replayed to the peak, the live
+   blocks summed by their innermost frame in naf_torch; the top 5 printed)
+   without and with the encoder twin's exact-bf16 packing of its saved f32
+   upcasts, and steps from the same weights under
+   ``torch.use_deterministic_algorithms`` (cuDNN's deterministic flag alone
+   leaves the twin's TF32 weight gradients varying by a bf16 ulp from run to
+   run), two unpacked and one packed, with equal loss and gradients; one f32
+   step at 64^2
+   (still dim 256, k 15) on the card against the same step on the CPU (loss
+   rtol 1e-3, gradient cosine > 0.999);
 15. IRCNN, REDNet and Restormer through the CLI's ``main`` with the same
    command line (3 bf16 steps at batch 8, 448^2, one validation batch),
    each step's time and peak, and one f32 forward against the model's f32
@@ -152,6 +160,19 @@ take phase 16:
    batch 2 (the chunked kernels): device time, plain version and bound; no
    library call is feasible (masked SDPA would need a 200,704 x 200,704 mask
    per image).
+
+Phase 17 runs after phase 15, before phase 8:
+
+17. the parallel path (``naf_torch.parallel``), in spawned ranks: two ranks
+   sharing the one card over gloo run the spatially sharded forward (space
+   2) of the production NAF at 448^2 + 28^2 x 384 -> 448^2 and 448^2 + 128^2
+   x 384 -> 2048^2 (28^2 features have no whole cell rows to band at
+   2048^2), f32 and bf16, gathered and held against the one-process forward
+   (f32 max abs err <= 2e-5, bf16 cosine >= 0.99999), each rank launching 8
+   K1 and 1 K2 per sharded forward; a data-parallel train step over the two
+   ranks at the training shape against the one-process step (bf16 loss rel
+   <= 1e-2; f32 rel <= 1e-5, gradient cosine >= 0.999999); one rank in an
+   NCCL world takes the f32 step. Per-rank times and peaks.
 
 Prints a JSON line of per-kernel numbers, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``. Exits non-zero on any failure,
@@ -169,6 +190,11 @@ import tempfile
 import time
 
 import torch
+
+# Deterministic algorithms (phase 14's packed-twin comparison) need cuBLAS's
+# deterministic workspace setting, which PyTorch reads once, at the first
+# cuBLAS call of the process.
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 # H100 SXM / H200 SXM data-sheet peaks (dense): bytes/s and bf16 FLOP/s.
 _PEAKS = {"H200": (4.8e12, 989e12), "H100": (3.35e12, 989e12)}
@@ -1781,6 +1807,59 @@ def _peak_mib(fn) -> float:
     return (torch.cuda.max_memory_allocated() - base) / 2**20
 
 
+def _frame_key(frames) -> str:
+    """The innermost frame of this repository's code in an allocation's
+    stack, with its caller there: "file:line function < file:line caller";
+    "(no frame of naf_torch: autograd engine)" for an allocation made by a
+    C++ backward node."""
+    ours = [f for f in frames if "naf_torch/" in f["filename"]]
+    if not ours:
+        return "(no frame of naf_torch: autograd engine)"
+    def name(f):
+        return f"{f['filename'].split('naf_torch/')[-1]}:{f['line']} {f['name']}"
+
+    return " < ".join(name(f) for f in ours[:2])
+
+
+def _peak_by_frame(fn, top: int = 5):
+    """Run ``fn`` once under the allocator's history and attribute its peak:
+    the trace is replayed (alloc +, free -; frees of blocks allocated before
+    the call count too) to find the peak, then the blocks live at it are
+    summed by :func:`_frame_key`. Returns (peak MiB above the start, MiB of
+    the blocks allocated during the call and live at the peak, [(frame,
+    MiB, blocks), ...] largest first)."""
+    torch.cuda.synchronize()
+    torch.cuda.memory._record_memory_history(enabled="all", context="alloc", stacks="python",
+                                             max_entries=4_000_000)
+    try:
+        fn()
+        torch.cuda.synchronize()
+        snap = torch.cuda.memory._snapshot()
+    finally:
+        torch.cuda.memory._record_memory_history(enabled=None)
+    trace = [e for e in snap["device_traces"][torch.cuda.current_device()]
+             if e["action"] in ("alloc", "free_requested")]
+    cur, peak, at = 0, 0, -1
+    for i, e in enumerate(trace):
+        cur += e["size"] if e["action"] == "alloc" else -e["size"]
+        if cur > peak:
+            peak, at = cur, i
+    live = {}
+    for e in trace[: at + 1]:
+        if e["action"] == "alloc":
+            live[e["addr"]] = e
+        else:
+            live.pop(e["addr"], None)
+    groups = {}
+    for e in live.values():
+        key = _frame_key(e.get("frames", []))
+        size, n = groups.get(key, (0, 0))
+        groups[key] = (size + e["size"], n + 1)
+    ranked = sorted(groups.items(), key=lambda kv: -kv[1][0])
+    return (peak / 2**20, sum(s for s, _ in groups.values()) / 2**20,
+            [(k, s / 2**20, n) for k, (s, n) in ranked[:top]])
+
+
 def phase_dual(dev, card):
     """The main path with DUAL_ROUTE on: every forward's encoder on K6 (4
     launches) and no K1, held against the default route."""
@@ -2174,6 +2253,7 @@ def phase_denoiser(dev, card, workdir):
           + f"; device busy {100 * busy:.1f}% of the step ({card})", flush=True)
     print("  top kernels: " + "; ".join(f"{k[:50]} {v:.3f} ms" for k, v in split["top"]),
           flush=True)
+    attribution = _denoiser_peak(model, dcfg, clean, dev, card)
     # validation's time per batch of 2 in f32, and its peak
     torch.backends.cudnn.allow_tf32 = False
     vbatch = stack[:2]
@@ -2185,9 +2265,78 @@ def phase_denoiser(dev, card, workdir):
     agree = _denoise_card_vs_cpu(dev, dcfg)
     split.pop("top")
     return launches, dict(step_ms=step_ms, peak_mib=peak, busy=busy, split=split,
+                          peak_by_frame=attribution,
                           chunk_losses=losses, train_s=train_s, val_s=val_s,
                           val_ms_per_batch=val_ms, val_peak_mib=val_peak,
                           psnr=metrics["psnr"], ssim=metrics["ssim"], **agree)
+
+
+def _denoiser_peak(model, dcfg, clean, dev, card):
+    """The bf16 denoiser step's peak, attributed by allocating frame
+    (:func:`_peak_by_frame`), without and with the encoder twin's bf16
+    packing of its f32 widenings (``encoder_fused._pack_exact_bf16``; off
+    when ``_PACK_MIN`` is out of reach): the port before and after the cut.
+    Then steps from the same weights under deterministic algorithms, two
+    unpacked and one packed: the packed step's loss and gradients must be as
+    close to the unpacked one's as the two unpacked steps are to each other,
+    or within rel 1e-6. With cuDNN's deterministic flag alone the twin's
+    TF32 convs still give one of two weight gradients in the semantic stack
+    from run to run, packed or not, so one pair of unpacked steps may agree
+    bitwise while the packed step lands on the other; the global mode makes
+    the step reproducible bitwise."""
+    import copy
+
+    from naf_torch.kernels import encoder_fused as ef
+    from naf_torch.train.trainer import step_generator
+
+    shipped, res, steps = ef._PACK_MIN, {}, {}
+
+    def det_step(label):
+        torch.use_deterministic_algorithms(True)
+        try:
+            twin = copy.deepcopy(model)
+            loss = float(_denoise_step(twin, dcfg, True)(clean, step_generator(0, 0, dev)))
+        finally:
+            torch.use_deterministic_algorithms(False)
+        steps[label] = (loss, [p.grad.float() for p in twin.parameters()])
+
+    def rel(a, b):
+        (la, ga), (lb, gb) = steps[a], steps[b]
+        return abs(la - lb) / abs(lb), max(float((x - y).abs().max() / y.abs().max()
+                                                 .clamp_min(1e-30)) for x, y in zip(ga, gb))
+
+    try:
+        for label, pack_min in (("unpacked", 1 << 62), ("packed", shipped)):
+            ef._PACK_MIN = pack_min
+            step = _denoise_step(copy.deepcopy(model), dcfg, True)
+            call = lambda: step(clean, step_generator(0, 0, dev))  # noqa: E731
+            step_ms = _time_ms(call, iters=3)
+            peak, live, top = _peak_by_frame(call)
+            print(f"denoiser step peak by allocating frame, twin {label}: {peak:.1f} MiB above "
+                  f"the step's start ({live:.1f} MiB allocated in the step and live at the "
+                  f"peak), {step_ms:.3f} ms/step (3 steps); top 5: "
+                  + "; ".join(f"{k} {mib:.1f} MiB ({n} blocks)" for k, mib, n in top)
+                  + f" ({card})", flush=True)
+            res[label] = dict(peak_mib=peak, live_mib=live, top=top, step_ms=step_ms)
+            del step, call
+            det_step(label)
+            if label == "unpacked":
+                det_step("unpacked_again")
+    finally:
+        ef._PACK_MIN = shipped
+    base_loss, base_grad = rel("unpacked_again", "unpacked")
+    loss_rel, grad_rel = rel("packed", "unpacked")
+    if loss_rel > max(4 * base_loss, 1e-6) or grad_rel > max(4 * base_grad, 1e-6):
+        raise AssertionError(f"the packed twin changed the step: loss rel {loss_rel:.2e}, "
+                             f"gradients rel {grad_rel:.2e}; unpacked run to run {base_loss:.2e}, "
+                             f"{base_grad:.2e}")
+    print(f"denoiser step with the packed twin (deterministic algorithms): loss "
+          f"{steps['packed'][0]:.6f} vs {steps['unpacked'][0]:.6f} (rel {loss_rel:.2e}), "
+          f"gradients rel {grad_rel:.2e}; two unpacked steps: loss rel {base_loss:.2e}, "
+          f"gradients rel {base_grad:.2e}; peak {res['unpacked']['peak_mib']:.1f} -> "
+          f"{res['packed']['peak_mib']:.1f} MiB ({card})", flush=True)
+    return dict(res, loss_rel=loss_rel, grad_rel=grad_rel, run_to_run_loss_rel=base_loss,
+                run_to_run_grad_rel=base_grad)
 
 
 def _denoise_card_vs_cpu(dev, dcfg, size=64):
@@ -2347,6 +2496,140 @@ def _time_denoise_kernels(dev, card):
     return res
 
 
+# phase 17: (image side, LR side, output side) of the sharded forwards; 2048^2
+# takes 128^2 features, as phase 12's banded request: 2048 % 28 != 0, so the
+# 28^2 grid of the ragged 448^2 -> 2048^2 request has no whole cell rows to
+# band (the port raises there, as the JAX package's spatial forward does)
+PARALLEL_SHAPES = {"448": (448, 28, 448), "2048": (448, 128, 2048)}
+PARALLEL_RANKS = 2
+PARALLEL_REPS = 5  # timed sharded (and one-process) forwards per rank
+
+
+def phase_parallel(dev, card):
+    """17. The parallel path (``naf_torch.parallel``): two ranks spawned on
+    the one card over gloo (file rendezvous) run the spatially sharded
+    forward (space 2) of the production NAF at 448^2 + 28^2 x 384 -> 448^2
+    and 448^2 + 128^2 x 384 -> 2048^2, f32 and bf16, each gathered and held
+    against the one-process forward on the card (f32 max abs err <= 2e-5, the
+    JAX package's bar for this path; bf16 cosine >= 0.99999), every rank's
+    sharded forward launching 8 K1 and 1 K2 on the dtype's route; a
+    data-parallel train step over the two ranks at the training shape (batch
+    4, 448^2, random ViT-B/14) against the one-process step (loss rel <=
+    1e-2 in bf16; <= 1e-5 in f32 with the gradients before the optimizer at
+    cosine >= 0.999999); and one rank in an NCCL world taking the f32 step
+    through its all_reduce. Per-rank wall times are of two ranks sharing one
+    card."""
+    import numpy as np
+
+    from naf_torch.backbones.wrapper import IMAGENET_DEFAULT_MEAN, IMAGENET_DEFAULT_STD
+    from naf_torch.dryrun import each, spatial_case, train_case
+    from naf_torch.parallel import run_ranks
+
+    rng = np.random.RandomState(17)
+    calls, labels = [], []
+    for tag, (side, hk, out) in PARALLEL_SHAPES.items():
+        img = rng.randn(1, side, side, 3).astype(np.float32)
+        feats = rng.randn(1, hk, hk, 384).astype(np.float32)
+        for dtype in ("float32", "bfloat16"):
+            calls.append((spatial_case, dict(naf=PROD_NAF, seed=0, image=img, feats=feats,
+                                             out_hw=(out, out), data=1, space=PARALLEL_RANKS,
+                                             dtype=dtype, compare=True, reps=PARALLEL_REPS)))
+            labels.append(f"{tag}_{dtype}")
+    img = next(_images(BATCH, IMG_SIZE, 17))
+    mean, std = np.asarray(IMAGENET_DEFAULT_MEAN), np.asarray(IMAGENET_DEFAULT_STD)
+    norm = ((img - mean) / std).astype(np.float32)  # DINOv2 takes ImageNet's statistics too
+    hr = IMG_SIZE // 14
+    step = dict(naf=PROD_NAF, seed=0, backbone=dict(name=BACKBONE, seed=0), ups=norm,
+                back=norm, steps=2, lr_size=(IMG_SIZE // 2,) * 2, out_hw=(hr, hr),
+                crop_hw=(min(224, 4 * hr),) * 2, one_process=True)
+    for use_bf16 in (True, False):
+        calls.append((train_case, dict(step, use_bf16=use_bf16)))
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = run_ranks(each, PARALLEL_RANKS, args=(calls,), device="cuda", timeout=900)
+    gloo_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    (nccl,) = run_ranks(each, 1, args=([(train_case, dict(step, use_bf16=False))],),
+                        device="cuda", timeout=600)
+    nccl_s = time.perf_counter() - t0
+    nccl = nccl[0]
+
+    res = {"ranks": PARALLEL_RANKS, "note": "two ranks sharing one card over gloo",
+           "spawn_and_run_s": gloo_s, "nccl_spawn_and_run_s": nccl_s}
+    launches = {"k1": 0, "k2": 0}
+    for i, label in enumerate(labels):
+        per = [r[i] for r in ranks]
+        route = "wgmma" if label.endswith("bfloat16") else "fma"
+        for r in per:
+            ln = r["launches"]
+            want = (8 * PARALLEL_REPS, PARALLEL_REPS, PARALLEL_REPS, "gloo")
+            if (ln["k1"], ln["k2"], ln[f"k2_{route}"], r["backend"]) != want:
+                raise AssertionError(f"parallel {label}: rank {r['rank']} launches {ln}, "
+                                     f"backend {r['backend']}")
+            launches["k1"] += ln["k1"]
+            launches["k2"] += ln["k2"]
+        top = per[0]
+        side, hk, out = PARALLEL_SHAPES[label.split("_")[0]]
+        if top["shape"] != (1, out, out, 384) or not top["finite"]:
+            raise AssertionError(f"parallel {label}: gathered {top['shape']}, finite "
+                                 f"{top['finite']}")
+        if label.endswith("float32") and not top["max_abs_err"] <= 2e-5:
+            raise AssertionError(f"parallel {label}: max abs err {top['max_abs_err']:.3e} to "
+                                 "the one-process forward")
+        if label.endswith("bfloat16") and not top["cos"] >= 0.99999:
+            raise AssertionError(f"parallel {label}: cosine {top['cos']:.7f} to the "
+                                 "one-process forward")
+        res[label] = dict(max_abs_err=top["max_abs_err"], cos=top["cos"],
+                          single_ms=top["single_ms"], rank_ms=[r["ms"] for r in per],
+                          rank_peak_mib=[r["peak_mib"] for r in per], route=route,
+                          launches_per_rank_forward={"k1": 8, "k2": 1})
+        print(f"parallel {label}: {side}^2 + {hk}^2 x 384 -> {out}^2 over {PARALLEL_RANKS} "
+              f"ranks (space {PARALLEL_RANKS}, gloo, sharing one card): each rank 8 K1, 1 K2 "
+              f"({route}); max abs err {top['max_abs_err']:.3e}, cosine {top['cos']:.7f} to "
+              f"the one-process forward; rank ms a forward ({PARALLEL_REPS} forwards) "
+              + ", ".join(f"{r['ms']:.3f}" for r in per)
+              + f" (one process {top['single_ms']:.3f} ms); rank peak MiB "
+              + ", ".join(f"{r['peak_mib']:.1f}" for r in per) + f" ({card})", flush=True)
+
+    def step_check(label, dp, single, loss_rel):
+        """Both steps' losses, and the first step's gradients before the
+        optimizer; the second step's wall time (the first builds plans)."""
+        rel = max(abs(a - b) / abs(b) for a, b in zip(dp["losses"], single["losses"]))
+        g_dp = torch.cat([g.flatten() for g in dp["grads"].values()])
+        g_one = torch.cat([single["grads"][k].flatten() for k in dp["grads"]])
+        cos = _cos(g_dp, g_one)
+        if not rel <= loss_rel or (loss_rel <= 1e-5 and not cos >= 0.999999):
+            raise AssertionError(f"{label}: losses {dp['losses']} vs one process "
+                                 f"{single['losses']} (rel {rel:.2e}), gradient cosine "
+                                 f"{cos:.7f}")
+        return dict(losses=dp["losses"], single_losses=single["losses"], loss_rel=rel,
+                    grad_cos=cos, step_ms=dp["ms"][-1], single_step_ms=single["ms"][-1],
+                    peak_mib=dp.get("peak_mib"))
+
+    n = len(labels)
+    for j, (tag, bar) in enumerate((("bf16", 1e-2), ("f32", 1e-5))):
+        dp = [r[n + j] for r in ranks]
+        if {r["backend"] for r in dp} != {"gloo"}:
+            raise AssertionError(f"data-parallel step {tag}: backends {[r['backend'] for r in dp]}")
+        res[f"dp_step_{tag}"] = step_check(f"data-parallel step {tag}", dp[0]["dp"],
+                                           dp[0]["single"], bar)
+        res[f"dp_step_{tag}"]["rank_step_ms"] = [r["dp"]["ms"][-1] for r in dp]
+    if nccl["backend"] != "nccl":
+        raise AssertionError(f"the one-rank world ran {nccl['backend']}, not NCCL")
+    res["nccl_step_f32"] = step_check("one-rank NCCL step f32", nccl["dp"], nccl["single"], 1e-6)
+    for tag in ("dp_step_bf16", "dp_step_f32", "nccl_step_f32"):
+        r = res[tag]
+        print(f"parallel {tag}: batch {BATCH} {IMG_SIZE}^2 (random ViT-B/14), 2 steps, losses "
+              + ", ".join(f"{x:.6f}" for x in r["losses"]) + " vs one process "
+              + ", ".join(f"{x:.6f}" for x in r["single_losses"])
+              + f" (rel {r['loss_rel']:.2e}), first-step gradient cosine {r['grad_cos']:.7f}; "
+              f"second step {r['step_ms']:.1f} ms (one process {r['single_step_ms']:.1f}), "
+              f"peak {r['peak_mib']:.1f} MiB ({card})", flush=True)
+    print(f"parallel: {PARALLEL_RANKS} gloo ranks started and run in {gloo_s:.1f} s, the NCCL "
+          f"rank in {nccl_s:.1f} s", flush=True)
+    return launches, res
+
+
 def _sass(name: str) -> str:
     """The SASS of a kernel library, from the cuobjdump of the toolkit whose
     nvcc built it."""
@@ -2477,6 +2760,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory(dir=os.path.dirname(os.path.abspath(__file__))) as work:
         den_launches, denoiser = phase_denoiser(dev, card, work)
         restorers = phase_restorers(dev, card, work)
+    par_launches, parallel = phase_parallel(dev, card)
     timing = _phase_timing_fresh()
 
     k1, k1b = timing["k1_k3"], timing["k1_k1"]
@@ -2543,6 +2827,9 @@ def main() -> int:
              replaces="naf_tpu/kernels/encoder_fused.py:272", launches=dual_launches["k6"],
              max_abs_err=k6_err, **timing["k6"], hgmma=hgmma["encoder_dual"]))
     kernels[0]["launches_banded_encoder"] = banded["streamed_encoder"]["launches_k1"]
+    # phase 17: both ranks' sharded forwards (8 K1 and 1 K2 on each rank)
+    kernels[0]["launches_parallel"] = par_launches["k1"]
+    kernels[1]["launches_parallel"] = par_launches["k2"]
     kernels[1].update({"launches_banded": band_launches["k2"],
                        **{f"{k}_banded": v for k, v in k2_band.items()}})
     kernels[2].update({"launches_anyup": base_launches["k3"],
@@ -2573,7 +2860,7 @@ def main() -> int:
                       "baselines": baselines, "k5_splits": k5_splits, "dual_route": dual,
                       "banded": banded, "naf_dim96_cos_cpu": c96, "k2_grad": timing["k2_grad"],
                       "denoiser": denoiser, "denoise_plans": den_kernels["plans"],
-                      "restorers": restorers, "card": card}))
+                      "restorers": restorers, "parallel": parallel, "card": card}))
     print(_card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -199,7 +199,9 @@ def gn_silu_conv_ref(x, scale, shift, weight, bias):
     """Plain version of K1. x (B,H,W,C); scale/shift (B,C) or (C,) f32;
     weight (F,C,k,k); bias (F,). Returns (y (B,H,W,F) in x's dtype,
     psums (B,2,F) f32 of the f32 y)."""
-    z = x.float() * scale.float()[..., None, None, :] + shift.float()[..., None, None, :]
+    # x * f32 scale promotes to f32 (the same values as x.float() * scale) and
+    # saves x for the backward in its own dtype, not an f32 copy
+    z = x * scale.float()[..., None, None, :] + shift.float()[..., None, None, :]
     z = F.silu(z).to(x.dtype)  # the activated input rounds to the io dtype
     y = _conv_nhwc(z, weight, bias)
     return y.to(x.dtype), _channel_sums(y)
@@ -347,7 +349,9 @@ def gn_silu_conv_dual_ref(x, scale, shift, wp, ws, bp, bs):
     stack's 1x1 weight, ws (C,C,3,3) the semantic stack's 3x3 weight; bp, bs
     (C,). Returns (y (B,H,W,2C) in x's dtype, psums (B,2,2C) f32 of the f32 y)."""
     c = x.shape[-1] // 2
-    z = x.float() * scale.float()[..., None, None, :] + shift.float()[..., None, None, :]
+    # x * f32 scale promotes to f32 (the same values as x.float() * scale) and
+    # saves x for the backward in its own dtype, not an f32 copy
+    z = x * scale.float()[..., None, None, :] + shift.float()[..., None, None, :]
     z = F.silu(z).to(x.dtype)  # the activated input rounds to the io dtype
     y = torch.cat([_conv_nhwc(z[..., :c], wp, bp), _conv_nhwc(z[..., c:], ws, bs)], dim=-1)
     return y.to(x.dtype), _channel_sums(y)
@@ -549,6 +553,51 @@ def _run_dual(x, params, spec, layer):
     return y
 
 
+# Saved tensors of fewer elements stay as they are (weights, statistics).
+_PACK_MIN = 1 << 20
+
+
+def _pack_exact_bf16(t):
+    """saved_tensors_hooks pack for the bf16 twin's recompute: an f32 tensor
+    made by widening a bf16 one (``ToCopyBackward0``: the conv input of
+    ``_conv_nhwc``, the channel sums' input), or a reflect pad of one, holds
+    only bf16 values, so it is kept as bf16, half the bytes, and widened back
+    exactly when the backward reads it. In the twin every widening copy to
+    f32 starts from bf16 (its inputs and parameters are bf16; the f32
+    statistics are never copied to f32 again). Any other tensor is kept as
+    it is."""
+    fn = t.grad_fn
+    if t.dtype == torch.float32 and t.numel() >= _PACK_MIN and fn is not None:
+        if fn.name() == "ReflectionPad2DBackward0":
+            fn = fn.next_functions[0][0]
+        if fn is not None and fn.name() == "ToCopyBackward0":
+            return t.to(torch.bfloat16), True
+    return t, False
+
+
+def _unpack_exact_bf16(packed):
+    t, narrowed = packed
+    return t.float() if narrowed else t
+
+
+def _twin_grads(saved, needs, specs, g):
+    """The gradients of the stacks' plain twin (``_stacks_ref``) at the
+    saved input and parameters. With a bf16 input the recompute keeps its
+    f32 widenings of bf16 activations as bf16 (:func:`_pack_exact_bf16`):
+    the backward reads the same values, and the twin's saved activations
+    take less memory (the JAX package's twin saves bf16 activations: its
+    convs run in bf16)."""
+    inputs = [t.detach().requires_grad_(n) for t, n in zip(saved, needs)]
+    with torch.enable_grad():
+        if inputs[0].dtype == torch.bfloat16:
+            with torch.autograd.graph.saved_tensors_hooks(_pack_exact_bf16,
+                                                          _unpack_exact_bf16):
+                out = _stacks_ref(inputs[0], inputs[1:], specs)
+        else:
+            out = _stacks_ref(inputs[0], inputs[1:], specs)
+    return _grads((out,), (g,), inputs)
+
+
 class _FusedStacks(torch.autograd.Function):
     """One or more encoder stacks on K1; with several, their outputs are
     packed side by side in one buffer by the last layer of each. With
@@ -574,12 +623,8 @@ class _FusedStacks(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        saved = ctx.saved_tensors
         needs = (ctx.needs_input_grad[0],) + ctx.needs_input_grad[3:]
-        inputs = [t.detach().requires_grad_(n) for t, n in zip(saved, needs)]
-        with torch.enable_grad():
-            out = _stacks_ref(inputs[0], inputs[1:], ctx.specs)
-        grads = _grads((out,), (g,), inputs)
+        grads = _twin_grads(ctx.saved_tensors, needs, ctx.specs, g)
         return (grads[0], None, None, *grads[1:])
 
 

@@ -6,7 +6,7 @@ e.g.
 
     python -m naf_torch.train synthetic=true img_size=448 train_steps=20
     python -m naf_torch.train dataroot=/data train_steps=25000
-    python -m naf_torch.train synthetic=true device=cpu img_size=56 train_steps=2 \\
+    python -m naf_torch.train synthetic=true device=cpu img_size=112 train_steps=2 \\
         model.dim=32 model.heads_attn=2 model.heads_rope=2 model.kernel_size=5 \\
         backbone.depth=1 backbone.embed_dim=64 train_dataloader.batch_size=1
 
@@ -19,10 +19,23 @@ runs one step; ``device`` defaults to ``cuda``. Only ``model=naf`` is ported.
 ``img_size`` must be a multiple of the backbone's patch (14 for DINOv2):
 ``config/base.yaml``'s 512 is not, and the ViT raises on it, as the JAX
 package's does.
+
+Data parallelism (``mesh=auto|data|none``, the JAX CLI's switch): launch one
+process per rank with torchrun,
+
+    torchrun --nproc_per_node 2 -m naf_torch.train mesh=data synthetic=true img_size=448
+
+``mesh=auto`` (the default) trains data parallel over the ``WORLD_SIZE``
+ranks when there are several and the batch divides among them; ``mesh=data``
+raises where it does not; ``mesh=none``, or a single rank, trains in one
+process. Without a mesh only rank 0 of a multi-process launch trains. Each
+rank takes ``cuda:LOCAL_RANK`` (NCCL, a card each; gloo where ranks share a
+card); with ``device=cpu`` the ranks run gloo on the CPU.
 """
 
 from __future__ import annotations
 
+import os
 import sys
 
 import numpy as np
@@ -66,11 +79,42 @@ def build_model(model_cfg: dict) -> NAF:
     return NAF(**{k: model_cfg[k] for k in _MODEL_KEYS if k in model_cfg})
 
 
+def build_mesh(mesh_cfg, batch_size: int, device="cuda"):
+    """The data-parallel mesh of ``mesh=auto|data|none`` (the JAX CLI's
+    ``build_mesh``) over the ``WORLD_SIZE`` ranks of a torchrun launch, or
+    None for one process. ``auto``: data parallel when there are several
+    ranks and the batch divides among them, else None; ``data``: raises
+    where the batch does not divide. A mesh joins this rank's process group
+    (``naf_torch.parallel.init_distributed``) on ``device``."""
+    if mesh_cfg in (None, False, "none", "off"):
+        return None
+    if mesh_cfg not in ("auto", "data"):
+        raise ValueError(f"mesh must be auto, data or none, got {mesh_cfg!r}")
+    n = int(os.environ.get("WORLD_SIZE", 1))
+    if n <= 1:
+        return None
+    if batch_size % n:
+        if mesh_cfg == "data":
+            raise ValueError(f"mesh=data needs batch_size % ranks == 0 (batch {batch_size}, "
+                             f"ranks {n})")
+        return None
+    from naf_torch.parallel import init_distributed, make_mesh
+
+    init_distributed(device)
+    print(f"data-parallel mesh over {n} ranks", flush=True)
+    return make_mesh(data=n, space=1)
+
+
 def main(argv):
     overrides = [a for a in argv if "=" in a]
     cfg = load_config("base", overrides)
     device = cfg.get("device", "cuda")
     use_bf16 = bool(cfg.get("use_bf16", True))
+    mesh = build_mesh(cfg.get("mesh", "auto"), cfg["train_dataloader"]["batch_size"], device)
+    if mesh is None and int(os.environ.get("RANK", 0)):
+        print(f"rank {os.environ['RANK']}: no data-parallel mesh; rank 0 trains alone",
+              flush=True)
+        return None
     backbone = load_multiple_backbones(
         cfg["backbone"], dtype=torch.bfloat16 if use_bf16 else torch.float32, device=device)[0]
     model = build_model(cfg["model"])
@@ -102,7 +146,11 @@ def main(argv):
     data = (synthetic_images(tcfg.batch_size, tcfg.img_size) if cfg.get("synthetic")
             else folder_images(cfg))
     model = train_upsampler(model, backbone, data, tcfg, params=params, opt_state=opt_state,
-                            start_step=start, device=device)
+                            start_step=start, device=device, mesh=mesh)
+    if mesh is not None:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
     print(f"done; checkpoints + metrics in {tcfg.log_dir}")
     return model
 

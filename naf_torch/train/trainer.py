@@ -28,11 +28,21 @@ call of :func:`make_train_chunk`, each batch gathered on the device by an
 index vector and the chunk's losses read once at its end; ``lr_size`` is
 drawn per chunk, as the JAX package's scanned chunk draws it.
 
-Not ported yet: the data-parallel ``mesh``.
+With ``mesh`` (``naf_torch.parallel.make_mesh``, one process per rank) the
+step is data parallel: each rank takes its shard of every global batch along
+the mesh's ``cfg.data_axis``, and the gradients are averaged over that
+group by an explicit ``all_reduce`` in f32 between the backward and the
+optimizer, so N ranks take the one-process step on the whole batch. The
+model is not wrapped in ``DistributedDataParallel``: the step runs it
+through ``functional_call`` on bf16 casts of the masters (and under
+``torch.utils.checkpoint``), a forward DDP's reducer does not see. Only the
+group's first rank writes the run directory, metrics, panels and
+checkpoints.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -41,6 +51,7 @@ from typing import Iterator, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.func import functional_call
 from torch.profiler import record_function
 
@@ -49,6 +60,7 @@ from naf_torch.backbones.wrapper import IMAGENET_DEFAULT_MEAN, IMAGENET_DEFAULT_
 from naf_torch.data.device_cache import index_batches
 from naf_torch.nn.rope import RopeDraws
 from naf_torch.ops.resize import resize_bilinear
+from naf_torch.parallel import replicate, shard_batch
 from naf_torch.train.distill import sample_lr_size
 from naf_torch.train.losses import mse_loss
 
@@ -75,6 +87,7 @@ class TrainConfig:
     viz_every: Optional[int] = None  # default: ckpt_every; 0 disables
     log_dir: str = "runs/naf"
     seed: int = 0
+    data_axis: str = "data"  # the mesh dim the batch shards over
 
 
 def step_generator(seed: int, step: int, device="cpu") -> torch.Generator:
@@ -93,12 +106,25 @@ def _cast_params(model, dtype):
     return {k: p.to(dtype) for k, p in model.named_parameters()}
 
 
+def _mean_over(group, tensors) -> None:
+    """Replace each tensor by its mean over the ranks of ``group``, in place,
+    with one ``all_reduce`` of an f32 bucket."""
+    flat = torch.cat([t.reshape(-1).float() for t in tensors])
+    dist.all_reduce(flat, group=group)
+    flat /= dist.get_world_size(group)
+    for t, part in zip(tensors, flat.split([t.numel() for t in tensors])):
+        t.copy_(part.view_as(t))
+
+
 def make_train_step(model, backbone, optimizer, use_bf16: bool,
-                    use_checkpointing: bool = False, seed: int = 0):
+                    use_checkpointing: bool = False, seed: int = 0, grad_group=None):
     """Returns ``step(image_ups, image_back, step_idx, lr_size, out_hw,
     crop_hw, draws=None) -> loss``: one distillation step that updates the
     model's parameters and the optimizer in place. ``draws`` (a
-    ``RopeDraws``) replaces the step's own augmentation draw."""
+    ``RopeDraws``) replaces the step's own augmentation draw. With
+    ``grad_group`` (a process group of data-parallel ranks, each stepping on
+    its equal shard of the batch) the gradients and the returned loss are
+    their means over the group before the optimizer runs."""
     dtype = torch.bfloat16 if use_bf16 else torch.float32
     rope = model.image_encoder.rope
 
@@ -128,9 +154,17 @@ def make_train_step(model, backbone, optimizer, use_bf16: bool,
         with record_function("naf.backward"):
             optimizer.zero_grad(set_to_none=True)
             loss.backward()
+            loss = loss.detach()
+            if grad_group is not None:
+                for p in model.parameters():
+                    if p.grad is None:
+                        p.grad = torch.zeros_like(p)
+                mean_loss = loss.float().reshape(1).clone()
+                _mean_over(grad_group, [*(p.grad for p in model.parameters()), mean_loss])
+                loss = mean_loss[0]
         with record_function("naf.optimizer"):
             optimizer.step()
-        return loss.detach()
+        return loss
 
     return step
 
@@ -187,7 +221,7 @@ def train_upsampler(model, backbone, data_iter: Optional[Iterator[np.ndarray]],
                     cfg: TrainConfig, params: Optional[dict] = None,
                     opt_state: Optional[dict] = None, start_step: int = 0, device="cuda",
                     device_stack: Optional[torch.Tensor] = None,
-                    batch_size: Optional[int] = None):
+                    batch_size: Optional[int] = None, mesh=None):
     """Train ``model`` against the frozen ``backbone`` on images from
     ``data_iter`` (NHWC float [0, 1], (B, img_size, img_size, 3)), on
     ``device`` (CUDA unless asked otherwise; without CUDA it raises).
@@ -199,22 +233,33 @@ def train_upsampler(model, backbone, data_iter: Optional[Iterator[np.ndarray]],
     (default ``cfg.batch_size``) in the JAX package's epoch order, gathered
     on the device, ``log_every`` steps per chunk (:func:`make_train_chunk`),
     with the chunk's last loss logged and panels and checkpoints at the
-    chunk that reaches their step. Returns the model, its parameters f32 on
+    chunk that reaches their step. ``mesh`` (a ``naf_torch.parallel``
+    mesh; this process is one of its ranks, on ``device``) trains data
+    parallel over ``cfg.data_axis``: each rank steps on its shard of every
+    batch ``data_iter`` yields (the whole batch, the same on every rank),
+    the gradients and the logged loss are means over the ranks, and only
+    the first rank writes. Returns the model, its parameters f32 on
     ``device``."""
     dev = _device(device)
     if device_stack is not None and start_step:
         raise ValueError("the device-stack route starts at step 0, as the JAX package's does")
+    if device_stack is not None and mesh is not None:
+        raise ValueError("device_stack and mesh are mutually exclusive")
     if params is None:
         _init_weights(model, cfg.seed)
     else:
         model.load_state_dict(params)
     model.to(dev, torch.float32)
     backbone.to(dev)
+    writer = mesh is None or dist.get_rank() == 0
+    if mesh is not None:
+        replicate(mesh, model)
     optimizer = make_optimizer(model, cfg)
     if opt_state is not None:
         optimizer.load_state_dict(opt_state)
     step_fn = make_train_step(model, backbone, optimizer, cfg.use_bf16,
-                              cfg.use_checkpointing, seed=cfg.seed)
+                              cfg.use_checkpointing, seed=cfg.seed,
+                              grad_group=None if mesh is None else mesh.get_group(cfg.data_axis))
 
     rng = np.random.RandomState(cfg.seed)
     ps = backbone.patch_size
@@ -225,7 +270,7 @@ def train_upsampler(model, backbone, data_iter: Optional[Iterator[np.ndarray]],
     im_mean, im_std = stats(IMAGENET_DEFAULT_MEAN), stats(IMAGENET_DEFAULT_STD)
     b_mean, b_std = stats(backbone.config["mean"]), stats(backbone.config["std"])
 
-    log_dir = versioned_dir(cfg.log_dir)
+    log_dir = versioned_dir(cfg.log_dir) if writer else None
     ckpt_every = cfg.ckpt_every or max(cfg.train_steps // 4, 1)
     viz_every = ckpt_every if cfg.viz_every is None else cfg.viz_every
     t0 = time.time()
@@ -243,7 +288,9 @@ def train_upsampler(model, backbone, data_iter: Optional[Iterator[np.ndarray]],
                        cfg, rng, ps, (im_mean, im_std), (b_mean, b_std), log_dir, ckpt_every,
                        viz_every, panel, t0)
         return model
-    with open(os.path.join(log_dir, "metrics.jsonl"), "a") as mf:
+    metrics = (open(os.path.join(log_dir, "metrics.jsonl"), "a") if writer
+               else contextlib.nullcontext())
+    with metrics as mf:
         for step in range(start_step, cfg.train_steps):
             batch = next(data_iter)
             img = torch.as_tensor(np.asarray(batch), dtype=torch.float32).to(dev)
@@ -252,15 +299,19 @@ def train_upsampler(model, backbone, data_iter: Optional[Iterator[np.ndarray]],
             lr_size = sample_lr_size(tuple(img.shape[1:3]), ps, cfg.down_factor, rng)
             hr_hw = (img.shape[1] // ps, img.shape[2] // ps)
             crop_hw = tuple(min(224, 4 * v) for v in hr_hw)
-            loss = step_fn(img_ups, img_back, step, lr_size, hr_hw, crop_hw)
+            x_ups, x_back = ((img_ups, img_back) if mesh is None else
+                             (shard_batch(mesh, img_ups), shard_batch(mesh, img_back)))
+            loss = step_fn(x_ups, x_back, step, lr_size, hr_hw, crop_hw)
 
-            if step % cfg.log_every == 0:
+            if step % cfg.log_every == 0 and writer:
                 loss_v = float(loss)
                 rec = {"step": step, "loss": loss_v, "lr_size": list(lr_size),
                        "elapsed_s": round(time.time() - t0, 1)}
                 mf.write(json.dumps(rec) + "\n")
                 mf.flush()
                 print(f"step {step}/{cfg.train_steps} loss {loss_v:.5f}", flush=True)
+            if not writer:
+                continue
             if viz_every and ((step + 1) % viz_every == 0 or step + 1 == cfg.train_steps):
                 panel(step + 1, img, img_ups, img_back, lr_size, hr_hw, crop_hw)
             if (step + 1) % ckpt_every == 0 or step + 1 == cfg.train_steps:
