@@ -174,6 +174,29 @@ Phase 17 runs after phase 15, before phase 8:
    <= 1e-2; f32 rel <= 1e-5, gradient cosine >= 0.999999); one rank in an
    NCCL world takes the f32 step. Per-rank times and peaks.
 
+Phases 18-19 run after phase 17, before phase 8:
+
+18. the backbones: every name of the port's backbone registry and
+   ``vit_small_patch16_224`` (the real-shard evals' backbone) with seeded
+   random weights at full width and its own input size, bf16 on the card
+   against an f32 copy on the CPU (cosine > 0.999), one f32 card run per
+   RoPE style against the CPU (atol = rtol = 1e-3, TF32 off), each name's
+   forward ms and own peak; the reference's LargeImg request
+   (``naf_tpu/bench/harness.py:233-299``): ``vit_base_patch16_224.dino`` on
+   the 448^2 bilinear downsample of a 896^2 and a 1792^2 image, the
+   production ``NAF()`` to the full image in bf16, 8 K1 and 1 K2 per
+   forward, the backbone's, NAF's and the request's ms, peak and profiles;
+   896^2 held against an f32 CPU copy, 1792^2 against the card's f32 plain
+   path (cosine > 0.999); the reference's A100 40GB times printed as context;
+19. the evaluation path on the committed real shard through the port's CLIs
+   at ``evaluation/eval_real_shard.py``'s arguments (f32): seg probing for
+   NAF and bilinear, DAVIS J&F for NAF, each beside the JAX package's number
+   in ``benchmarks/real_eval.json`` (other random weights: not a parity
+   check); then the full-width probe (DINOv3 ViT-B/16 at 448^2, NAF bf16,
+   8 epochs); every NAF forward on 8 K1 and 1 K2, the bilinear probe on
+   none; each run's time, time per epoch and peak. Phases 18-19 print their
+   own wall time.
+
 Prints a JSON line of per-kernel numbers, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``. Exits non-zero on any failure,
 and when no CUDA device is present. Imports nothing of JAX.
@@ -1786,8 +1809,25 @@ def phase_banded_kernels(dev):
         plain3 = _time_ms(lambda: cross_scale_na2d_fused_ref(qb, kb, vb, 9, **b3), iters=3)
     print(f"K3 banded 448^2 <- 28^2, rows [128, 192): f32 max_abs_err {e3:.3e}; bf16 cos "
           f"{c3:.6f}; bf16 {ms3:.4f} ms, plain {plain3:.4f} ms", flush=True)
-    return (dict(max_abs_err=max(e_slab, e_acc), ms=ms2, plain_ms=plain2),
-            dict(max_abs_err=e3, ms=ms3, plain_ms=plain3))
+    # bounds (bf16): each band's own inputs read once (its encoder or query
+    # rows, the key/value cell rows its windows reach, its table rows) and
+    # its output rows written once, against the card's peaks
+    bw, fl = _peaks(torch.cuda.get_device_name(0))
+
+    def bound(nbytes, flops):
+        return dict(bound_ms=max(nbytes / bw, flops / fl) * 1e3,
+                    bound_by="bytes" if nbytes / bw > flops / fl else "operations")
+
+    kv2 = min(128, 48 + 16 + 4) - max(0, 48 - 4)
+    k2b = bound(2 * (eh * 448 * 256 + kv2 * 128 * (256 + 384) + bh * 2048 * 384)
+                + 4 * (bh + 2048) * rt.shape[1], 2 * bh * 2048 * 4 * 81 * (64 + 96))
+    kv3 = min(28, 8 + 4 + 4) - max(0, 8 - 4)
+    k3b = bound(2 * (q.numel() + kv3 * 28 * 4 * (64 + 96) + 64 * 448 * 4 * 96),
+                2 * 64 * 448 * 4 * 81 * (64 + 96))
+    print(f"bounds of the banded calls (bf16): K2 {k2b['bound_ms']:.4f} ms ({k2b['bound_by']}), "
+          f"K3 {k3b['bound_ms']:.4f} ms ({k3b['bound_by']})", flush=True)
+    return (dict(max_abs_err=max(e_slab, e_acc), ms=ms2, plain_ms=plain2, **k2b),
+            dict(max_abs_err=e3, ms=ms3, plain_ms=plain3, **k3b))
 
 
 def _nhwc_request(dev, gen, img, lr, cv=384):
@@ -2630,6 +2670,254 @@ def phase_parallel(dev, card):
     return launches, res
 
 
+# the backbones of phase 18: every name of the port's registry, and the
+# real-shard evals' backbone (evaluation/eval_real_shard.py:49,63)
+EVAL_BACKBONE = "vit_small_patch16_224"
+# the reference's LargeImg request (naf_tpu/bench/harness.py:233-299): a
+# ViT-B/16 DINO on the 448^2 bilinear downsample, the production NAF to the
+# full image; (output side, ratio) and the reference's A100 40GB times
+# (harness.py:238-239), printed as context only
+LARGE_IMG = ((896, 2, "cpu"), (1792, 4, "card"))  # and where its f32 reference runs
+LARGE_IMG_BACKBONE = "vit_base_patch16_224.dino"
+LARGE_IMG_A100_MS = {896: 110.05, 1792: 1035.68}
+# the full-width probe of phase 19: DINOv3 ViT-B/16 (768 wide, 4 registers,
+# RoPE) at 448^2, NAF in bf16
+FULL_PROBE = ["img_size=448", "backbone.name=vit_base_patch16_dinov3.lvd1689m", "dtype=bfloat16"]
+
+
+def phase_backbones(dev, card):
+    """Phase 18, the backbones: every registry name and the real-shard
+    evals' backbone with seeded random weights at full width and its own
+    input size, bf16 on the card against an f32 copy on the CPU (cosine >
+    0.999); one f32 card run per RoPE style (none, rotate-half,
+    interleaved) against the CPU at atol = rtol = 1e-3 (TF32 off); each
+    name's forward ms (CUDA events, 5 forwards) and own peak."""
+    from naf_torch.backbones import BACKBONE_REGISTRY, PretrainedViTWrapper
+
+    res, styles = {}, {}
+    for name in sorted(BACKBONE_REGISTRY) + [EVAL_BACKBONE]:
+        cpu = PretrainedViTWrapper(name, device="cpu", seed=0)
+        size = cpu.config["input_size"][1]
+        x = torch.randn(1, size, size, 3, generator=torch.Generator().manual_seed(7))
+        with torch.inference_mode():
+            want = cpu(x)
+        del cpu
+        bb = PretrainedViTWrapper(name, device=dev, dtype=torch.bfloat16, seed=0)
+        xb = x.to(dev, torch.bfloat16)
+        with torch.inference_mode():
+            got = bb(xb).float().cpu()
+            c = _check_cos(f"{name} bf16 card vs f32 CPU", got, want, 0.999)
+            ms = _time_ms(lambda: bb(xb), iters=5)
+            peak = _peak_mib(lambda: bb(xb))
+        cfg = bb.vit_config
+        style = "none" if cfg.rope_theta is None else cfg.rope_style
+        rec = dict(input=size, width=cfg.embed_dim, heads=cfg.num_heads, rope=style,
+                   registers=cfg.num_reg_tokens, ms=ms, peak_mib=peak, cos_cpu=c)
+        del bb
+        if style not in styles:
+            f32 = PretrainedViTWrapper(name, device=dev, seed=0)
+            with torch.inference_mode():
+                rec["f32_max_abs_err"] = _check_close(f"{name} f32 card vs CPU",
+                                                      f32(x.to(dev)).cpu(), want, 1e-3)
+            styles[style] = name
+            del f32
+        print(f"backbone {name}: {size}^2, width {cfg.embed_dim}, {cfg.num_heads} heads, RoPE "
+              f"{style}, {cfg.num_reg_tokens} registers; bf16 {ms:.3f} ms, peak {peak:.1f} MiB, "
+              f"cos vs CPU f32 {c:.6f}"
+              + (f"; f32 max abs err vs CPU {rec['f32_max_abs_err']:.2e}"
+                 if "f32_max_abs_err" in rec else "") + f" ({card})", flush=True)
+        res[name] = rec
+    return res
+
+
+def _naf_plain(model, image, feats, out):
+    """The NAF fused path's plain version on the card: both encoder stacks
+    by their modules' own forward (GroupNorm, SiLU, conv; no K1), the keys
+    and tables as the fused path builds them, then K2's plain version."""
+    from naf_torch.kernels.na2d_fused_q import naf_upsample_attention_ref
+
+    ie = model.image_encoder
+    if tuple(image.shape[1:3]) != ie.guard_size(*image.shape[1:3], *out):
+        raise ValueError("the plain path here takes no input guard")
+    enc = torch.cat([ie.encoder(image), ie.sem_encoder(image)], dim=-1)
+    keys = ie.rope.pooled(enc, out, tuple(feats.shape[1:3]))
+    sin_r, cos_r, sin_c, cos_c = ie.rope.tables(*out)
+    return naf_upsample_attention_ref(
+        enc, keys, feats, torch.cat([cos_r, sin_r], dim=-1), torch.cat([cos_c, sin_c], dim=-1),
+        ie.rope.d_head, num_heads=model.heads_attn, kernel_size=model.kernel_size)
+
+
+def phase_large_img(dev, card):
+    """Phase 18, the reference's LargeImg request: ``vit_base_patch16_224.dino``
+    on the 448^2 bilinear downsample (``jax.image.resize``'s "linear") of a
+    896^2 / 1792^2 image, then the production ``NAF()`` to the full image,
+    bf16, batch 1, with 8 K1 and 1 K2 (wgmma) per forward; the backbone's,
+    NAF's and the request's ms (CUDA events, 5 calls), the request's own
+    peak, and torch.profiler's device time of the backbone and the request
+    by kernel; 896^2 held against an f32 CPU copy, 1792^2 against the card's f32
+    plain path (cosine > 0.999)."""
+    from naf_torch import load_naf_params
+    from naf_torch.backbones import PretrainedViTWrapper
+    from naf_torch.backbones.vit import resize_jax
+
+    bb = PretrainedViTWrapper(LARGE_IMG_BACKBONE, device=dev, dtype=torch.bfloat16, seed=0)
+    model = load_naf_params(seed=0, device=dev, dtype=torch.bfloat16)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    res, launches = {}, {"k1": 0, "k2": 0}
+    for out, ratio, ref_on in LARGE_IMG:
+        image = torch.randn(1, out, out, 3, generator=gen, device=dev).bfloat16()
+        lr_side = out // ratio
+
+        def backbone(image=image, lr_side=lr_side):
+            return bb(resize_jax(image, (lr_side, lr_side), "linear").bfloat16())
+
+        def request(image=image, out=out):
+            return model(image, backbone(), (out, out))
+
+        with torch.inference_mode():
+            torch.cuda.synchronize()
+            _zero_counts()
+            got = request()
+            torch.cuda.synchronize()
+            counts = _all_counts()
+            if (counts["k1"], counts["k2"], counts["k2_wgmma"]) != (8, 1, 1):
+                raise AssertionError(f"LargeImg {out}^2 launched {counts}, want 8 K1, 1 K2 "
+                                     "(wgmma)")
+            launches["k1"] += counts["k1"]
+            launches["k2"] += counts["k2"]
+            feats = backbone()
+            bb_ms = _time_ms(backbone, iters=5)
+            naf_ms = _time_ms(lambda: model(image, feats, (out, out)), iters=5)
+            total_ms = _time_ms(request, iters=5)
+            del feats
+            peak = _peak_mib(request)
+            prof_bb = _profile(backbone, f"LargeImg {out}^2 backbone")
+            prof = _profile(request, f"LargeImg {out}^2 request")
+            if got.shape != (1, out, out, 768) or not bool(got.isfinite().all()):
+                raise AssertionError(f"LargeImg {out}^2: bad output {tuple(got.shape)}")
+            image32 = image.float()
+            if ref_on == "cpu":
+                cpu_bb = PretrainedViTWrapper(LARGE_IMG_BACKBONE, device="cpu", seed=0)
+                cpu_model = load_naf_params(seed=0, device="cpu")
+                x = image32.cpu()
+                want = cpu_model(x, cpu_bb(resize_jax(x, (lr_side, lr_side), "linear")), (out, out))
+                ref = "f32 CPU copy"
+                got = got.float().cpu()
+            else:
+                bb32 = PretrainedViTWrapper(LARGE_IMG_BACKBONE, device=dev, seed=0)
+                m32 = load_naf_params(seed=0, device=dev)
+                want = _naf_plain(m32, image32, bb32(resize_jax(image32, (lr_side, lr_side),
+                                                                 "linear")), (out, out))
+                ref = "card f32 plain path"
+                del bb32, m32
+            c = _check_cos(f"LargeImg {out}^2 bf16 vs {ref}", got.float(), want, 0.999)
+            del got, want
+        res[str(out)] = dict(ratio=ratio, backbone_ms=bb_ms, naf_ms=naf_ms, total_ms=total_ms,
+                             peak_mib=peak, cos=c, against=ref, profile=prof,
+                             backbone_profile=prof_bb,
+                             a100_40gb_reference_ms=LARGE_IMG_A100_MS[out])
+        print(f"LargeImg {out}^2 (ratio {ratio}, ViT-B/16 at {lr_side}^2 -> {lr_side // 16}^2 x "
+              f"768, NAF bf16 batch 1): backbone {bb_ms:.3f} ms, NAF {naf_ms:.3f} ms, total {total_ms:.3f} ms, "
+              f"peak {peak:.1f} MiB; launches K1 8, K2 1 (wgmma); cos vs {ref} {c:.6f} ({card}); "
+              f"the reference's A100 40GB time {LARGE_IMG_A100_MS[out]} ms is context, not a "
+              "target", flush=True)
+        torch.cuda.empty_cache()
+    return launches, res
+
+
+class _NafForwards:
+    """Counts K1 and K2 launches per ``NAF.forward`` while active: every
+    call's (K1, K2) in ``calls``."""
+
+    def __enter__(self):
+        from naf_torch.models.naf import NAF
+
+        self.calls, self._orig = [], NAF.forward
+        orig, calls = self._orig, self.calls
+
+        def forward(model, *args, **kwargs):
+            before = _all_counts()
+            out = orig(model, *args, **kwargs)
+            after = _all_counts()
+            calls.append((after["k1"] - before["k1"], after["k2"] - before["k2"]))
+            return out
+
+        NAF.forward = forward
+        return self
+
+    def __exit__(self, *exc):
+        from naf_torch.models.naf import NAF
+
+        NAF.forward = self._orig
+
+
+def _eval_run(label, fn, argv, naf_forwards: bool):
+    """One eval CLI run with its launch counts zeroed before and read after:
+    every NAF forward on 8 K1 and 1 K2, or (bilinear) no launch at all.
+    Returns (its result, seconds, peak MiB, NAF forwards)."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    t0 = time.perf_counter()
+    with _NafForwards() as rec:
+        out = fn(argv)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = _all_counts()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+    if naf_forwards:
+        if not rec.calls or any(c != (8, 1) for c in rec.calls):
+            raise AssertionError(f"{label}: NAF forwards launched {set(rec.calls)} (K1, K2), "
+                                 "want (8, 1) each")
+        if (counts["k1"], counts["k2"]) != (8 * len(rec.calls), len(rec.calls)):
+            raise AssertionError(f"{label}: {counts} outside the NAF forwards")
+    elif rec.calls or counts["k1"] or counts["k2"]:
+        raise AssertionError(f"{label}: launched {counts} with no NAF forward expected")
+    return out, secs, peak, len(rec.calls)
+
+
+def phase_evals(dev, card):
+    """Phase 19, the evaluation path on the committed real shard through the
+    port's CLIs at ``evaluation/eval_real_shard.py``'s arguments (f32, as
+    the JAX CLIs run): seg probing for ``naf`` and ``bilinear`` and DAVIS J&F
+    for ``naf``, each metric printed beside the JAX package's number in
+    ``benchmarks/real_eval.json`` (different random weights: not a parity
+    check); then the full-width probe (DINOv3 ViT-B/16 at 448^2, NAF bf16 ->
+    448^2, 8 epochs) with its IoU, time per epoch and peak. Every NAF
+    forward launches 8 K1 and 1 K2; the bilinear probe launches none."""
+    from naf_torch.evals import real_shard, seg_probing, video_seg
+
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "benchmarks",
+                           "real_eval.json")) as f:
+        jax_numbers = json.load(f)
+    note = "different random weights, not a parity check"
+    res, launches = {}, {"k1": 0, "k2": 0}
+    runs = [("seg_probing_naf", seg_probing.main, real_shard.seg_args("naf"), True),
+            ("seg_probing_bilinear", seg_probing.main, real_shard.seg_args("bilinear"), False),
+            ("davis_jf_naf", video_seg.main, real_shard.video_args(), True),
+            ("seg_probing_dinov3_b16_448_bf16", seg_probing.main,
+             [*real_shard.seg_args("naf"), *FULL_PROBE], True)]
+    for label, fn, argv, naf_forwards in runs:
+        out, secs, peak, n = _eval_run(label, fn, argv, naf_forwards)
+        launches["k1"] += 8 * n
+        launches["k2"] += n
+        rec = dict(out, seconds=secs, peak_mib=peak, naf_forwards=n)
+        metric = "J&F-Mean" if label.startswith("davis") else "iou"
+        jax_val = jax_numbers.get(label, {}).get(metric)
+        beside = (f"JAX package {jax_val:.4f} ({note})" if jax_val is not None
+                  else "no JAX number")
+        epochs = (f", {sum(out['epoch_s']) / len(out['epoch_s']):.3f} s an epoch"
+                  if "epoch_s" in out else "")
+        kernels = (f"{n} NAF forwards at 8 K1 + 1 K2 each" if naf_forwards
+                   else "no K1 or K2 launch")
+        print(f"eval {label}: {metric} {out[metric]:.4f} ({beside}); {secs:.1f} s{epochs}, "
+              f"peak {peak:.1f} MiB, {kernels} ({card})", flush=True)
+        res[label] = rec
+    return launches, res
+
+
 def _sass(name: str) -> str:
     """The SASS of a kernel library, from the cuobjdump of the toolkit whose
     nvcc built it."""
@@ -2761,6 +3049,13 @@ def main() -> int:
         den_launches, denoiser = phase_denoiser(dev, card, work)
         restorers = phase_restorers(dev, card, work)
     par_launches, parallel = phase_parallel(dev, card)
+    torch.cuda.empty_cache()
+    t18 = time.perf_counter()
+    backbones = phase_backbones(dev, card)
+    large_launches, large_img = phase_large_img(dev, card)
+    eval_launches, evals = phase_evals(dev, card)
+    print(f"phases 18-19 (backbones, LargeImg, evals): {time.perf_counter() - t18:.1f} s",
+          flush=True)
     timing = _phase_timing_fresh()
 
     k1, k1b = timing["k1_k3"], timing["k1_k1"]
@@ -2830,6 +3125,10 @@ def main() -> int:
     # phase 17: both ranks' sharded forwards (8 K1 and 1 K2 on each rank)
     kernels[0]["launches_parallel"] = par_launches["k1"]
     kernels[1]["launches_parallel"] = par_launches["k2"]
+    # phases 18-19: the LargeImg requests and the evals' NAF forwards
+    for i, name in ((0, "k1"), (1, "k2")):
+        kernels[i]["launches_large_img"] = large_launches[name]
+        kernels[i]["launches_evals"] = eval_launches[name]
     kernels[1].update({"launches_banded": band_launches["k2"],
                        **{f"{k}_banded": v for k, v in k2_band.items()}})
     kernels[2].update({"launches_anyup": base_launches["k3"],
@@ -2860,7 +3159,8 @@ def main() -> int:
                       "baselines": baselines, "k5_splits": k5_splits, "dual_route": dual,
                       "banded": banded, "naf_dim96_cos_cpu": c96, "k2_grad": timing["k2_grad"],
                       "denoiser": denoiser, "denoise_plans": den_kernels["plans"],
-                      "restorers": restorers, "parallel": parallel, "card": card}))
+                      "restorers": restorers, "parallel": parallel, "backbones": backbones,
+                      "large_img": large_img, "evals": evals, "card": card}))
     print(_card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

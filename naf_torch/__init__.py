@@ -13,14 +13,19 @@ The port of ``naf_tpu`` (JAX/Pallas), module by module under the same names:
                          ``models.registry.ModelWrapper``
 - ``naf_torch.api``      ``naf``, ``load_naf_params``, ``NAFUpsampler``,
                          ``naf_streamed`` (outputs above 2K, in row bands)
-- ``naf_torch.backbones`` the DINOv2 ViT and its wrapper (distillation targets)
+- ``naf_torch.backbones`` the ViT of every backbone family of the registry,
+                         its checkpoint converters and its wrapper
+- ``naf_torch.evals``    linear-probe segmentation, DAVIS label propagation
+                         and J&F, denoising metrics; ``python -m
+                         naf_torch.evals.{seg_probing,video_seg,real_shard}``
 - ``naf_torch.train``    self-distillation training (``python -m naf_torch.train``;
                          ``mesh=data`` under torchrun for data parallelism)
 - ``naf_torch.parallel`` the (data, space) mesh, the spatially sharded
                          forward, ``run_ranks``; ``python -m naf_torch.dryrun``
                          runs both over N ranks
 - ``naf_torch.config``, ``naf_torch.data``, ``naf_torch.utils``  the CLI's
-                         config loader, image-folder data and PCA panels
+                         config loader, image-folder and segmentation
+                         datasets, PCA panels
 
 Importing the package builds and loads nothing.
 """

@@ -50,12 +50,9 @@ def synthetic_images(batch_size: int, img_size: int, seed: int = 0):
 
 def build_denoiser(model_cfg: dict):
     """The port's model named by a ``config/model`` node (its ``_target_``
-    names the JAX class), with the node's keys that the model takes as
-    arguments; keys it does not take (another model's, as when one command
-    line serves every model) are named and left out."""
-    import inspect
-
+    names the JAX class), built by ``models.registry.instantiate``."""
     from naf_torch.models.naf import NAF
+    from naf_torch.models.registry import instantiate
     from naf_torch.models.restorers import IRCNN, REDNet
     from naf_torch.models.restormer import Restormer
 
@@ -63,12 +60,7 @@ def build_denoiser(model_cfg: dict):
     name = model_cfg.get("name", "naf")
     if name not in classes:
         raise ValueError(f"no denoising model {name!r} (have {sorted(classes)})")
-    takes = inspect.signature(classes[name]).parameters
-    keys = [k for k in model_cfg if k not in ("_target_", "name")]
-    unused = [k for k in keys if k not in takes]
-    if unused:
-        print(f"model={name} takes no {', '.join(unused)}; left out", flush=True)
-    return classes[name](**{k: model_cfg[k] for k in keys if k in takes})
+    return instantiate(classes[name], model_cfg, name)
 
 
 def denoise_config(cfg: dict) -> DenoiseConfig:

@@ -14,6 +14,7 @@ converted checkpoint and serves it like ``naf_torch.api.NAFUpsampler``:
 
 from __future__ import annotations
 
+import inspect
 from typing import Callable, Dict, Optional
 
 import torch
@@ -21,7 +22,8 @@ from torch import nn
 
 from naf_torch.api import _device, _init_weights
 
-__all__ = ["build_model", "ModelWrapper", "register", "MODEL_REGISTRY"]
+__all__ = ["build_model", "build_from_config", "instantiate", "ModelWrapper", "register",
+           "MODEL_REGISTRY"]
 
 def _factories() -> Dict[str, Callable]:
     from naf_torch.models.anyup import AnyUpsampler
@@ -61,6 +63,50 @@ def build_model(name: str, embed_dim: int = 384, ratio: int = 16) -> nn.Module:
     if name in factories:
         return factories[name](embed_dim, ratio)
     raise ValueError(f"Unknown upsampler: {name} (have {sorted(factories)})")
+
+
+# ``config/model`` names of the upsamplers that take (image, features, size),
+# and their registry names
+CONFIG_NAMES = {"naf": "NAF", "bilinear": "Bilinear", "nearest": "Nearest", "featup": "FeatUp",
+                "anyup": "AnyUp", "jafar": "JAFAR"}
+
+
+def instantiate(cls, model_cfg: dict, name: str) -> nn.Module:
+    """``cls`` built from a ``config/model`` node, as the JAX CLIs'
+    ``instantiate`` builds its ``_target_``: the node's keys that ``cls``
+    takes as arguments; keys it does not take (another model's, as when one
+    command line serves several models) are named and left out."""
+    takes = inspect.signature(cls).parameters
+    keys = [k for k in model_cfg if k not in ("_target_", "name")]
+    unused = [k for k in keys if k not in takes]
+    if unused:
+        print(f"model={name} takes no {', '.join(unused)}; left out", flush=True)
+    return cls(**{k: model_cfg[k] for k in keys if k in takes})
+
+
+def build_from_config(model_cfg: dict, checkpoint: Optional[str] = None,
+                      seed: int = 0) -> nn.Module:
+    """The upsampler of a ``config/model`` node: the port's class of the
+    registry entry its ``name`` names (``instantiate``), with the weights of
+    ``checkpoint``, or random ones drawn from ``seed``."""
+    from naf_torch.models.anyup import AnyUpsampler
+    from naf_torch.models.featup import FeatUp
+    from naf_torch.models.jafar import JAFAR
+    from naf_torch.models.naf import NAF
+    from naf_torch.models.simple import Bilinear, Nearest
+
+    classes = {"NAF": NAF, "Bilinear": Bilinear, "Nearest": Nearest, "FeatUp": FeatUp,
+               "AnyUp": AnyUpsampler, "JAFAR": JAFAR}
+    name = model_cfg.get("name")
+    if name not in CONFIG_NAMES:
+        raise NotImplementedError(f"model {name!r} is not an (image, features, size) upsampler "
+                                  f"of the registry (have {sorted(CONFIG_NAMES)})")
+    model = instantiate(classes[CONFIG_NAMES[name]], model_cfg, name)
+    if checkpoint is not None:
+        model.load_state_dict(_checkpoint_state(CONFIG_NAMES[name], checkpoint))
+    else:
+        _init_weights(model, seed)
+    return model
 
 
 def _checkpoint_state(name: str, path: str) -> dict:

@@ -110,8 +110,11 @@ def test_wrapper_loads_a_timm_state_dict_and_normalizes(tmp_path):
         device="cpu")
     assert len(random) == 2 and random[0].embed_dim == 768
     assert random[0].vit_config.pos_grid == 37 and random[0].vit_config.num_heads == 12
-    with pytest.raises(NotImplementedError, match="not ported"):
-        PretrainedViTWrapper("vit_base_patch16_dinov3.lvd1689m", device="cpu")
+    # every family resolves now: DINOv3 takes its RoPE, registers and no learned positions
+    dinov3 = PretrainedViTWrapper("vit_base_patch16_dinov3.lvd1689m", device="cpu", depth=1,
+                                  embed_dim=64, num_heads=2)
+    assert (dinov3.vit_config.rope_theta, dinov3.vit_config.num_reg_tokens) == (100.0, 4)
+    assert not hasattr(dinov3.model, "pos_embed")
 
 
 def test_lr_sizes_and_losses_match_jax():
