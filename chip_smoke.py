@@ -185,7 +185,10 @@ Phases 18-19 run after phase 17, before phase 8:
    (``naf_tpu/bench/harness.py:233-299``): ``vit_base_patch16_224.dino`` on
    the 448^2 bilinear downsample of a 896^2 and a 1792^2 image, the
    production ``NAF()`` to the full image in bf16, 8 K1 and 1 K2 per
-   forward, the backbone's, NAF's and the request's ms, peak and profiles;
+   forward, the backbone's, NAF's and the request's ms and the request's
+   peak (through the bench harness's ``benchmark_large_img`` on the same
+   two models, every NAF forward of it at 8 K1 and 1 K2: median, min and
+   max), profiles;
    896^2 held against an f32 CPU copy, 1792^2 against the card's f32 plain
    path (cosine > 0.999); the reference's A100 40GB times printed as context;
 19. the evaluation path on the committed real shard through the port's CLIs
@@ -197,7 +200,26 @@ Phases 18-19 run after phase 17, before phase 8:
    none; each run's time, time per epoch and peak. Phases 18-19 print their
    own wall time.
 
-Prints a JSON line of per-kernel numbers, the card's name and power limit,
+Phase 20 runs after phase 19, before phase 8:
+
+20. the reference sweep (``naf_tpu/bench/harness.py:31-36``) through the
+   port's harness (``naf_torch.bench.harness.run_sweep``, 2 samples of 2
+   calls a row): NAF in bf16 over ratio 2, 4, 8, 16, 32, embed_dim 128,
+   768, 1024 and img_size 112, 224, 896, and each of the six sweep models
+   at the defaults (448^2 + 28^2 x 384 -> 448^2) in f32, every row with the
+   reference's backward (a 1x1 head, an SGD step). Every row has its
+   forward and backward times or a skip the JAX package's own code raises,
+   never an error; every NAF forward launches 8 K1 and 1 K2 (bf16 on the
+   tensor cores), every NAF backward one K3 and K4 in the same bands each
+   step (K2's gradient; K4 bands its query rows above 1 GiB of partials); at
+   every NAF shape, on the harness's weights and inputs, the bf16 fused
+   forward and the gradients of the bench's loss through it (the features',
+   the head's and both encoder stacks' parameters') agree with the card's
+   f32 plain path (cosine > 0.999). Rows run with TF32 off (the harness's
+   default). The phase prints its wall time.
+
+Prints a JSON line of per-kernel numbers (``launches_bench`` on K1-K5: the
+launches of phase 20's rows), the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``. Exits non-zero on any failure,
 and when no CUDA device is present. Imports nothing of JAX.
 """
@@ -2731,14 +2753,15 @@ def phase_backbones(dev, card):
 
 
 def _naf_plain(model, image, feats, out):
-    """The NAF fused path's plain version on the card: both encoder stacks
-    by their modules' own forward (GroupNorm, SiLU, conv; no K1), the keys
-    and tables as the fused path builds them, then K2's plain version."""
+    """The NAF fused path's plain version on the card: the input guard's
+    bilinear downscale, both encoder stacks by their modules' own forward
+    (GroupNorm, SiLU, conv; no K1), the keys and tables as the fused path
+    builds them, then K2's plain version."""
     from naf_torch.kernels.na2d_fused_q import naf_upsample_attention_ref
+    from naf_torch.ops.resize import resize_bilinear
 
     ie = model.image_encoder
-    if tuple(image.shape[1:3]) != ie.guard_size(*image.shape[1:3], *out):
-        raise ValueError("the plain path here takes no input guard")
+    image = resize_bilinear(image, ie.guard_size(*image.shape[1:3], *out))
     enc = torch.cat([ie.encoder(image), ie.sem_encoder(image)], dim=-1)
     keys = ie.rope.pooled(enc, out, tuple(feats.shape[1:3]))
     sin_r, cos_r, sin_c, cos_c = ie.rope.tables(*out)
@@ -2747,15 +2770,39 @@ def _naf_plain(model, image, feats, out):
         ie.rope.d_head, num_heads=model.heads_attn, kernel_size=model.kernel_size)
 
 
-def phase_large_img(dev, card):
+def _large_img_row(dev, out, ratio, workdir, bb, model):
+    """The LargeImg request's row through the bench harness
+    (``benchmark_large_img`` on ``bb`` and ``model``: 3 samples of 5 calls
+    each); fails on a skip or an error row, or unless every NAF forward in
+    it launched 8 K1 and 1 K2 (wgmma). Returns the row and its forwards."""
+    from naf_torch.bench.harness import benchmark_large_img
+
+    _zero_counts()
+    with _NafForwards() as rec:
+        row = benchmark_large_img(out, ratio, dtype=torch.bfloat16, iters=5, repeats=3,
+                                  out_path=os.path.join(workdir, "large_img.json"), device=dev,
+                                  backbone=bb, naf=model)
+    counts = _all_counts()
+    if "fwd_ms" not in row:
+        raise AssertionError(f"LargeImg {out}^2: benchmark_large_img gave {row}")
+    if not rec.calls or any(c != (8, 1) for c in rec.calls) or \
+            counts["k2_wgmma"] != len(rec.calls):
+        raise AssertionError(f"LargeImg {out}^2: benchmark_large_img's NAF forwards launched "
+                             f"{set(rec.calls)} (K1, K2), {counts}; want (8, 1) each, wgmma")
+    return row, len(rec.calls)
+
+
+def phase_large_img(dev, card, workdir):
     """Phase 18, the reference's LargeImg request: ``vit_base_patch16_224.dino``
     on the 448^2 bilinear downsample (``jax.image.resize``'s "linear") of a
     896^2 / 1792^2 image, then the production ``NAF()`` to the full image,
     bf16, batch 1, with 8 K1 and 1 K2 (wgmma) per forward; the backbone's,
-    NAF's and the request's ms (CUDA events, 5 calls), the request's own
-    peak, and torch.profiler's device time of the backbone and the request
-    by kernel; 896^2 held against an f32 CPU copy, 1792^2 against the card's f32
-    plain path (cosine > 0.999)."""
+    NAF's and the request's ms through the bench harness's
+    ``benchmark_large_img`` on the same two models (CUDA events, median, min
+    and max of 3 samples of 5 calls; each NAF forward of it at 8 K1 and 1
+    K2), the request's own peak from it, and torch.profiler's device time of
+    the backbone and the request by kernel; 896^2 held against an f32 CPU
+    copy, 1792^2 against the card's f32 plain path (cosine > 0.999)."""
     from naf_torch import load_naf_params
     from naf_torch.backbones import PretrainedViTWrapper
     from naf_torch.backbones.vit import resize_jax
@@ -2785,12 +2832,9 @@ def phase_large_img(dev, card):
                                      "(wgmma)")
             launches["k1"] += counts["k1"]
             launches["k2"] += counts["k2"]
-            feats = backbone()
-            bb_ms = _time_ms(backbone, iters=5)
-            naf_ms = _time_ms(lambda: model(image, feats, (out, out)), iters=5)
-            total_ms = _time_ms(request, iters=5)
-            del feats
-            peak = _peak_mib(request)
+            row, timed = _large_img_row(dev, out, ratio, workdir, bb, model)
+            bb_ms, naf_ms, total_ms = row["fwd_ms_backbone"], row["fwd_ms_naf"], row["fwd_ms"]
+            peak = row["fwd_mem_mb"]
             prof_bb = _profile(backbone, f"LargeImg {out}^2 backbone")
             prof = _profile(request, f"LargeImg {out}^2 request")
             if got.shape != (1, out, out, 768) or not bool(got.isfinite().all()):
@@ -2813,12 +2857,17 @@ def phase_large_img(dev, card):
             c = _check_cos(f"LargeImg {out}^2 bf16 vs {ref}", got.float(), want, 0.999)
             del got, want
         res[str(out)] = dict(ratio=ratio, backbone_ms=bb_ms, naf_ms=naf_ms, total_ms=total_ms,
-                             peak_mib=peak, cos=c, against=ref, profile=prof,
+                             bench_row=row, peak_mb=peak, naf_forwards_timed=timed, cos=c, against=ref, profile=prof,
                              backbone_profile=prof_bb,
                              a100_40gb_reference_ms=LARGE_IMG_A100_MS[out])
         print(f"LargeImg {out}^2 (ratio {ratio}, ViT-B/16 at {lr_side}^2 -> {lr_side // 16}^2 x "
-              f"768, NAF bf16 batch 1): backbone {bb_ms:.3f} ms, NAF {naf_ms:.3f} ms, total {total_ms:.3f} ms, "
-              f"peak {peak:.1f} MiB; launches K1 8, K2 1 (wgmma); cos vs {ref} {c:.6f} ({card}); "
+              f"768, NAF bf16 batch 1; benchmark_large_img, median [min-max] of 3 x 5 calls): "
+              f"backbone {bb_ms:.3f} [{row['fwd_ms_backbone_min']:.3f}-"
+              f"{row['fwd_ms_backbone_max']:.3f}] ms, NAF {naf_ms:.3f} "
+              f"[{row['fwd_ms_naf_min']:.3f}-{row['fwd_ms_naf_max']:.3f}] ms, total "
+              f"{total_ms:.3f} [{row['fwd_ms_min']:.3f}-{row['fwd_ms_max']:.3f}] ms, "
+              f"peak {peak:.1f} MiB; launches K1 8, K2 1 (wgmma) in each of {timed} NAF "
+              f"forwards, the timed ones included; cos vs {ref} {c:.6f} ({card}); "
               f"the reference's A100 40GB time {LARGE_IMG_A100_MS[out]} ms is context, not a "
               "target", flush=True)
         torch.cuda.empty_cache()
@@ -2826,20 +2875,25 @@ def phase_large_img(dev, card):
 
 
 class _NafForwards:
-    """Counts K1 and K2 launches per ``NAF.forward`` while active: every
-    call's (K1, K2) in ``calls``."""
+    """Counts K1 and K2 launches per ``NAF.forward`` on the card while
+    active: every such call's (K1, K2) in ``calls``; the number made with
+    gradients enabled in ``grad_calls``. Calls on CPU tensors (the bench
+    harness's FLOP census) are not counted."""
 
     def __enter__(self):
         from naf_torch.models.naf import NAF
 
-        self.calls, self._orig = [], NAF.forward
+        self.calls, self.grad_calls, self._orig = [], 0, NAF.forward
         orig, calls = self._orig, self.calls
 
-        def forward(model, *args, **kwargs):
+        def forward(model, image, *args, **kwargs):
+            if not image.is_cuda:
+                return orig(model, image, *args, **kwargs)
             before = _all_counts()
-            out = orig(model, *args, **kwargs)
+            out = orig(model, image, *args, **kwargs)
             after = _all_counts()
             calls.append((after["k1"] - before["k1"], after["k2"] - before["k2"]))
+            self.grad_calls += torch.is_grad_enabled()
             return out
 
         NAF.forward = forward
@@ -2916,6 +2970,179 @@ def phase_evals(dev, card):
               f"peak {peak:.1f} MiB, {kernels} ({card})", flush=True)
         res[label] = rec
     return launches, res
+
+
+# phase 20: the reference sweep (naf_tpu/bench/harness.py:31-36) through the
+# port's harness, cut to fit: NAF in bf16 over each factor's new values, and
+# each model at the defaults in f32, every row with its backward
+BENCH_NAF_SWEEPS = (("ratio", (2, 4, 8, 16, 32)), ("embed_dim", (128, 768, 1024)),
+                    ("img_size", (112, 224, 896)))
+BENCH_ITERS, BENCH_REPEATS = 2, 2
+# the skips the JAX package's own code raises at sweep shapes: FeatUp's ratio
+# assert (r32), NAF's window wider than its axis (an output below k rows)
+BENCH_SKIPS = ("ratio must be one of 2/4/8/16", "must be >= kernel*dilation")
+BENCH_KERNELS = ("k1", "k2", "k3", "k4", "k5")
+
+
+def _bench_row(dev, workdir, factor, value, name, dtype):
+    """One sweep row through ``run_sweep`` with the launch counts zeroed
+    before and read after: the row, its launches, and NAF's forwards (K1,
+    K2 each) and forwards with gradients."""
+    from naf_torch.bench.harness import run_sweep
+
+    torch.cuda.synchronize()
+    _zero_counts()
+    with _NafForwards() as rec:
+        (row,) = run_sweep(factor, models=[name], values=[value], dtype=dtype,
+                           out_path=os.path.join(workdir, "results.json"), iters=BENCH_ITERS,
+                           repeats=BENCH_REPEATS, device=dev)
+    torch.cuda.synchronize()
+    return row, _all_counts(), rec
+
+
+def _check_bench_row(label, row, counts, rec, bf16):
+    """A row has fwd_ms and bwd_ms, or a skip of the JAX package's own; a
+    NAF row launched 8 K1 and 1 K2 per forward (bf16 on "wgmma"), and one
+    K3 and K4 in as many bands of query rows as its partials need per
+    backward (K2's gradient): the same number of bands each step."""
+    if "skip" in row:
+        if not any(cause in row["skip"] for cause in BENCH_SKIPS):
+            raise AssertionError(f"bench {label}: skip outside the JAX package's own: {row}")
+        return
+    missing = [k for k in ("fwd_ms", "bwd_ms") if k not in row]
+    if missing or "error" in row or "bwd_error" in row:
+        raise AssertionError(f"bench {label}: no {missing} or an error: {row}")
+    if row["model"] != "NAF":
+        return
+    if not rec.calls or any(c != (8, 1) for c in rec.calls):
+        raise AssertionError(f"bench {label}: NAF forwards launched {set(rec.calls)} (K1, K2), "
+                             "want (8, 1) each")
+    if bf16 and counts["k2_wgmma"] != counts["k2"]:
+        raise AssertionError(f"bench {label}: bf16 K2 off the wgmma route: {counts}")
+    steps = rec.grad_calls
+    if not steps or counts["k3"] != steps or counts["k4"] < steps or counts["k4"] % steps:
+        raise AssertionError(f"bench {label}: {steps} backward steps launched "
+                             f"{counts['k3']} K3 and {counts['k4']} K4, want one K3 and the "
+                             "same K4 bands each step")
+
+
+def _naf_plain_grads(model, head, image, feats, out):
+    """The bench's loss (``harness._bench_loss``) through the card's f32
+    plain path (``_naf_plain``'s steps), backward: returns the output, and
+    the gradients land in the ``.grad`` of ``feats``, ``head`` and the
+    parameters. The attention's plain version runs one LR cell row of the
+    output at a time, each row's share of the loss backward on its own (all
+    its gathered windows would not fit the card at once), into the encoder
+    output and keys; those then take one backward through the encoder."""
+    from naf_torch.kernels.na2d_fused_q import naf_upsample_attention_ref
+    from naf_torch.ops.resize import resize_bilinear
+
+    ie = model.image_encoder
+    image = resize_bilinear(image, ie.guard_size(*image.shape[1:3], *out))
+    enc = torch.cat([ie.encoder(image), ie.sem_encoder(image)], dim=-1)
+    keys = ie.rope.pooled(enc, out, tuple(feats.shape[1:3]))
+    sin_r, cos_r, sin_c, cos_c = ie.rope.tables(*out)
+    rows, cols = torch.cat([cos_r, sin_r], dim=-1), torch.cat([cos_c, sin_c], dim=-1)
+    enc_d, keys_d = enc.detach().requires_grad_(), keys.detach().requires_grad_()
+    n, bands = out[0] * out[1] * head.shape[1], []
+    for c0 in range(feats.shape[1]):
+        band = naf_upsample_attention_ref(
+            enc_d, keys_d, feats, rows, cols, ie.rope.d_head, num_heads=model.heads_attn,
+            kernel_size=model.kernel_size, row_cell0=c0, band_cells=1)
+        (((band @ head) ** 2).sum() / n).backward()
+        bands.append(band.detach())
+    torch.autograd.backward([enc, keys], [enc_d.grad, keys_d.grad])
+    return torch.cat(bands, dim=1)
+
+
+# the gradients phase 20 holds at cosine > 0.999: the features', the head's,
+# and each encoder stack's parameters' (together, all of NAF's)
+BENCH_GRADS = ("feats", "head", "image_encoder.encoder", "image_encoder.sem_encoder")
+
+
+def _bench_agree(dev, cfg):
+    """At a sweep shape, on the harness's own weights and inputs
+    (``harness._bench_inputs``): the card's bf16 fused forward, and the
+    gradients of the bench's loss through it (K1's backward, K2's gradient
+    on K3/K4), against the card's f32 plain path, by cosine > 0.999 for the
+    output and each of ``BENCH_GRADS``. Returns the cosines."""
+    from naf_torch.bench.harness import _bench_inputs, _bench_loss
+
+    shape = (cfg["img_size"], cfg["embed_dim"], cfg["lr_size"], cfg["out_size"])
+    out, outs, grads = (cfg["out_size"],) * 2, {}, {}
+    for dtype in (torch.bfloat16, torch.float32):
+        model, image, feats, head = _bench_inputs("NAF", *shape, dtype, dev)
+        feats.requires_grad_()
+        if dtype == torch.bfloat16:
+            with torch.no_grad():
+                outs[dtype] = model(image, feats, out).float()
+            _bench_loss(model, head, image, feats, out).backward()
+        else:
+            outs[dtype] = _naf_plain_grads(model, head, image, feats, out)
+        grads[dtype] = {"feats": feats.grad.float(), "head": head.grad.float()}
+        for prefix in BENCH_GRADS[2:]:
+            ps = [p for name, p in model.named_parameters() if name.startswith(prefix + ".")]
+            if not ps or any(p.grad is None for p in ps):
+                raise AssertionError(f"bench NAF {cfg}: {prefix} without gradients ({dtype})")
+            grads[dtype][prefix] = torch.cat([p.grad.float().flatten() for p in ps])
+        del model, image, feats, head
+    label = f"bench NAF {cfg} bf16 vs the card's f32 plain path"
+    res = {"out": _check_cos(label, outs[torch.bfloat16], outs[torch.float32], 0.999)}
+    for k in BENCH_GRADS:
+        res[k] = _check_cos(f"{label}, d loss / d {k}", grads[torch.bfloat16][k],
+                            grads[torch.float32][k], 0.999)
+    return res
+
+
+def phase_bench(dev, card):
+    """Phase 20, the reference sweep on the card through the port's harness
+    (``naf_torch.bench.harness.run_sweep``, 2 samples of 2 calls a row): NAF
+    in bf16 over ratio 2-32, embed_dim 128, 768, 1024 and img_size 112, 224,
+    896, with backward; each of the six sweep models at the defaults in
+    f32, with backward. Every row has fwd_ms and bwd_ms or one of the JAX
+    package's own skips, never an error; every NAF forward launches 8 K1
+    and 1 K2, every NAF backward one K3 and K4 in the same bands each step;
+    at every NAF shape the bf16 fused forward, and the gradients of the
+    bench's loss through it, agree with the card's f32 plain path (cosine >
+    0.999; ``_bench_agree``). Returns the launches per kernel and the
+    rows."""
+    from naf_torch.bench.harness import DEFAULTS, MODELS, _config_from_factor
+
+    t0 = time.perf_counter()
+    launches, rows, cos = dict.fromkeys(BENCH_KERNELS, 0), [], {}
+    runs = [(factor, value, "NAF", torch.bfloat16) for factor, values in BENCH_NAF_SWEEPS
+            for value in values]
+    runs += [("ratio", DEFAULTS["ratio"], name, torch.float32) for name in MODELS]
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(os.path.abspath(__file__))) as work:
+        for factor, value, name, dtype in runs:
+            label = f"{name} {factor}={value} {str(dtype)[6:]}"
+            row, counts, rec = _bench_row(dev, work, factor, value, name, dtype)
+            _check_bench_row(label, row, counts, rec, dtype == torch.bfloat16)
+            for k in BENCH_KERNELS:
+                launches[k] += counts[k]
+            cfg = _config_from_factor(factor, value)
+            shape = (cfg["img_size"], cfg["embed_dim"], cfg["lr_size"], cfg["out_size"])
+            if name == "NAF" and "skip" not in row and shape not in cos:
+                cos[shape] = row["cos_f32_plain"] = _bench_agree(dev, cfg)
+                torch.cuda.empty_cache()
+            rows.append(row)
+            times = ("skip: " + row["skip"] if "skip" in row else
+                     f"fwd {row['fwd_ms']:.3f} [{row['fwd_ms_min']:.3f}-{row['fwd_ms_max']:.3f}] "
+                     f"ms, bwd {row['bwd_ms']:.3f} [{row['bwd_ms_min']:.3f}-"
+                     f"{row['bwd_ms_max']:.3f}] ms, {row['fwd_mem_mb']} / {row['bwd_mem_mb']} "
+                     f"MiB, {row['gflops']} GFLOP, {row['params']} params")
+            bands = (f" ({counts['k4'] // rec.grad_calls} K4 band(s) a backward step)"
+                     if rec.grad_calls else "")
+            print(f"bench {label} ({cfg['img_size']}^2 + {cfg['lr_size']}^2 x "
+                  f"{cfg['embed_dim']} -> {cfg['out_size']}^2): {times}; launches "
+                  + ", ".join(f"{k.upper()} {counts[k]}" for k in BENCH_KERNELS) + bands
+                  + ("; cos vs f32 plain " + ", ".join(
+                      f"{k.removeprefix('image_encoder.')} {v:.6f}"
+                      for k, v in row["cos_f32_plain"].items())
+                     if "cos_f32_plain" in row else "") + f" ({card})", flush=True)
+    print(f"phase 20 (the reference sweep): {len(rows)} rows, {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return launches, rows
 
 
 def _sass(name: str) -> str:
@@ -3052,10 +3279,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     t18 = time.perf_counter()
     backbones = phase_backbones(dev, card)
-    large_launches, large_img = phase_large_img(dev, card)
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(os.path.abspath(__file__))) as work:
+        large_launches, large_img = phase_large_img(dev, card, work)
     eval_launches, evals = phase_evals(dev, card)
     print(f"phases 18-19 (backbones, LargeImg, evals): {time.perf_counter() - t18:.1f} s",
           flush=True)
+    torch.cuda.empty_cache()
+    bench_launches, bench = phase_bench(dev, card)
     timing = _phase_timing_fresh()
 
     k1, k1b = timing["k1_k3"], timing["k1_k1"]
@@ -3129,6 +3359,9 @@ def main() -> int:
     for i, name in ((0, "k1"), (1, "k2")):
         kernels[i]["launches_large_img"] = large_launches[name]
         kernels[i]["launches_evals"] = eval_launches[name]
+    # phase 20: every row of the reference sweep
+    for i, name in enumerate(BENCH_KERNELS):
+        kernels[i]["launches_bench"] = bench_launches[name]
     kernels[1].update({"launches_banded": band_launches["k2"],
                        **{f"{k}_banded": v for k, v in k2_band.items()}})
     kernels[2].update({"launches_anyup": base_launches["k3"],
@@ -3160,7 +3393,7 @@ def main() -> int:
                       "banded": banded, "naf_dim96_cos_cpu": c96, "k2_grad": timing["k2_grad"],
                       "denoiser": denoiser, "denoise_plans": den_kernels["plans"],
                       "restorers": restorers, "parallel": parallel, "backbones": backbones,
-                      "large_img": large_img, "evals": evals, "card": card}))
+                      "large_img": large_img, "evals": evals, "bench": bench, "card": card}))
     print(_card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
