@@ -218,8 +218,28 @@ Phase 20 runs after phase 19, before phase 8:
    f32 plain path (cosine > 0.999). Rows run with TF32 off (the harness's
    default). The phase prints its wall time.
 
+Phase 21 runs after phase 20, before phase 8:
+
+21. the quality loop (``naf_torch.evals.distill``, the counterpart of
+   ``tools/train_distilled_eval.py``), cut to fit: ``NAF()`` self-distilled
+   for 300 of the CLI's 3000 bf16 steps (three chunks of 100) at 256^2,
+   batch 4, on the real shard's 60 training photographs kept on the card,
+   against the seeded random ViT-S/16 of the real-shard probe; then that
+   probe (4 of its 8 epochs, f32, no DAVIS) on the trained weights and on
+   the JAX package's (``naf_torch/assets/naf_distill_jax_ckpt3000.npz``).
+   Each chunk's median and last loss, the step time, both IoUs; the counts
+   zeroed before the call and read after it: every training step's forward
+   on 8 K1 and its backward on one K3 and the same K4 bands, every other NAF
+   forward (the run's panels, the probes) on 8 K1 + 1 K2, the CLI's own
+   per-part counts summing to the totals. Finite losses, the last chunk's
+   median loss below the first's. Then the JAX-trained weights in bf16 on
+   the card (8 K1 + 1 K2) against their f32 CPU copy at 448^2 + 28^2 x 384
+   -> 448^2 on a real-shard photograph: cosine > 0.999. The phase prints
+   its wall time.
+
 Prints a JSON line of per-kernel numbers (``launches_bench`` on K1-K5: the
-launches of phase 20's rows), the card's name and power limit,
+launches of phase 20's rows; ``launches_quality`` on K1-K4: phase 21's),
+the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``. Exits non-zero on any failure,
 and when no CUDA device is present. Imports nothing of JAX.
 """
@@ -227,6 +247,7 @@ and when no CUDA device is present. Imports nothing of JAX.
 from __future__ import annotations
 
 import json
+import math
 import os
 import re
 import subprocess
@@ -245,13 +266,6 @@ os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 _PEAKS = {"H200": (4.8e12, 989e12), "H100": (3.35e12, 989e12)}
 # f32 FLOP/s on the CUDA cores (no tensor cores), the same on both parts.
 F32_FLOPS = 67e12
-
-
-def _card_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
 
 
 def _peaks(name: str):
@@ -696,7 +710,11 @@ K34_SHAPES = {"train": (4, 32, 16, 4, 64, 192), "448": (1, 448, 28, 4, 64, 96)}
 # checked beside them: a ragged ratio whose windows repeat LR cells, and the
 # denoiser's values (the 3-channel image: dv 3 with one head, 1 with three)
 K34_CHECKED = {**K34_SHAPES, "100": (1, 100, 28, 4, 64, 96), "dv3": (1, 448, 28, 1, 64, 3),
-               "dv1": (1, 448, 28, 3, 32, 1)}
+               "dv1": (1, 448, 28, 3, 32, 1),
+               # the distillation step's (naf_torch.evals.distill: NAF(), ViT-S/16, batch 4,
+               # 16^2 queries) at the ends of its lr grid, 4 and 10 cells: a window of 9
+               # wider than the grid, and a grid wider than the window
+               "distill4": (4, 16, 4, 4, 64, 96), "distill10": (4, 16, 10, 4, 64, 96)}
 # boxes above 192 cells, which the bf16 kernels take in chunks, with their
 # window size: NAF(dim=96) as a denoiser (ratio 1, one head, d 96, the 3
 # image channels as values) and the training widths at k 11; bf16 only (the
@@ -845,20 +863,17 @@ def _counts():
 
 
 def _all_counts() -> dict:
+    """Every kernel's launches (``naf_torch.kernels.launch_counts``) and
+    K2's and K5's by route."""
+    from naf_torch.kernels import launch_counts
     from naf_torch.kernels.adaptive_conv_fused import adaptive_conv_fused
-    from naf_torch.kernels.encoder_fused import gn_silu_conv_dual_fused, gn_silu_conv_fused
-    from naf_torch.kernels.na2d_fused import cross_scale_na2d_fused
     from naf_torch.kernels.na2d_fused_q import naf_upsample_attention
 
     k2_routes = naf_upsample_attention.route_launches
-    return {"k1": gn_silu_conv_fused.launches, "k2": naf_upsample_attention.launches,
-            "k2_wgmma": k2_routes["wgmma"], "k2_fma": k2_routes["fma"],
+    return {**launch_counts(), "k2_wgmma": k2_routes["wgmma"], "k2_fma": k2_routes["fma"],
             "k2_fma_chunked": k2_routes["fma_chunked"],
-            "k3": cross_scale_na2d_fused.launches, "k4": cross_scale_na2d_fused.bwd_launches,
-            "k5": adaptive_conv_fused.launches,
             "k5_narrow": adaptive_conv_fused.route_launches["narrow"],
-            "k5_wide": adaptive_conv_fused.route_launches["wide"],
-            "k6": gn_silu_conv_dual_fused.launches}
+            "k5_wide": adaptive_conv_fused.route_launches["wide"]}
 
 
 def _zero_counts():
@@ -2876,14 +2891,15 @@ def phase_large_img(dev, card, workdir):
 
 class _NafForwards:
     """Counts K1 and K2 launches per ``NAF.forward`` on the card while
-    active: every such call's (K1, K2) in ``calls``; the number made with
-    gradients enabled in ``grad_calls``. Calls on CPU tensors (the bench
-    harness's FLOP census) are not counted."""
+    active: every such call's (K1, K2) in ``calls``, and whether it ran with
+    gradients enabled in ``grad_flags`` (their number in ``grad_calls``).
+    Calls on CPU tensors (the bench harness's FLOP census) are not
+    counted."""
 
     def __enter__(self):
         from naf_torch.models.naf import NAF
 
-        self.calls, self.grad_calls, self._orig = [], 0, NAF.forward
+        self.calls, self.grad_flags, self._orig = [], [], NAF.forward
         orig, calls = self._orig, self.calls
 
         def forward(model, image, *args, **kwargs):
@@ -2893,11 +2909,15 @@ class _NafForwards:
             out = orig(model, image, *args, **kwargs)
             after = _all_counts()
             calls.append((after["k1"] - before["k1"], after["k2"] - before["k2"]))
-            self.grad_calls += torch.is_grad_enabled()
+            self.grad_flags.append(torch.is_grad_enabled())
             return out
 
         NAF.forward = forward
         return self
+
+    @property
+    def grad_calls(self) -> int:
+        return sum(self.grad_flags)
 
     def __exit__(self, *exc):
         from naf_torch.models.naf import NAF
@@ -3145,6 +3165,204 @@ def phase_bench(dev, card):
     return launches, rows
 
 
+# phase 21: the quality loop (naf_torch.evals.distill), cut to fit: 300 of
+# its 3000 steps (three chunks of 100), the probes at 4 of their 8 epochs,
+# no DAVIS
+QUALITY_STEPS, QUALITY_EPOCHS = 300, 4
+# the lr sizes at which phase 21 holds the distillation step against its
+# plain version: the ends of the drawn range (256 x U(0.25, 0.60) to a
+# multiple of 16: 64..160 px, 4..10 cells) and the grid as wide as k 9
+DISTILL_LR = (64, 144, 160)
+
+
+class _FixedFeatures:
+    """A backbone's stand-in: returns the f32 features it holds for the
+    input's height, in the input's dtype and on its device."""
+
+    def __init__(self, feats: dict):
+        self.feats = feats
+
+    def __call__(self, x):
+        return self.feats[x.shape[1]].to(x.device, x.dtype)
+
+
+def _distill_steps_agree(dev):
+    """The distillation step at the path's own shapes, against its plain
+    version: ``make_train_step`` as ``naf_torch.evals.distill`` has
+    ``train_upsampler`` build it (``NAF()`` at seed 0's weights, the first 4
+    real-shard photographs at 256^2, the 64^2 crop, 16^2 out, step 0's RoPE
+    draw), bf16 on the card (8 K1; K3 at 16^2 queries over an lr grid of 4,
+    9 and 10 cells with k 9; K4) against f32 on the CPU (the plain
+    versions). Both take the same features, the seeded ViT-S/16's in f32 on
+    the CPU, as their backbone's output, so the step's own numerics are what
+    is compared: loss rel <= 1e-2, gradient cosine > 0.9995 over all of
+    NAF's parameters and over each encoder stack's. Returns the numbers."""
+    import numpy as np
+
+    from naf_torch.api import _init_weights
+    from naf_torch.backbones import load_multiple_backbones
+    from naf_torch.config import load_config
+    from naf_torch.data import image_folder
+    from naf_torch.evals.real_shard import seg_args
+    from naf_torch.models.naf import NAF
+    from naf_torch.ops.resize import resize_bilinear
+    from naf_torch.train.trainer import make_train_step
+
+    cfg = load_config("eval_probing", seg_args("naf"))
+    vit = load_multiple_backbones(cfg["backbone"], dtype=torch.float32, device="cpu")[0]
+    photos = image_folder(os.path.join(cfg["dataset"]["root"], "images", "training"), 256)
+    img = np.stack([photos[i]["image"] for i in range(4)]).astype(np.float32)
+    ups, back = _step_inputs(vit, img, "cpu")
+    src = NAF()
+    _init_weights(src, 0)
+    groups = ("", "image_encoder.encoder.", "image_encoder.sem_encoder.")
+    res = {}
+    for lr in DISTILL_LR:
+        with torch.no_grad():
+            feats = {256: vit(back), lr: vit(resize_bilinear(back, (lr, lr)))}
+        got = {}
+        for where, bf16 in (("cpu", False), (dev, True)):
+            model = NAF()
+            model.load_state_dict(src.state_dict())
+            model.to(where)
+            opt = torch.optim.AdamW(model.parameters(), lr=0.0)  # the gradients are compared
+            step = make_train_step(model, _FixedFeatures(feats), opt, use_bf16=bf16)
+            before = _counts()
+            loss = float(step(ups.to(where), back.to(where), 0, (lr, lr), (16, 16), (64, 64)))
+            delta = tuple(b - a for a, b in zip(before, _counts()))
+            grads = {g: torch.cat([p.grad.float().flatten().cpu()
+                                   for n, p in model.named_parameters() if n.startswith(g)])
+                     for g in groups}
+            got[bf16] = (loss, grads, delta)
+        (l32, g32, d32), (l16, g16, d16) = got[False], got[True]
+        if d32 != (0, 0, 0) or d16[:2] != (8, 1) or d16[2] < 1:
+            raise AssertionError(f"distillation step lr {lr}: launches (K1, K3, K4) CPU {d32}, "
+                                 f"card {d16}")
+        rel = abs(l16 - l32) / abs(l32)
+        if not rel <= 1e-2:
+            raise AssertionError(f"distillation step lr {lr}: card bf16 loss {l16} vs CPU f32 "
+                                 f"{l32} (rel {rel:.2e})")
+        cos = {g.rstrip(".") or "all": _check_cos(
+            f"distillation step lr {lr} ({lr // 16} cells), gradients {g or 'all'}",
+            g16[g], g32[g], 0.9995) for g in groups}
+        print(f"quality: the distillation step at lr {lr} ({lr // 16}^2 cells, k 9), card bf16 "
+              f"(K1, K3, K4 {d16}) vs CPU f32: loss {l16:.6f} vs {l32:.6f} (rel {rel:.2e}); "
+              "gradient cosine " + ", ".join(f"{k} {v:.6f}" for k, v in cos.items()), flush=True)
+        res[str(lr)] = {"loss_rel": rel, "grad_cos": cos, "launches_k1_k3_k4": list(d16)}
+    return res
+
+
+def _jax_weights_on_the_card(dev, card):
+    """The JAX package's trained NAF in bf16 on the card against its f32 CPU
+    copy at 448^2 + 28^2 x 384 -> 448^2 (a real-shard photograph, seeded
+    features): 8 K1 + 1 K2, cosine > 0.999."""
+    import numpy as np
+    from PIL import Image
+
+    from naf_torch.backbones.wrapper import IMAGENET_DEFAULT_MEAN, IMAGENET_DEFAULT_STD
+    from naf_torch.convert import naf_state_from_npz
+    from naf_torch.data.transforms import image_transform
+    from naf_torch.models.naf import NAF
+
+    shard = os.path.join(os.path.dirname(os.path.abspath(__file__)), "benchmarks", "real_shard",
+                         "ade20k", "images", "training")
+    photo = image_transform(Image.open(os.path.join(shard, sorted(os.listdir(shard))[0]))
+                            .convert("RGB"), 448)
+    image = torch.from_numpy(((photo - np.array(IMAGENET_DEFAULT_MEAN))
+                              / np.array(IMAGENET_DEFAULT_STD))[None].astype(np.float32))
+    feats = torch.from_numpy(np.random.RandomState(0).randn(1, 28, 28, 384).astype(np.float32))
+    state = naf_state_from_npz()
+    model, plain = NAF().to(dev, torch.bfloat16).eval(), NAF().eval()
+    model.load_state_dict(state)
+    plain.load_state_dict(state)
+    torch.cuda.synchronize()
+    _zero_counts()
+    with torch.no_grad():
+        got = model(image.to(dev, torch.bfloat16), feats.to(dev, torch.bfloat16), (448, 448))
+        torch.cuda.synchronize()
+        counts = _all_counts()
+        want = plain(image, feats, (448, 448))
+    if (counts["k1"], counts["k2"]) != (8, 1) or not torch.isfinite(got).all():
+        raise AssertionError(f"JAX-trained NAF on the card: launches {counts}, finite "
+                             f"{bool(torch.isfinite(got).all())}")
+    c = _check_cos("JAX-trained NAF bf16 vs its f32 CPU copy, 448^2 + 28^2 x 384 -> 448^2",
+                   got.float().cpu(), want, 0.999)
+    print(f"quality: the JAX package's trained NAF (naf_torch/assets/"
+          f"naf_distill_jax_ckpt3000.npz) bf16 on the card, 8 K1 + 1 K2, cos vs its f32 CPU "
+          f"copy {c:.6f} ({card})", flush=True)
+    return c
+
+
+def phase_quality(dev, card, workdir):
+    """Phase 21, the quality loop through ``naf_torch.evals.distill.main``
+    (cut: QUALITY_STEPS steps, QUALITY_EPOCHS probe epochs, no DAVIS): NAF()
+    self-distilled on the real shard's 60 photographs kept on the card
+    (256^2, batch 4, ViT-S/16, bf16, 100 steps a chunk), then the probe on
+    the trained weights and on the JAX package's. The launch counts are
+    zeroed before the call and read after it: every training step's forward
+    on 8 K1 and its backward on one K3 and the same K4 bands, every other
+    NAF forward (the run's panels, the probes) on 8 K1 + 1 K2, and the CLI's
+    own per-part counts sum to the totals. Finite chunk losses, the last
+    chunk's median loss below the first's; then the JAX-trained weights in
+    bf16 against their f32 CPU copy (``_jax_weights_on_the_card``), and the
+    step at the path's own shapes against its f32 plain version on the CPU
+    (``_distill_steps_agree``)."""
+    from naf_torch.evals import distill
+
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    _zero_counts()
+    with _NafForwards() as rec:
+        res = distill.main([str(QUALITY_STEPS), "--no-davis", f"num_epochs={QUALITY_EPOCHS}",
+                            f"out={os.path.join(workdir, 'real_eval_distilled.json')}"])
+    torch.cuda.synchronize()
+    counts = _all_counts()
+    train, steps = res["train"], QUALITY_STEPS
+    chunks = train["chunks"]
+    for c in chunks:
+        print(f"quality: chunk to step {c['step'] + 1}, lr {c['lr_size']}: loss median "
+              f"{c['loss_median']:.5f}, last {c['loss']:.5f}, {1e3 * c['chunk_s']:.1f} ms",
+              flush=True)
+    if not all(math.isfinite(c[k]) for c in chunks for k in ("loss", "loss_median")):
+        raise AssertionError(f"quality: a chunk's loss is not finite: {chunks}")
+    if not chunks[-1]["loss_median"] < chunks[0]["loss_median"]:
+        raise AssertionError(f"quality: the last chunk's median loss {chunks[-1]['loss_median']} "
+                             f"is not below the first's {chunks[0]['loss_median']}")
+    steps_seen = [c for c, grad in zip(rec.calls, rec.grad_flags) if grad]
+    others = [c for c, grad in zip(rec.calls, rec.grad_flags) if not grad]
+    bands = counts["k4"] // steps
+    if (len(steps_seen) != steps or set(steps_seen) != {(8, 0)} or set(others) != {(8, 1)}
+            or counts["k3"] != steps or counts["k4"] != bands * steps or not bands
+            or (counts["k1"], counts["k2"]) != (8 * len(rec.calls), len(others))):
+        raise AssertionError(f"quality: launches {counts}; step forwards {set(steps_seen)} x "
+                             f"{len(steps_seen)}, other forwards {set(others)} x {len(others)}")
+    parts = [train["launches"]] + [res[k]["launches"] for k in res if k.startswith("seg_")]
+    if any(sum(p[k] for p in parts) != counts[k] for k in ("k1", "k2", "k3", "k4")):
+        raise AssertionError(f"quality: the CLI's counts {parts} do not sum to {counts}")
+    probes = {k: res[k] for k in res if k.startswith("seg_")}
+    for k, p in probes.items():
+        print(f"quality: {k} iou {p['iou']:.4f}, accuracy {p['accuracy']:.4f}, "
+              f"{sum(p['epoch_s']) / len(p['epoch_s']):.3f} s an epoch, "
+              f"{p['launches']['k2']} NAF forwards at 8 K1 + 1 K2 ({card})", flush=True)
+    panels = len(others) - sum(p["launches"]["k2"] for p in probes.values())
+    print(f"quality: {steps} steps in {train['train_s']:.1f} s, {train['step_ms']:.3f} ms a step "
+          f"after the first chunk; a step launches 8 K1, 1 K3, {bands} K4; every other NAF "
+          f"forward 8 K1 + 1 K2 ({len(others)}: {panels} panels, the rest the probes) "
+          f"({card})", flush=True)
+    cos = _jax_weights_on_the_card(dev, card)
+    steps_agree = _distill_steps_agree(dev)
+    secs = time.perf_counter() - t0
+    print(f"phase 21 (the quality loop): {secs:.1f} s", flush=True)
+    launches = {k: counts[k] for k in ("k1", "k2", "k3", "k4")}
+    return launches, {"train": {k: train[k] for k in ("train_steps", "train_s", "step_ms",
+                                                       "chunks", "launches")},
+                      **{k: {m: p[m] for m in ("iou", "accuracy", "epoch_s", "launches")}
+                         for k, p in probes.items()},
+                      "k4_bands_per_step": bands, "jax_weights_cos_f32_cpu": cos,
+                      "distill_step_vs_cpu_f32": steps_agree,
+                      "seconds": secs}
+
+
 def _sass(name: str) -> str:
     """The SASS of a kernel library, from the cuobjdump of the toolkit whose
     nvcc built it."""
@@ -3190,7 +3408,9 @@ def _setup():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    return torch.device("cuda", 0), _card_line()
+    from naf_torch.utils.benchmarking import card_line
+
+    return torch.device("cuda", 0), card_line()
 
 
 def _timing_k2(dev, card) -> dict:
@@ -3286,6 +3506,9 @@ def main() -> int:
           flush=True)
     torch.cuda.empty_cache()
     bench_launches, bench = phase_bench(dev, card)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(os.path.abspath(__file__))) as work:
+        quality_launches, quality = phase_quality(dev, card, work)
     timing = _phase_timing_fresh()
 
     k1, k1b = timing["k1_k3"], timing["k1_k1"]
@@ -3362,6 +3585,9 @@ def main() -> int:
     # phase 20: every row of the reference sweep
     for i, name in enumerate(BENCH_KERNELS):
         kernels[i]["launches_bench"] = bench_launches[name]
+    # phase 21: the quality loop's training steps, panels and probes
+    for i, name in enumerate(("k1", "k2", "k3", "k4")):
+        kernels[i]["launches_quality"] = quality_launches[name]
     kernels[1].update({"launches_banded": band_launches["k2"],
                        **{f"{k}_banded": v for k, v in k2_band.items()}})
     kernels[2].update({"launches_anyup": base_launches["k3"],
@@ -3393,8 +3619,9 @@ def main() -> int:
                       "banded": banded, "naf_dim96_cos_cpu": c96, "k2_grad": timing["k2_grad"],
                       "denoiser": denoiser, "denoise_plans": den_kernels["plans"],
                       "restorers": restorers, "parallel": parallel, "backbones": backbones,
-                      "large_img": large_img, "evals": evals, "bench": bench, "card": card}))
-    print(_card_line(), flush=True)
+                      "large_img": large_img, "evals": evals, "bench": bench,
+                      "quality": quality, "card": card}))
+    print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

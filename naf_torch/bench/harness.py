@@ -34,7 +34,6 @@ JAX package's record of its TPU runs and is never written here.
 
 from __future__ import annotations
 
-import contextlib
 import gc
 import json
 import os
@@ -47,7 +46,7 @@ from torch.utils.flop_counter import FlopCounterMode
 
 from naf_torch.api import _device, _init_weights
 from naf_torch.models.registry import build_model
-from naf_torch.utils.benchmarking import device_time_stats
+from naf_torch.utils.benchmarking import device_time_stats, tf32 as _tf32
 
 DEFAULTS = {"img_size": 448, "embed_dim": 384, "ratio": 16, "lr_size": 28}
 SWEEPS = {
@@ -147,18 +146,6 @@ def _oom_text(dev: torch.device, what: str, e: Exception) -> str:
     total = torch.cuda.get_device_properties(dev).total_memory / 2**30
     return (f"exceeds one {torch.cuda.get_device_name(dev)}'s {total:.1f} GiB at {what}: "
             + str(e)[:160])
-
-
-@contextlib.contextmanager
-def _tf32(on: bool):
-    """cuDNN's and cuBLAS's TF32 switches set to ``on`` for the block; the
-    caller's are restored after it."""
-    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = on
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
 
 
 def _bench_inputs(name: str, img_size: int, embed_dim: int, lr_size: int, out_size: int,

@@ -14,13 +14,18 @@ DenseGeneral((n, d)) kernel (in, n, d) -> Linear weight (n*d, in);
 it instead of storing it); flax's ``ConvTranspose`` kernel (kh, kw, I, O),
 which it applies unflipped, -> the ConvTranspose2d weight (I, O, kh, kw)
 flipped in both spatial axes (``naf_torch.models.restorers``).
+
+``naf_params_from_npz`` / ``naf_state_from_npz`` read NAF params saved as an
+``.npz`` whose keys are the flax tree's paths joined by ``/`` (numpy only):
+``JAX_DISTILLED_NPZ`` is the JAX package's self-distilled ``NAF()`` (3000
+steps on the real shard, ``runs/distill_naf/version_2/ckpt_3000``).
 """
 
 from __future__ import annotations
 
-from typing import Mapping
-
 import re
+from pathlib import Path
+from typing import Mapping
 
 import numpy as np
 import torch
@@ -28,7 +33,10 @@ import torch
 from naf_torch.nn.rope import rope_periods
 
 __all__ = [
+    "JAX_DISTILLED_NPZ",
     "state_dict_from_jax_params",
+    "naf_params_from_npz",
+    "naf_state_from_npz",
     "encoder_state_dict_from_jax",
     "featup_state_dict_from_jax",
     "jbu_state_dict_from_jax",
@@ -38,6 +46,9 @@ __all__ = [
     "rednet_state_dict_from_jax",
     "restormer_state_dict_from_jax",
 ]
+
+
+JAX_DISTILLED_NPZ = Path(__file__).resolve().parent / "assets" / "naf_distill_jax_ckpt3000.npz"
 
 
 def _t(a) -> torch.Tensor:
@@ -152,6 +163,28 @@ def state_dict_from_jax_params(params: Mapping, img_layers: int = 2,
     out["image_encoder.rope.periods"] = torch.from_numpy(
         rope_periods(dim // heads_rope, rope_base))
     return out
+
+
+def naf_params_from_npz(path=JAX_DISTILLED_NPZ) -> dict:
+    """NAF params saved as ``{"image_encoder/encoder/stem/conv/kernel": ...}``
+    -> the flax tree of numpy arrays."""
+    tree: dict = {}
+    with np.load(path) as npz:
+        for key in npz.files:
+            *parents, leaf = key.split("/")
+            node = tree
+            for name in parents:
+                node = node.setdefault(name, {})
+            node[leaf] = npz[key]
+    return tree
+
+
+def naf_state_from_npz(path=JAX_DISTILLED_NPZ, **kwargs) -> dict:
+    """:func:`naf_params_from_npz` -> the port's state dict, through
+    :func:`state_dict_from_jax_params` (``kwargs``: its ``img_layers``,
+    ``rope_base``, ``heads_rope``). Load it with ``NAF.load_state_dict``,
+    whose ``strict`` default checks every name."""
+    return state_dict_from_jax_params(naf_params_from_npz(path), **kwargs)
 
 
 def ircnn_state_dict_from_jax(params: Mapping) -> dict:

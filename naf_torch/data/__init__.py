@@ -8,6 +8,7 @@ from naf_torch.data.datasets import (  # noqa: F401
     ImageFolderDataset,
     KITTI360Dataset,
     VOCDataset,
+    image_folder,
 )
 from naf_torch.data.loader import DataLoader  # noqa: F401
 from naf_torch.data.transforms import image_transform, label_transform  # noqa: F401

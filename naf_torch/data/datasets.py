@@ -13,14 +13,17 @@ from __future__ import annotations
 import glob
 import json
 import os
+from pathlib import Path
 from typing import Callable, Optional
 
 import numpy as np
 
 from naf_torch.data.coco_mapping import FINE_TO_COARSE
+from naf_torch.data.transforms import image_transform
 
 __all__ = [
     "ImageFolderDataset",
+    "image_folder",
     "ADE20KDataset",
     "CityscapesDataset",
     "COCOStuffDataset",
@@ -28,6 +31,9 @@ __all__ = [
     "KITTI360Dataset",
     "DAVISFramesDataset",
 ]
+
+# the image-folder listings of ``image_folder``, under the checkout's build/
+LISTINGS = Path(__file__).resolve().parents[2] / "build" / "listings"
 
 IGNORE = 255
 
@@ -98,6 +104,16 @@ class ImageFolderDataset:
             image = self.transform(image)
         return {"image": image, "label": self.targets[index]}
 
+
+
+def image_folder(root: str, img_size: int) -> ImageFolderDataset:
+    """The photographs under ``root`` at ``img_size`` (``image_transform``),
+    the listing cached under ``LISTINGS`` (never beside ``root``, which may
+    be a committed folder)."""
+    LISTINGS.mkdir(parents=True, exist_ok=True)
+    cache = LISTINGS / os.path.abspath(root).strip(os.sep).replace(os.sep, "_")
+    return ImageFolderDataset(root, transform=lambda im: image_transform(im, img_size),
+                              root_cache=str(cache))
 
 class ADE20KDataset(_SegDataset):
     """ADE20K SceneParsing, 151 classes with the background

@@ -32,15 +32,11 @@ from __future__ import annotations
 
 import os
 import sys
-from pathlib import Path
 
 import numpy as np
 
 from naf_torch.config import load_config
 from naf_torch.train.denoise import DenoiseConfig, train_denoiser, validate_denoiser
-
-LISTINGS = Path(__file__).resolve().parents[1] / "build" / "listings"
-
 
 def synthetic_images(batch_size: int, img_size: int, seed: int = 0):
     rng = np.random.RandomState(seed)
@@ -80,15 +76,6 @@ def denoise_config(cfg: dict) -> DenoiseConfig:
     return dcfg
 
 
-def _folder(root: str, img_size: int):
-    from naf_torch.data import ImageFolderDataset, image_transform
-
-    LISTINGS.mkdir(parents=True, exist_ok=True)
-    cache = LISTINGS / os.path.abspath(root).strip(os.sep).replace(os.sep, "_")
-    return ImageFolderDataset(root, transform=lambda im: image_transform(im, img_size),
-                              root_cache=str(cache))
-
-
 def load_data(cfg: dict, dcfg: DenoiseConfig, device):
     """(train_iter, device_stack, val_iter): seeded random images, or the
     image folders, each resident on the device when it holds at most
@@ -98,12 +85,12 @@ def load_data(cfg: dict, dcfg: DenoiseConfig, device):
     if cfg.get("synthetic"):
         return (synthetic_images(bs, dcfg.img_size), None,
                 synthetic_images(vbs, dcfg.img_size, seed=1))
-    from naf_torch.data import DataLoader
+    from naf_torch.data import DataLoader, image_folder
     from naf_torch.data.device_cache import device_cached_batches, device_cached_stack
 
-    ds = _folder(cfg["dataset"]["root"], dcfg.img_size)
+    ds = image_folder(cfg["dataset"]["root"], dcfg.img_size)
     val_root = cfg["dataset"].get("val_root")
-    val_ds = _folder(val_root, dcfg.img_size) if val_root else ds
+    val_ds = image_folder(val_root, dcfg.img_size) if val_root else ds
     cache_max = cfg.get("device_cache_max_images", 512)
 
     def forever(loader):

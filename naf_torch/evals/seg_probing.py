@@ -23,7 +23,9 @@ syntax:
 ``device`` defaults to ``cuda``; ``dtype`` (float32, as the JAX CLI runs,
 or bfloat16) is the backbone's and the upsampler's; ``backbone.checkpoint``
 loads a local checkpoint (``naf_torch.backbones.convert``);
-``eval.model_ckpt`` loads the upsampler's weights.
+``eval.model_ckpt`` loads the upsampler's weights. ``main(argv,
+model_state)`` takes trained weights from the caller instead (a state dict,
+e.g. ``naf_torch.evals.distill``'s), as the JAX CLI's ``model_params`` does.
 """
 
 from __future__ import annotations
@@ -203,9 +205,11 @@ def dataset_loader(cfg, split):
         yield batch["image"], batch["label"]
 
 
-def build_models(cfg):
+def build_models(cfg, model_state=None):
     """(backbone, upsampler, dtype, device) of an eval config: the backbone
-    by ``naf_torch.backbones``, the upsampler by the model registry."""
+    by ``naf_torch.backbones``, the upsampler by the model registry with the
+    weights of ``model_state`` (a state dict, loaded strictly) where given,
+    else of ``eval.model_ckpt``, else random ones."""
     from naf_torch.backbones import load_multiple_backbones
     from naf_torch.models.registry import build_from_config
 
@@ -213,19 +217,22 @@ def build_models(cfg):
     dtype = getattr(torch, cfg.get("dtype", "float32"))
     backbone = load_multiple_backbones(cfg["backbone"], dtype=dtype, device=device)[0]
     model = build_from_config(cfg["model"], checkpoint=cfg["eval"].get("model_ckpt") or None)
+    if model_state is not None:
+        model.load_state_dict(model_state)
     return backbone, model.to(device, dtype).eval().requires_grad_(False), dtype, device
 
 
-def main(argv):
+def main(argv, model_state=None):
     """Train the probe and evaluate it; returns {"accuracy", "iou",
-    "epoch_s"} (the seconds of each training epoch)."""
+    "epoch_s"} (the seconds of each training epoch). ``model_state``: the
+    upsampler's trained weights, injected (see :func:`build_models`)."""
     overrides = [a for a in argv if "=" in a]
     from naf_torch.config import load_config
 
     cfg = load_config("eval_probing", overrides)
     synthetic = bool(cfg.get("synthetic", False))
     n_cls = 7 if synthetic else cfg["metrics"]["seg"]["num_classes"]
-    backbone, model, dtype, device = build_models(cfg)
+    backbone, model, dtype, device = build_models(cfg, model_state)
     size = cfg["img_size"]
     steps = 10 if synthetic else 1000
     probe = LinearProbe(build_feature_fn(backbone, model, dtype), backbone.embed_dim,

@@ -20,7 +20,9 @@ The CLI reads ``config/eval_video_seg.yaml``:
 It propagates the first-frame annotation of every video of the split,
 writes indexed PNGs under ``run_dir`` (default ``build/video_seg``), then
 prints and writes the J&F summary. ``device`` defaults to ``cuda``;
-``dtype`` (float32 or bfloat16) is the backbone's and the upsampler's.
+``dtype`` (float32 or bfloat16) is the backbone's and the upsampler's;
+``main(argv, model_state)`` takes the upsampler's trained weights from the
+caller, as the JAX CLI's ``model_params`` does.
 """
 
 from __future__ import annotations
@@ -167,8 +169,10 @@ def davis_statistics(per_frame: np.ndarray) -> Tuple[float, float, float]:
 # ------------------------------------------------------------------ CLI ----
 
 
-def main(argv):
-    """Propagate every video of the split and evaluate; returns the J&F summary."""
+def main(argv, model_state=None):
+    """Propagate every video of the split and evaluate; returns the J&F
+    summary. ``model_state``: the upsampler's trained weights, injected
+    (``seg_probing.build_models``)."""
     from PIL import Image
 
     from naf_torch.config import load_config
@@ -178,7 +182,7 @@ def main(argv):
     overrides = [a for a in argv if "=" in a]
     cfg = load_config("eval_video_seg", [f"run_dir={BUILD / 'video_seg'}", *overrides])
     davis_root = cfg["dataset"]["root"]
-    backbone, model, dtype, _ = build_models(cfg)
+    backbone, model, dtype, _ = build_models(cfg, model_state)
 
     @torch.no_grad()
     def upsampler_fn(img, feats, hw):

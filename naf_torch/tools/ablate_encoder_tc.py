@@ -123,9 +123,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("ablate_encoder_tc needs a CUDA device")
     torch.backends.cudnn.allow_tf32 = False
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True, text=True).stdout
-    card = card.strip().splitlines()[0]
+    from naf_torch.utils.benchmarking import card_line
+
+    card = card_line()
     print(card, flush=True)
     libs = _build_variants(_build.BUILD_DIR / "tc_ablate")
 

@@ -136,11 +136,12 @@ def main() -> int:
 
     from naf_torch.kernels import _build
     from naf_torch.kernels.na2d_fused_q import naf_upsample_attention_ref
+    from naf_torch.utils.benchmarking import card_line
 
     if not torch.cuda.is_available():
         raise SystemExit("ablate_fused_q needs a CUDA device")
     smoke = _smoke()
-    card = smoke._card_line()
+    card = card_line()
     print(card, flush=True)
     libs = _build_variants(_build.BUILD_DIR / "fused_q_ablate")
     dev = torch.device("cuda", 0)

@@ -173,9 +173,9 @@ def main(argv=None) -> int:
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("ablate_na_tc needs a CUDA device")
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True, text=True).stdout
-    card = card.strip().splitlines()[0]
+    from naf_torch.utils.benchmarking import card_line
+
+    card = card_line()
     print(card, flush=True)
     libs = _build_variants(_build.BUILD_DIR / "na_ablate", args.against)
     checked = [name for name in ("as_built", "against") if name in libs]

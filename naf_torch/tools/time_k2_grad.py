@@ -32,6 +32,8 @@ def _one(tree: str) -> None:
     spec.loader.exec_module(smoke)
     import torch
 
+    from naf_torch.utils.benchmarking import card_line
+
     if not torch.cuda.is_available():
         raise SystemExit("time_k2_grad needs a CUDA device")
     dev = torch.device("cuda", 0)
@@ -42,7 +44,7 @@ def _one(tree: str) -> None:
     peak = smoke._peak_mib(step)
     print(f"{tree}: K2 gradient bf16 448^2 <- 28^2 x 384, 4 heads, k 9: kernels {ms:.4f} ms, "
           f"of them K3 + K4 {k34:.4f} ms (queued {queued:.4f} ms); call peak {peak:.1f} MiB "
-          f"({smoke._card_line()})", flush=True)
+          f"({card_line()})", flush=True)
 
 
 def main() -> int:

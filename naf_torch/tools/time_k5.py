@@ -35,11 +35,12 @@ def _one(tree: str) -> None:
     import torch
 
     from naf_torch.models.registry import ModelWrapper
+    from naf_torch.utils.benchmarking import card_line
 
     if not torch.cuda.is_available():
         raise SystemExit("time_k5 needs a CUDA device")
     dev = torch.device("cuda", 0)
-    line = smoke._card_line()
+    line = card_line()
     smoke._time_k5(dev, f"{tree}: {line}", smoke._peaks(line)[0])
     args = smoke._baseline_inputs(dev, torch.Generator(device=dev).manual_seed(7))
     for name in ("FeatUp", "JBU"):

@@ -43,11 +43,7 @@ import torch
 
 from naf_torch.backbones import load_multiple_backbones
 from naf_torch.config import load_config
-from naf_torch.models.naf import NAF
-from naf_torch.train.trainer import TrainConfig, load_checkpoint, train_upsampler
-
-_MODEL_KEYS = ("dim", "heads_attn", "heads_rope", "kernel_size", "use_encoder", "rope_base",
-               "rope_rescale", "img_layers", "na_impl")
+from naf_torch.train.trainer import TrainConfig, build_model, load_checkpoint, train_upsampler
 
 
 def synthetic_images(batch_size: int, img_size: int, seed: int = 0):
@@ -69,14 +65,6 @@ def folder_images(cfg):
     while True:
         for batch in loader:
             yield batch["image"]
-
-
-def build_model(model_cfg: dict) -> NAF:
-    """The port's NAF from a ``config/model`` node (its ``_target_`` names
-    the JAX class, so the keys are read here)."""
-    if model_cfg.get("name", "naf") != "naf":
-        raise NotImplementedError(f"model {model_cfg.get('name')!r} is not ported")
-    return NAF(**{k: model_cfg[k] for k in _MODEL_KEYS if k in model_cfg})
 
 
 def build_mesh(mesh_cfg, batch_size: int, device="cuda"):

@@ -58,6 +58,7 @@ from torch.profiler import record_function
 from naf_torch.api import _device, _init_weights
 from naf_torch.backbones.wrapper import IMAGENET_DEFAULT_MEAN, IMAGENET_DEFAULT_STD
 from naf_torch.data.device_cache import index_batches
+from naf_torch.models.naf import NAF
 from naf_torch.nn.rope import RopeDraws
 from naf_torch.ops.resize import resize_bilinear
 from naf_torch.parallel import replicate, shard_batch
@@ -66,8 +67,11 @@ from naf_torch.train.losses import mse_loss
 
 __all__ = [
     "TrainConfig", "make_train_step", "make_train_chunk", "make_optimizer", "train_upsampler",
-    "step_generator", "save_checkpoint", "load_checkpoint", "versioned_dir",
+    "step_generator", "save_checkpoint", "load_checkpoint", "versioned_dir", "build_model",
 ]
+
+_MODEL_KEYS = ("dim", "heads_attn", "heads_rope", "kernel_size", "use_encoder", "rope_base",
+               "rope_rescale", "img_layers", "na_impl")
 
 
 @dataclasses.dataclass
@@ -88,6 +92,14 @@ class TrainConfig:
     log_dir: str = "runs/naf"
     seed: int = 0
     data_axis: str = "data"  # the mesh dim the batch shards over
+
+
+def build_model(model_cfg: dict) -> NAF:
+    """The port's NAF from a ``config/model`` node (its ``_target_`` names
+    the JAX class, so the keys are read here)."""
+    if model_cfg.get("name", "naf") != "naf":
+        raise NotImplementedError(f"model {model_cfg.get('name')!r} is not ported")
+    return NAF(**{k: model_cfg[k] for k in _MODEL_KEYS if k in model_cfg})
 
 
 def step_generator(seed: int, step: int, device="cpu") -> torch.Generator:
@@ -221,7 +233,8 @@ def train_upsampler(model, backbone, data_iter: Optional[Iterator[np.ndarray]],
                     cfg: TrainConfig, params: Optional[dict] = None,
                     opt_state: Optional[dict] = None, start_step: int = 0, device="cuda",
                     device_stack: Optional[torch.Tensor] = None,
-                    batch_size: Optional[int] = None, mesh=None):
+                    batch_size: Optional[int] = None, mesh=None,
+                    records: Optional[list] = None):
     """Train ``model`` against the frozen ``backbone`` on images from
     ``data_iter`` (NHWC float [0, 1], (B, img_size, img_size, 3)), on
     ``device`` (CUDA unless asked otherwise; without CUDA it raises).
@@ -238,8 +251,9 @@ def train_upsampler(model, backbone, data_iter: Optional[Iterator[np.ndarray]],
     parallel over ``cfg.data_axis``: each rank steps on its shard of every
     batch ``data_iter`` yields (the whole batch, the same on every rank),
     the gradients and the logged loss are means over the ranks, and only
-    the first rank writes. Returns the model, its parameters f32 on
-    ``device``."""
+    the first rank writes. ``records``, a list, receives every record
+    written to ``metrics.jsonl`` as it is written. Returns the model, its
+    parameters f32 on ``device``."""
     dev = _device(device)
     if device_stack is not None and start_step:
         raise ValueError("the device-stack route starts at step 0, as the JAX package's does")
@@ -286,7 +300,7 @@ def train_upsampler(model, backbone, data_iter: Optional[Iterator[np.ndarray]],
     if device_stack is not None:
         _train_chunked(model, optimizer, step_fn, device_stack, batch_size or cfg.batch_size,
                        cfg, rng, ps, (im_mean, im_std), (b_mean, b_std), log_dir, ckpt_every,
-                       viz_every, panel, t0)
+                       viz_every, panel, t0, records)
         return model
     metrics = (open(os.path.join(log_dir, "metrics.jsonl"), "a") if writer
                else contextlib.nullcontext())
@@ -309,6 +323,8 @@ def train_upsampler(model, backbone, data_iter: Optional[Iterator[np.ndarray]],
                        "elapsed_s": round(time.time() - t0, 1)}
                 mf.write(json.dumps(rec) + "\n")
                 mf.flush()
+                if records is not None:
+                    records.append(rec)
                 print(f"step {step}/{cfg.train_steps} loss {loss_v:.5f}", flush=True)
             if not writer:
                 continue
@@ -320,9 +336,11 @@ def train_upsampler(model, backbone, data_iter: Optional[Iterator[np.ndarray]],
 
 
 def _train_chunked(model, optimizer, step_fn, stack, batch_size, cfg, rng, ps, im_stats,
-                   b_stats, log_dir, ckpt_every, viz_every, panel, t0):
+                   b_stats, log_dir, ckpt_every, viz_every, panel, t0, records=None):
     """``train_upsampler``'s device-stack loop (the JAX package's, chunk by
-    chunk): ``rng`` draws each chunk's batch indices, then its lr size."""
+    chunk): ``rng`` draws each chunk's batch indices, then its lr size. Each
+    chunk's record adds to the JAX package's keys the median of its losses
+    and its wall time ``chunk_s``, up to the read of its losses."""
     chunk_fn = make_train_chunk(step_fn, im_stats, b_stats)
     img_hw = tuple(int(v) for v in stack.shape[1:3])
     hr_hw = (img_hw[0] // ps, img_hw[1] // ps)
@@ -334,12 +352,17 @@ def _train_chunked(model, optimizer, step_fn, stack, batch_size, cfg, rng, ps, i
             k = min(max(cfg.log_every, 1), cfg.train_steps - done)
             idx = np.stack([next(stream) for _ in range(k)])
             lr_size = sample_lr_size(img_hw, ps, cfg.down_factor, rng)
-            losses = chunk_fn(stack, idx, done, lr_size, hr_hw, crop_hw)
+            t_chunk = time.perf_counter()
+            losses = chunk_fn(stack, idx, done, lr_size, hr_hw, crop_hw).float().cpu()
+            chunk_s = time.perf_counter() - t_chunk  # reading the losses waited for the chunk
             done += k
             rec = {"step": done - 1, "loss": float(losses[-1]), "lr_size": list(lr_size),
-                   "elapsed_s": round(time.time() - t0, 1)}
+                   "elapsed_s": round(time.time() - t0, 1),
+                   "loss_median": float(np.median(losses.numpy())), "chunk_s": chunk_s}
             mf.write(json.dumps(rec) + "\n")
             mf.flush()
+            if records is not None:
+                records.append(rec)
             print(f"step {done}/{cfg.train_steps} loss {rec['loss']:.5f}", flush=True)
             if viz_every and (done % max(viz_every, 1) < k or done >= cfg.train_steps):
                 img = stack.index_select(0, torch.from_numpy(idx[-1]).to(stack.device))

@@ -29,12 +29,14 @@ never time on the CPU in its place.
 
 from __future__ import annotations
 
+import contextlib
 import statistics
+import subprocess
 import time
 
 import torch
 
-__all__ = ["device_time_ms", "device_time_stats"]
+__all__ = ["device_time_ms", "device_time_stats", "card_line", "tf32"]
 
 
 def _check_device(device) -> torch.device:
@@ -87,3 +89,25 @@ def device_time_ms(fn, *args, iters: int = 10, repeats: int = 3, warmup: int = 3
     """Median per-call time of ``fn(*args)`` in ms (see ``device_time_stats``)."""
     return device_time_stats(fn, *args, iters=iters, repeats=repeats, warmup=warmup,
                              device=device)["median"]
+
+
+def card_line() -> str:
+    """The first card's name and power limit, as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` prints them: the
+    context every card number is recorded with."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout
+    return out.strip().splitlines()[0]
+
+
+@contextlib.contextmanager
+def tf32(on: bool):
+    """cuDNN's and cuBLAS's TF32 switches set to ``on`` for the block; the
+    caller's are restored after it. A run that records its numbers records
+    ``on`` beside them."""
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = on
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
