@@ -47,8 +47,12 @@ and narrow routes (none in either fails), then, each phase on its own lines:
    NAF(dim=96) as a denoiser (256^2, ratio 1, one head, d 96, dv 3, k 9) and
    the training widths at k 11; K4 at 448^2 <- 28^2 in bands of query rows
    under a lowered partials budget against one launch, with both calls'
-   peak memory; the K2 gradient check of phase 3 also shows that its
-   backward ran K3 and K4;
+   peak memory; K3/K4 on an interior band (LR cell rows [7, 14) of 448^2 <-
+   28^2, the spatial train step's attention) under autograd against the
+   plain versions on the band (f32 out and dq 2e-4, dk/dv 2e-3; bf16 cosine
+   > 0.9995), and the bf16 band split into row bands by a lowered partials
+   budget against one launch; the K2 gradient check of phase 3 also shows
+   that its backward ran K3 and K4;
 5. the training path: ``train_upsampler`` on the production configuration
    (NAF dim 256, 4 + 4 heads, k 9, 2 layers, rope_rescale 2; AdamW 2e-4;
    batch 4; random ViT-B/14 DINOv2 backbone; img_size 448; bf16) for 20
@@ -171,7 +175,19 @@ Phase 17 runs after phase 15, before phase 8:
    (f32 max abs err <= 2e-5, bf16 cosine >= 0.99999), each rank launching 8
    K1 and 1 K2 per sharded forward; a data-parallel train step over the two
    ranks at the training shape against the one-process step (bf16 loss rel
-   <= 1e-2; f32 rel <= 1e-5, gradient cosine >= 0.999999); one rank in an
+   <= 1e-2; f32 rel <= 1e-5, gradient cosine >= 0.999999); the spatially
+   sharded train step (``naf_spatial_train_step``, data 1, space 2) of the
+   production NAF on a seeded target at 448^2 + 28^2 x 384 -> 448^2, f32
+   and bf16, 2 steps, and 448^2 + 128^2 x 384 -> 2048^2, bf16, 1 step, each
+   against the one-process step on the card from the same weights (f32 loss
+   rel <= 1e-5, first-step gradient cosine >= 0.999999 and rel norm <=
+   5e-5, the f32 spread of cuDNN's weight gradients over other partitions
+   of the pixels, ~1e-5 (``_spatial_train_check``), parameters after the
+   steps within 1e-5; bf16 loss rel <= 1e-2, cosine >= 0.9995, at 448^2
+   also to the f32 one-process step; at 2048^2 each rank's peak below the
+   one-process step's), every rank's step
+   launching 8 K1, 1 banded K2, 1 K3 and K4 in one or more bands on the
+   dtype's route, the ranks' losses and parameters equal; one rank in an
    NCCL world takes the f32 step. Per-rank times and peaks.
 
 Phases 18-19 run after phase 17, before phase 8:
@@ -238,7 +254,8 @@ Phase 21 runs after phase 20, before phase 8:
    its wall time.
 
 Prints a JSON line of per-kernel numbers (``launches_bench`` on K1-K5: the
-launches of phase 20's rows; ``launches_quality`` on K1-K4: phase 21's),
+launches of phase 20's rows; ``launches_quality`` on K1-K4: phase 21's;
+``launches_spatial_train`` on K1-K4: phase 17's spatial train steps),
 the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``. Exits non-zero on any failure,
 and when no CUDA device is present. Imports nothing of JAX.
@@ -800,8 +817,78 @@ def phase_k34(dev):
               + "/".join(f"{c:.6f}" for c in c4), flush=True)
         del q, k, v, g, want, want_g, out, got_g, ins
     _k4_bands(dev, gen)
+    errs.update(_k4_banded(dev, gen))
     torch.cuda.empty_cache()
     return errs
+
+
+# phase 4's banded K4: LR cell rows [7, 14) of 448^2 <- 28^2 (query rows 112 to
+# 224), an interior band of the spatial train step's attention (space 4)
+K4_BAND_CELLS = (7, 7)
+
+
+def _k4_banded(dev, gen):
+    """K3/K4 on one interior band (``row_cell0``, ``full_hq``) of 448^2 <-
+    28^2 under autograd, against the plain versions on the band: f32 (CUDA
+    cores) out 2e-4, dq 2e-4, dk/dv 2e-3; bf16 (tensor cores) cosine >
+    0.9995; each call one K3 and one K4 launch on its route. Then the bf16
+    band's K4 split into row bands by a lowered partials budget, against
+    one launch (cosine >= 0.99999) and the plain version."""
+    from naf_torch.kernels import na2d_fused as na
+
+    routes = na.cross_scale_na2d_fused.route_launches
+    b, hq, hk, n, d, dv = K34_SHAPES["448"]
+    c0, cells = K4_BAND_CELLS
+    r = hq // hk
+    rows = slice(c0 * r, (c0 + cells) * r)
+    q, k, v, g = _k34_inputs(dev, gen, K34_SHAPES["448"])
+    q, g = q[:, rows].contiguous(), g[:, rows].contiguous()
+    band = dict(row_cell0=c0, full_hq=hq)
+    want = na.cross_scale_na2d_fused_ref(q, k, v, 9, **band)
+    want_g = na.cross_scale_na2d_fused_bwd_ref(q, k, v, g, 9, **band)
+    res = {}
+    for dt, route in ((torch.float32, "fma"), (torch.bfloat16, "wgmma")):
+        before = (routes[route], routes[f"{route}_bwd"])
+        ins = [t.to(dt).requires_grad_() for t in (q, k, v)]
+        out = na.cross_scale_na2d_fused(*ins, 9, **band)
+        got_g = torch.autograd.grad(out, ins, g.to(dt))
+        torch.cuda.synchronize()
+        if (routes[route], routes[f"{route}_bwd"]) != (before[0] + 1, before[1] + 1):
+            raise AssertionError(f"K3/K4 banded {dt} did not run once each on the {route} "
+                                 "route")
+        if dt == torch.float32:
+            res["k3_banded_err"] = _check_close("K3 banded f32", out, want, 2e-4)
+            errs = [_check_close(f"K4 banded f32 d{nm}", a, w, tol)
+                    for a, w, nm, tol in zip(got_g, want_g, "qkv", (2e-4, 2e-3, 2e-3))]
+            res["k4_banded_err"] = max(errs)
+        else:
+            res["k4_banded_cos"] = [_check_cos(f"K4 banded bf16 d{nm}", a.float(), w, 0.9995)
+                                    for a, w, nm in zip(got_g, want_g, "qkv")]
+            one = got_g
+        del out, ins
+    qb, kb, vb, gb = (t.bfloat16() for t in (q, k, v, g))
+    budget = na.PARTIAL_BUDGET
+    na.PARTIAL_BUDGET = 64 * 2**20
+    try:
+        before = routes["wgmma_bwd"]
+        split = na._launch_bwd(qb, kb, vb, gb, 9, d ** -0.5, c0 * r, hq)
+        bands = routes["wgmma_bwd"] - before
+    finally:
+        na.PARTIAL_BUDGET = budget
+    if bands < 2:
+        raise AssertionError(f"K4 banded under a 64 MiB budget: {bands} launch(es)")
+    cos = [min(_check_cos(f"K4 banded split vs plain d{nm}", a.float(), w, 0.9995),
+               _check_cos(f"K4 banded split vs one launch d{nm}", a.float(), o.float(),
+                          0.99999))
+           for a, o, w, nm in zip(split, one, want_g, "qkv")]
+    print(f"K4 banded 448^2 <- 28^2, LR cell rows [{c0}, {c0 + cells}) (query rows "
+          f"{rows.start}-{rows.stop}): f32 (CUDA cores) max_abs_err K3 "
+          f"{res['k3_banded_err']:.3e} K4 {res['k4_banded_err']:.3e}; bf16 (wgmma) cos K4 "
+          f"dq/dk/dv " + "/".join(f"{c:.6f}" for c in res["k4_banded_cos"])
+          + f"; in {bands} row bands under a 64 MiB budget cos dq/dk/dv "
+          + "/".join(f"{c:.6f}" for c in cos), flush=True)
+    res["k4_banded_split_bands"] = bands
+    return res
 
 
 def _k4_bands(dev, gen):
@@ -2580,6 +2667,13 @@ def _time_denoise_kernels(dev, card):
 PARALLEL_SHAPES = {"448": (448, 28, 448), "2048": (448, 128, 2048)}
 PARALLEL_RANKS = 2
 PARALLEL_REPS = 5  # timed sharded (and one-process) forwards per rank
+# phase 17's spatially sharded train steps: (image side, LR side, output side,
+# bf16, steps), each from the same weights as the one-process step it is held
+# against, on a target drawn from a seed; the cases of one shape take the same
+# image and features, so a bf16 step is also held against the f32 one-process
+# step of its shape where there is one
+SPATIAL_TRAIN = {"448_f32": (448, 28, 448, False, 2), "448_bf16": (448, 28, 448, True, 2),
+                 "2048_bf16": (448, 128, 2048, True, 1)}
 
 
 def phase_parallel(dev, card):
@@ -2593,9 +2687,11 @@ def phase_parallel(dev, card):
     data-parallel train step over the two ranks at the training shape (batch
     4, 448^2, random ViT-B/14) against the one-process step (loss rel <=
     1e-2 in bf16; <= 1e-5 in f32 with the gradients before the optimizer at
-    cosine >= 0.999999); and one rank in an NCCL world taking the f32 step
-    through its all_reduce. Per-rank wall times are of two ranks sharing one
-    card."""
+    cosine >= 0.999999); the spatially sharded train step at
+    ``SPATIAL_TRAIN``'s shapes against the one-process step
+    (:func:`_spatial_train_check`); and one rank in an NCCL world taking the
+    f32 step through its all_reduce. Per-rank wall times are of two ranks
+    sharing one card."""
     import numpy as np
 
     from naf_torch.backbones.wrapper import IMAGENET_DEFAULT_MEAN, IMAGENET_DEFAULT_STD
@@ -2621,6 +2717,7 @@ def phase_parallel(dev, card):
                 crop_hw=(min(224, 4 * hr),) * 2, one_process=True)
     for use_bf16 in (True, False):
         calls.append((train_case, dict(step, use_bf16=use_bf16)))
+    calls += _spatial_train_calls(PARALLEL_RANKS)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     ranks = run_ranks(each, PARALLEL_RANKS, args=(calls,), device="cuda", timeout=900)
@@ -2702,9 +2799,126 @@ def phase_parallel(dev, card):
               + f" (rel {r['loss_rel']:.2e}), first-step gradient cosine {r['grad_cos']:.7f}; "
               f"second step {r['step_ms']:.1f} ms (one process {r['single_step_ms']:.1f}), "
               f"peak {r['peak_mib']:.1f} MiB ({card})", flush=True)
+    f32_steps = {}
+    for j, (tag, spec) in enumerate(SPATIAL_TRAIN.items()):
+        per = [r[n + 2 + j] for r in ranks]
+        shape = spec[:3]
+        res[f"spatial_train_{tag}"] = _spatial_train_check(tag, spec, per, card,
+                                                           f32_steps.get(shape))
+        if not spec[3]:
+            f32_steps[shape] = per[0]["single"]
+        for r in per:
+            for name in ("k1", "k2", "k3", "k4"):
+                launches[f"train_{name}"] = launches.get(f"train_{name}", 0) + sum(
+                    ln[name] for ln in r["spatial"]["launches"])
     print(f"parallel: {PARALLEL_RANKS} gloo ranks started and run in {gloo_s:.1f} s, the NCCL "
           f"rank in {nccl_s:.1f} s", flush=True)
     return launches, res
+
+
+def _spatial_train_calls(space: int) -> list:
+    """Phase 17's ``(spatial_train_case, spec)`` calls, one per
+    ``SPATIAL_TRAIN`` case: data 1, the production NAF from seed 0, the
+    image and features of the case's shape drawn from one seed."""
+    import numpy as np
+
+    from naf_torch.dryrun import spatial_train_case
+
+    calls, inputs = [], {}
+    rng = np.random.RandomState(18)
+    for side, hk, out, use_bf16, steps in SPATIAL_TRAIN.values():
+        if (side, hk) not in inputs:
+            inputs[side, hk] = (rng.randn(1, side, side, 3).astype(np.float32),
+                                rng.randn(1, hk, hk, 384).astype(np.float32))
+        image, feats = inputs[side, hk]
+        calls.append((spatial_train_case, dict(
+            naf=PROD_NAF, seed=0, image=image, feats=feats, target_shape=(1, out, out, 384),
+            target_seed=17, out_hw=(out, out), data=1, space=space, use_bf16=use_bf16,
+            steps=steps, one_process=True)))
+    return calls
+
+
+def _flat_grads(run, names) -> torch.Tensor:
+    return torch.cat([run["grads"][k].flatten() for k in names])
+
+
+def _spatial_train_check(tag, spec, per, card, f32_single=None) -> dict:
+    """Phase 17's spatial train step on each rank against the one-process
+    step on rank 0: every step of every rank (and of the one-process run)
+    on 8 K1, one K2, one K3 and K4 in one or more bands, all on the dtype's
+    route; the ranks' losses and parameters equal; the losses, the first
+    step's gradients and (f32) the parameters after the steps within the
+    bars; at 2048^2 every rank's peak below the one-process step's. A bf16
+    step whose shape has an f32 case (``f32_single``, that case's
+    one-process run: the same weights and inputs) is also held against the
+    f32 one-process gradient, beside the bf16 one-process step's cosine to
+    it. The f32 gradients' rel norm bar is 5e-5, not 1e-5: the ranks'
+    cuDNN weight gradients of the 3x3 encoder convs sum other partitions of
+    the 448^2 pixels than the one process's, and that alone gives ~1e-5
+    (``naf_torch/tools/wgrad_partition.py``: the same activations' weight
+    gradients over two row halves against one whole-grid call, 9.6e-6 of
+    the gradient's norm; the step's own 1.09e-5, all of it in the encoder
+    convs; the one-process step 1.01e-5 from the float64 sums; two
+    one-process steps 1.7e-6 apart)."""
+    side, hk, out, use_bf16, steps = spec
+    route = "wgmma" if use_bf16 else "fma"
+    label = f"spatial train {tag}"
+    one = per[0]["single"]
+    for who, run in [*((f"rank {r['rank']}", r["spatial"]) for r in per), ("one process", one)]:
+        for i, ln in enumerate(run["launches"]):
+            got = (ln["k1"], ln["k2"], ln[f"k2_{route}"], ln["k3"], ln[f"k34_{route}"])
+            if got != (8, 1, 1, 1, 1) or ln["k4"] < 1 or ln[f"k34_{route}_bwd"] != ln["k4"]:
+                raise AssertionError(f"{label}: {who} step {i} launches {ln}")
+    sp = per[0]["spatial"]
+    for r in per[1:]:
+        other = r["spatial"]
+        if other["losses"] != sp["losses"] or not all(
+                torch.equal(other["params"][k], v) for k, v in sp["params"].items()):
+            raise AssertionError(f"{label}: rank {r['rank']} holds other losses or parameters")
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(sp["losses"], one["losses"]))
+    names = list(sp["grads"])
+    g_sp, g_one = _flat_grads(sp, names), _flat_grads(one, names)
+    cos = _cos(g_sp, g_one)
+    grad_rel = float((g_sp.double() - g_one.double()).norm() / g_one.double().norm())
+    param_err = max(float((v - one["params"][k]).abs().max()) for k, v in sp["params"].items())
+    cos_f32 = cos_one_f32 = None
+    if f32_single is not None:
+        g_f32 = _flat_grads(f32_single, names)
+        cos_f32, cos_one_f32 = _cos(g_sp, g_f32), _cos(g_one, g_f32)
+    if use_bf16:
+        ok = loss_rel <= 1e-2 and cos >= 0.9995 and (cos_f32 is None or cos_f32 >= 0.9995)
+    else:
+        ok = loss_rel <= 1e-5 and cos >= 0.999999 and grad_rel <= 5e-5 and param_err <= 1e-5
+    if not ok:
+        raise AssertionError(f"{label}: losses {sp['losses']} vs one process {one['losses']} "
+                             f"(rel {loss_rel:.2e}), gradient cosine {cos:.7f} (to the f32 "
+                             f"one-process step {cos_f32}), rel norm {grad_rel:.2e}, "
+                             f"parameters max abs diff {param_err:.2e}")
+    peaks = [r["spatial"]["peak_mib"] for r in per]
+    if out == 2048 and not max(peaks) < one["peak_mib"]:
+        raise AssertionError(f"{label}: rank peaks {peaks} MiB not below the one-process "
+                             f"step's {one['peak_mib']:.1f} MiB")
+    k4 = [ln["k4"] for ln in sp["launches"]]
+    print(f"parallel {label}: {side}^2 + {hk}^2 x 384 -> {out}^2, "
+          f"{'bf16' if use_bf16 else 'f32'}, {steps} step(s) over {len(per)} ranks (data 1, "
+          f"space {len(per)}, gloo, sharing one card): each rank per step 8 K1, 1 banded K2, 1 "
+          f"K3, K4 {k4} ({route}); losses " + ", ".join(f"{x:.7f}" for x in sp["losses"])
+          + " vs one process " + ", ".join(f"{x:.7f}" for x in one["losses"])
+          + f" (rel {loss_rel:.2e}); first-step gradient cosine {cos:.8f}, rel norm "
+          f"{grad_rel:.2e}"
+          + ("" if cos_f32 is None else f"; cosine to the f32 one-process step {cos_f32:.8f} "
+             f"(the bf16 one-process step's {cos_one_f32:.8f})")
+          + f"; parameters after the steps max abs diff {param_err:.2e}; rank ms "
+          f"a step (last) " + ", ".join(f"{r['spatial']['ms'][-1]:.1f}" for r in per)
+          + f" (one process {one['ms'][-1]:.1f}); rank peak MiB "
+          + ", ".join(f"{p:.1f}" for p in peaks) + f" (one process {one['peak_mib']:.1f}) "
+          f"({card})", flush=True)
+    return dict(losses=sp["losses"], single_losses=one["losses"], loss_rel=loss_rel,
+                grad_cos=cos, grad_rel=grad_rel, param_max_abs_diff=param_err,
+                grad_cos_f32=cos_f32, single_grad_cos_f32=cos_one_f32,
+                rank_step_ms=[r["spatial"]["ms"] for r in per], single_step_ms=one["ms"],
+                rank_peak_mib=peaks, single_peak_mib=one["peak_mib"], route=route,
+                k4_per_step=k4)
 
 
 # the backbones of phase 18: every name of the port's registry, and the
@@ -3578,6 +3792,12 @@ def main() -> int:
     # phase 17: both ranks' sharded forwards (8 K1 and 1 K2 on each rank)
     kernels[0]["launches_parallel"] = par_launches["k1"]
     kernels[1]["launches_parallel"] = par_launches["k2"]
+    # phase 17: both ranks' spatially sharded train steps (per rank and step
+    # 8 K1, 1 banded K2, 1 K3 and K4 in bands)
+    for i, name in enumerate(("k1", "k2", "k3", "k4")):
+        kernels[i]["launches_spatial_train"] = par_launches[f"train_{name}"]
+    kernels[3].update({k: k34_err[k] for k in ("k4_banded_err", "k4_banded_cos",
+                                               "k4_banded_split_bands")})
     # phases 18-19: the LargeImg requests and the evals' NAF forwards
     for i, name in ((0, "k1"), (1, "k2")):
         kernels[i]["launches_large_img"] = large_launches[name]

@@ -11,12 +11,13 @@ and, on every rank: one data-parallel train step of the flagship NAF (dim
 DINOv2 ViT, with a finite loss; then the spatially sharded forward
 (``parallel.naf_spatial_forward``) of the same model on a (N/2, 2) mesh for
 even N, (N, 1) otherwise, at 8 * space LR rows (the JAX dry run's shapes),
-gathered whole, with the expected shape and finite values. Prints
-``DRYRUN_OK``. Ranks that share a card talk over gloo; ranks with a card
-each over NCCL.
-
-Spatially sharded training is not ported: banded K2 calls are inference-only,
-so the port trains over ``data`` alone.
+gathered whole, with the expected shape and finite values; then one
+spatially sharded train step (``parallel.naf_spatial_train_step``, AdamW
+2e-4) of the flagship NAF on that mesh at the JAX dry run's training shapes
+(output (48 * space, 48), image (B, 96 * space, 96, 3), features (B, 12 *
+space, 12, 32), a (B, 48 * space, 48, 32) target), with a finite loss that
+every rank holds. Prints ``DRYRUN_OK``. Ranks that share a card talk over
+gloo; ranks with a card each over NCCL.
 """
 
 from __future__ import annotations
@@ -30,15 +31,18 @@ import torch
 
 from naf_torch.parallel import rank_device
 
-__all__ = ["spatial_case", "train_case", "each", "main"]
+__all__ = ["spatial_case", "train_case", "spatial_train_case", "each", "main"]
 
 
 def _counts() -> dict:
     from naf_torch.kernels.encoder_fused import gn_silu_conv_fused
+    from naf_torch.kernels.na2d_fused import cross_scale_na2d_fused as na
     from naf_torch.kernels.na2d_fused_q import naf_upsample_attention
 
     return {"k1": gn_silu_conv_fused.launches, "k2": naf_upsample_attention.launches,
-            **{f"k2_{k}": v for k, v in naf_upsample_attention.route_launches.items()}}
+            **{f"k2_{k}": v for k, v in naf_upsample_attention.route_launches.items()},
+            "k3": na.launches, "k4": na.bwd_launches,
+            **{f"k34_{k}": v for k, v in na.route_launches.items()}}
 
 
 def _sync(dev):
@@ -240,6 +244,115 @@ def train_case(spec: dict) -> dict:
     return res
 
 
+def _mse_steps(model, optimizer, step_fn, steps: int, dev) -> dict:
+    """Run ``steps`` calls of ``step_fn() -> loss``; returns the losses, the
+    gradients the first step applied and the parameters after the last, on
+    the CPU in f32, each step's wall time and kernel launches, and on the
+    card the steps' peak over what was allocated before the model's first
+    step (its parameters, optimizer state and activations)."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    losses, grads, ms, launches = [], None, [], []
+    for i in range(steps):
+        before = _counts()
+        t0 = time.perf_counter()
+        losses.append(float(step_fn()))
+        _sync(dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        launches.append({k: v - before[k] for k, v in _counts().items()})
+        if i == 0:
+            grads = {k: p.grad.detach().float().cpu().clone()
+                     for k, p in model.named_parameters()}
+    res = {"losses": losses, "grads": grads, "ms": ms, "launches": launches,
+           "params": {k: v.detach().float().cpu().clone()
+                      for k, v in model.state_dict().items()}}
+    if dev.type == "cuda":
+        res["peak_mib"] = (torch.cuda.max_memory_allocated(dev) - base) / 2**20
+    return res
+
+
+def spatial_train_case(spec: dict) -> dict:
+    """One rank's spatially sharded train steps, run under
+    :func:`parallel.run_ranks`: ``parallel.naf_spatial_train_step`` on a
+    (data, space) mesh, the counterpart of the JAX dry run's
+    ``value_and_grad`` step of ``mean((model.apply(p, image, lr_feats,
+    out_hw) - target)**2)`` with ``optax.adamw``.
+
+    ``spec``: ``naf``, ``state`` and ``seed`` as in :func:`spatial_case`;
+    ``image`` (B, H, W, 3), ``feats`` (B, hk, wk, C) and ``target`` (B, Ho,
+    Wo, C) numpy arrays (the whole batch; each rank cuts its target block
+    with ``shard_spatial``), or instead of ``target`` a ``target_shape``
+    drawn on the rank's device from ``target_seed`` in the step's dtype (a
+    2048^2 target is too large to pass through a file); ``out_hw``,
+    ``data``, ``space``, ``use_bf16``, ``steps``; ``one_process`` (rank 0
+    also takes the same steps through ``model(image, feats, out_hw)`` on the
+    whole batch, from the same weights, in one process; bf16 on casts of f32
+    masters, as the trainer does).
+
+    The optimizer is the JAX dry run's ``optax.adamw(2e-4)``: AdamW at lr
+    2e-4 and optax's default weight decay, 1e-4.
+
+    Returns ``spatial`` (:func:`_mse_steps`: the losses, the reduced
+    gradients the first step applied, the parameters after the last step,
+    per-step ms and kernel launches, the peak MiB on the card) and, on rank
+    0 with ``one_process``, ``single`` the same for the one-process steps."""
+    import torch.distributed as dist
+    from torch.func import functional_call
+
+    from naf_torch.parallel import make_mesh, naf_spatial_train_step, replicate, shard_spatial
+    from naf_torch.train.trainer import TrainConfig, _cast_params, make_optimizer
+
+    dev = rank_device()
+    use_bf16 = spec["use_bf16"]
+    dtype = torch.bfloat16 if use_bf16 else torch.float32
+    if dev.type == "cuda" and not use_bf16:
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    mesh = make_mesh(spec["data"], spec["space"])
+    image, feats = (torch.from_numpy(spec[k]).to(dev) for k in ("image", "feats"))
+    if spec.get("target") is not None:
+        target = torch.from_numpy(spec["target"]).to(dev)
+    else:
+        gen = torch.Generator(device=dev).manual_seed(spec["target_seed"])
+        target = torch.randn(tuple(spec["target_shape"]), generator=gen, device=dev,
+                             dtype=dtype)
+    out_hw = tuple(spec["out_hw"])
+    adamw = TrainConfig(lr=2e-4, weight_decay=1e-4)
+
+    def spatial():
+        model = _model(spec, dev, torch.float32).train()
+        replicate(mesh, model)
+        opt = make_optimizer(model, adamw)
+        step = naf_spatial_train_step(mesh, model, opt, use_bf16)
+        block = shard_spatial(mesh, target)
+        return _mse_steps(model, opt, lambda: step(image, feats, block, out_hw),
+                          spec["steps"], dev)
+
+    def single():
+        model = _model(spec, dev, torch.float32).train()
+        opt = make_optimizer(model, adamw)
+
+        def step():
+            pred = functional_call(model, _cast_params(model, dtype),
+                                   (image.to(dtype), feats.to(dtype), out_hw))
+            loss = (pred.float() - target.float()).square().mean()
+            opt.zero_grad(set_to_none=True)
+            loss.backward()
+            opt.step()
+            return loss.detach()
+
+        return _mse_steps(model, opt, step, spec["steps"], dev)
+
+    res = {"spatial": spatial(), "rank": dist.get_rank(), "backend": dist.get_backend()}
+    if spec.get("one_process") and dist.get_rank() == 0:
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        res["single"] = single()
+    dist.barrier()  # the other ranks wait while rank 0 steps alone
+    return res
+
+
 def each(calls) -> list:
     """Run each ``(case, spec)`` of ``calls`` in turn on this rank: several
     cases in one world, for the price of one start of the ranks."""
@@ -275,8 +388,19 @@ def _dryrun_rank(n: int) -> dict:
     if tuple(out.shape) != (batch, hk * 8, 256, 384) or not bool(torch.isfinite(out).all()):
         raise AssertionError(f"sharded forward: shape {tuple(out.shape)}, finite "
                              f"{bool(torch.isfinite(out).all())}")
+    # the JAX dry run's (data, space) train step: its shapes, AdamW 2e-4
+    rng = np.random.RandomState(0)
+    out_hw = (48 * space, 48)
+    st = spatial_train_case(dict(
+        naf={}, seed=0, image=rng.randn(batch, 96 * space, 96, 3).astype(np.float32),
+        feats=rng.randn(batch, 12 * space, 12, 32).astype(np.float32),
+        target=rng.randn(batch, *out_hw, 32).astype(np.float32), out_hw=out_hw,
+        data=n // space, space=space, use_bf16=False, steps=1))
+    spatial_loss = st["spatial"]["losses"][0]
+    if not np.isfinite(spatial_loss):
+        raise AssertionError(f"non-finite loss {spatial_loss} in the spatial train step")
     return {"rank": dist.get_rank(), "backend": dist.get_backend(), "loss": loss,
-            "mesh": (n // space, space), "out": tuple(out.shape)}
+            "mesh": (n // space, space), "out": tuple(out.shape), "spatial_loss": spatial_loss}
 
 
 def main(argv=None) -> int:
@@ -295,6 +419,11 @@ def main(argv=None) -> int:
     for r in res:
         print(f"rank {r['rank']} ({r['backend']}): train loss {r['loss']:.6f}, spatial mesh "
               f"{r['mesh']}, gathered output {r['out']}", flush=True)
+    losses = {r["spatial_loss"] for r in res}
+    if len(losses) != 1:
+        raise AssertionError(f"the ranks' spatial train losses differ: {sorted(losses)}")
+    print(f"spatial train step on mesh {res[0]['mesh']}: loss {res[0]['spatial_loss']:.6f} on "
+          f"every rank", flush=True)
     print(f"{args.ranks} ranks in {time.perf_counter() - t0:.1f} s", flush=True)
     print("DRYRUN_OK", flush=True)
     return 0

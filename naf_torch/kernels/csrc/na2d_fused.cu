@@ -39,9 +39,10 @@
 //  - padded (ragged-edge) queries contribute nothing: their P, dL, q and dO
 //    are zeroed before any contraction.
 //
-// A band of query rows (the JAX kernel's row_cell0 / full_hq, inference
-// only) runs K3 unchanged: q and out hold only the band's rows, and the host
-// passes the band's rows of the global window tables and their boxes.
+// A band of query rows (the JAX kernel's row_cell0 / full_hq) runs K3 and K4
+// unchanged: q, out, dO and dq hold only the band's rows, and the host passes
+// the band's rows of the global window tables and their boxes; dk and dv
+// cover the whole LR grid (zero where no window of the band reaches).
 //
 // K4's dk/dv are a scatter: every LR cell receives from the queries of many
 // windows, and blocks run in no order. Both routes take the deterministic

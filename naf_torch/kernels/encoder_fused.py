@@ -47,6 +47,7 @@ __all__ = [
     "gn_silu_conv_ref",
     "gn_silu_conv_dual_fused",
     "gn_silu_conv_dual_ref",
+    "encoder_stack_band",
     "encoder_stack_fused",
     "encoder_stack_fused_packed",
     "encoder_stack_ref",
@@ -195,15 +196,21 @@ def _route(dtype) -> str:
     raise TypeError(f"K1 and K6 take float32 or bfloat16, got {dtype}")
 
 
-def gn_silu_conv_ref(x, scale, shift, weight, bias):
-    """Plain version of K1. x (B,H,W,C); scale/shift (B,C) or (C,) f32;
-    weight (F,C,k,k); bias (F,). Returns (y (B,H,W,F) in x's dtype,
-    psums (B,2,F) f32 of the f32 y)."""
+def _gn_silu_conv_f32(x, scale, shift, weight, bias):
+    """K1's plain math up to its f32 conv output, before y rounds to x's
+    dtype: (B,H,W,F) f32."""
     # x * f32 scale promotes to f32 (the same values as x.float() * scale) and
     # saves x for the backward in its own dtype, not an f32 copy
     z = x * scale.float()[..., None, None, :] + shift.float()[..., None, None, :]
     z = F.silu(z).to(x.dtype)  # the activated input rounds to the io dtype
-    y = _conv_nhwc(z, weight, bias)
+    return _conv_nhwc(z, weight, bias)
+
+
+def gn_silu_conv_ref(x, scale, shift, weight, bias):
+    """Plain version of K1. x (B,H,W,C); scale/shift (B,C) or (C,) f32;
+    weight (F,C,k,k); bias (F,). Returns (y (B,H,W,F) in x's dtype,
+    psums (B,2,F) f32 of the f32 y)."""
+    y = _gn_silu_conv_f32(x, scale, shift, weight, bias)
     return y.to(x.dtype), _channel_sums(y)
 
 
@@ -580,22 +587,28 @@ def _unpack_exact_bf16(packed):
     return t.float() if narrowed else t
 
 
-def _twin_grads(saved, needs, specs, g):
-    """The gradients of the stacks' plain twin (``_stacks_ref``) at the
-    saved input and parameters. With a bf16 input the recompute keeps its
-    f32 widenings of bf16 activations as bf16 (:func:`_pack_exact_bf16`):
-    the backward reads the same values, and the twin's saved activations
-    take less memory (the JAX package's twin saves bf16 activations: its
-    convs run in bf16)."""
+def _recompute_grads(saved, needs, twin, g):
+    """The gradients of the plain twin ``twin(x, params)`` at the saved
+    input and parameters. With a bf16 input the recompute keeps its f32
+    widenings of bf16 activations as bf16 (:func:`_pack_exact_bf16`): the
+    backward reads the same values, and the twin's saved activations take
+    less memory (the JAX package's twin saves bf16 activations: its convs
+    run in bf16)."""
     inputs = [t.detach().requires_grad_(n) for t, n in zip(saved, needs)]
     with torch.enable_grad():
         if inputs[0].dtype == torch.bfloat16:
             with torch.autograd.graph.saved_tensors_hooks(_pack_exact_bf16,
                                                           _unpack_exact_bf16):
-                out = _stacks_ref(inputs[0], inputs[1:], specs)
+                out = twin(inputs[0], inputs[1:])
         else:
-            out = _stacks_ref(inputs[0], inputs[1:], specs)
+            out = twin(inputs[0], inputs[1:])
     return _grads((out,), (g,), inputs)
+
+
+def _twin_grads(saved, needs, specs, g):
+    """The gradients of the stacks' plain twin (``_stacks_ref``) at the
+    saved input and parameters (:func:`_recompute_grads`)."""
+    return _recompute_grads(saved, needs, lambda x, params: _stacks_ref(x, params, specs), g)
 
 
 class _FusedStacks(torch.autograd.Function):
@@ -626,6 +639,102 @@ class _FusedStacks(torch.autograd.Function):
         needs = (ctx.needs_input_grad[0],) + ctx.needs_input_grad[3:]
         grads = _twin_grads(ctx.saved_tensors, needs, ctx.specs, g)
         return (grads[0], None, None, *grads[1:])
+
+
+def _band_layer(x, scale, shift, weight, bias):
+    """K1 on a band's held rows. Its statistics are read from its output y
+    in x's dtype: K1's own sums cover every held row, halo included, and a
+    band needs its own rows' alone. So in bf16 the forward normalises with
+    sums of the rounded y, while the twin (:func:`_band_layer_ref`) and the
+    whole stack take them from the f32 conv output: the backward
+    differentiates a function a rounding away from the one the forward
+    computed (f32 is exact)."""
+    y = gn_silu_conv_fused(x, scale, shift, weight, bias)[0]
+    return y, y
+
+
+def _band_layer_ref(x, scale, shift, weight, bias):
+    """K1's plain math on a band's held rows, its statistics read from the
+    f32 conv output before y rounds to x's dtype, as the whole stack's twin
+    reads them (``gn_silu_conv_ref``'s psums)."""
+    f = _gn_silu_conv_f32(x, scale, shift, weight, bias)
+    return f.to(x.dtype), f
+
+
+def _run_band(x, params, spec, layer, r0: int, r1: int, reduce_sums):
+    """Rows [r0, r1) of one stack's output, computed from the image ``x``
+    (B, H, W, 3) on these rows plus a halo of ``k_stem//2 + L*(k//2)``
+    rows: the stem, then each GN -> SiLU -> conv layer over every held row.
+    ``layer(x, scale, shift, weight, bias) -> (y, f)`` is
+    :func:`_band_layer` or :func:`_band_layer_ref`; the next layer's
+    GroupNorm statistics are the channel sums of ``f`` over rows [r0, r1)
+    alone, passed through ``reduce_sums`` (the identity for a whole stack,
+    a sum over the ranks that hold the other rows for a spatial band). The
+    reflect padding at an interior band edge is wrong; the rows it reaches
+    lie in the halo and are dropped, ``k//2`` each side after each conv,
+    before any kept row reads them, so they get no gradient either."""
+    _, num_groups, eps = spec
+    stem_w, stem_b = params[:2]
+    layers = [params[i : i + 4] for i in range(2, len(params), 4)]  # gamma, beta, weight, bias
+    _, h, w, _ = x.shape
+    p_stem = stem_w.shape[-1] // 2
+    halo = p_stem + sum(weight.shape[-1] // 2 for _, _, weight, _ in layers)
+    a, b = max(0, r0 - halo), min(h, r1 + halo)
+
+    def drop(ts, p):
+        """Drop the p rows a conv's padding reached at each interior edge."""
+        nonlocal a, b
+        a2, b2 = (min(a + p, r0) if a else a), (max(b - p, r1) if b < h else b)
+        ts = [t[:, a2 - a : t.shape[1] - (b - b2)] for t in ts]
+        a, b = a2, b2
+        return ts
+
+    (y,) = drop([_stem_conv(x[:, a:b].contiguous(), stem_w, stem_b)], p_stem)
+    f = y
+    for gamma, beta, weight, bias in layers:
+        psums = reduce_sums(_channel_sums(f[:, r0 - a : r1 - a]))
+        scale, shift = _gn_affine(psums, gamma, beta, h * w, num_groups, eps)
+        y, f = drop(layer(y.contiguous(), scale, shift, weight, bias), weight.shape[-1] // 2)
+    return y[:, r0 - a : r1 - a]
+
+
+class _FusedBand(torch.autograd.Function):
+    """One stack's band (:func:`_run_band`) on K1, differentiated through
+    the plain twin recomputed from the image rows, as :class:`_FusedStacks`
+    differentiates a whole stack. The gradient that reaches a conv's output
+    from the next layer and from the GroupNorm statistics (two terms that
+    nearly cancel) is summed in f32 and stays f32 through that conv's
+    weight gradient; a chain of per-layer K1 gradients would round it to
+    bf16 at each K1 output and lose most of the earlier layers' gradients
+    (5-10x the twin's error in bf16)."""
+
+    @staticmethod
+    def forward(ctx, x, spec, r0, r1, reduce_sums, *params):
+        ctx.band = (spec, r0, r1, reduce_sums)
+        ctx.save_for_backward(x, *params)
+        return _run_band(x, params, spec, _band_layer, r0, r1, reduce_sums)
+
+    @staticmethod
+    def backward(ctx, g):
+        spec, r0, r1, reduce_sums = ctx.band
+        needs = (ctx.needs_input_grad[0],) + ctx.needs_input_grad[5:]
+        grads = _recompute_grads(ctx.saved_tensors, needs, lambda x, params: _run_band(
+            x, params, spec, _band_layer_ref, r0, r1, reduce_sums), g)
+        return (grads[0], None, None, None, None, *grads[1:])
+
+
+def encoder_stack_band(encoder, x, r0: int, r1: int, reduce_sums):
+    """Rows [r0, r1) of one stack's output from the image ``x`` (B, H, W,
+    3), computed on those rows plus a halo, with each GroupNorm's channel
+    sums over the band's own rows passed through ``reduce_sums`` before
+    they normalise (:func:`_run_band`): with a sum over the ranks that hold
+    the other bands, the rows of the whole stack. CUDA tensors launch K1
+    for every layer and differentiate the plain twin (:class:`_FusedBand`);
+    CPU tensors run the twin itself."""
+    params, spec = _stack_params(encoder), _stack_spec(encoder)
+    if x.device.type == "cpu":
+        return _run_band(x, params, spec, _band_layer_ref, r0, r1, reduce_sums)
+    return _FusedBand.apply(x.contiguous(), spec, r0, r1, reduce_sums, *params)
 
 
 def encoder_stack_ref(encoder, x):

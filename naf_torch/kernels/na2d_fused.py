@@ -140,7 +140,8 @@ def cross_scale_na2d_fused_ref(q, k, v, kernel_size: int, scale=None, row_cell0:
     return out.to(q.dtype)
 
 
-def cross_scale_na2d_fused_bwd_ref(q, k, v, dout, kernel_size: int, scale=None):
+def cross_scale_na2d_fused_bwd_ref(q, k, v, dout, kernel_size: int, scale=None,
+                                   row_cell0: int = 0, full_hq=None):
     """Plain version of K4: the recompute-P formulas of the TPU kernel's
     ``_bwd_kernel``, per row block of queries, in f32:
 
@@ -148,12 +149,18 @@ def cross_scale_na2d_fused_bwd_ref(q, k, v, dout, kernel_size: int, scale=None):
         dL = P * (dP - delta);  dq = scale * dL.k_win
         dk += scale * dL^T q;  dv += P^T dO   (scatter-added to the LR grid)
 
-    Returns (dq, dk, dv) in the dtypes of q, k and v."""
+    ``row_cell0``/``full_hq`` as in :func:`cross_scale_na2d_fused_ref`: a
+    band's windows are the band's rows of the global tables, its dq holds
+    the band's rows, and dk, dv cover the whole LR grid, zero where no
+    window of the band reaches. Returns (dq, dk, dv) in the dtypes of q, k
+    and v."""
     scale = _scale(q, scale)
     b, hq, wq, n, d = q.shape
     _, hk, wk, _, dv = v.shape
     dev = q.device
-    idx_h = torch.from_numpy(cross_scale_lr_indices(hq, hk, kernel_size)).to(dev)
+    row0, full = _band_rows(q, k, row_cell0, full_hq)
+    idx_h = cross_scale_lr_indices(full, hk, kernel_size)[row0 : row0 + hq]
+    idx_h = torch.from_numpy(np.ascontiguousarray(idx_h)).to(dev)
     idx_w = torch.from_numpy(cross_scale_lr_indices(wq, wk, kernel_size)).to(dev)
     kf = k.float()
     vf = v.float()
@@ -490,18 +497,22 @@ def _bwd_plan(route, hq, wq, hk, wk, ks, dp, dvp, dev, rows=None):
                      wq, hk, wk, ks, dp, dvp, dev, rows)
 
 
-def _launch_bwd(q, k, v, dout, kernel_size, scale):
+def _launch_bwd(q, k, v, dout, kernel_size, scale, row0: int = 0, full_hq=None):
     """Launch K4 on CUDA tensors; returns (dq, dk, dv) in q's / k's / v's
     dtype. The tensor-core and chunked routes run one launch per band of
     :func:`_bwd_bands` (a band's plan may take another f32 route: its boxes
-    are those of its own rows)."""
+    are those of its own rows). A band of a ``full_hq``-row grid (q, dout =
+    rows [row0, row0 + Hq)) plans every launch on the global rows it holds,
+    as K3's banded launch does; its dk and dv cover the whole LR grid."""
     b, hq, wq, n, d, hk, wk, dv = _check(q, k, v, dout)
     if dout.shape != (b, hq, wq, n, dv):
         raise ValueError(f"dO {tuple(dout.shape)} does not fit the output {(b, hq, wq, n, dv)}")
+    full = hq if full_hq is None else full_hq
+    rows = None if full == hq else (row0, row0 + hq)
     route, qc, kc, vc, gc = _operands(q, k, v, dout)
     dp, dvp = qc.shape[-1], vc.shape[-1]
     dev = str(q.device)
-    route, plan = _bwd_plan(route, hq, wq, hk, wk, kernel_size, dp, dvp, dev)
+    route, plan = _bwd_plan(route, full, wq, hk, wk, kernel_size, dp, dvp, dev, rows)
     bands = [(0, hq)]
     if route != "fma":
         bands = _bwd_bands(b, hq, wq, n, dp + dvp, plan[0], plan[1], plan[2] * plan[3])
@@ -515,8 +526,8 @@ def _launch_bwd(q, k, v, dout, kernel_size, scale):
         dk = torch.zeros((b, hk, wk, n, dp), dtype=torch.float32, device=q.device)
         dvv = torch.zeros((b, hk, wk, n, dvp), dtype=torch.float32, device=q.device)
         for y0, y1 in bands:
-            band_route, plan = _bwd_plan(route, hq, wq, hk, wk, kernel_size, dp, dvp, dev,
-                                         (y0, y1))
+            band_route, plan = _bwd_plan(route, full, wq, hk, wk, kernel_size, dp, dvp, dev,
+                                         (row0 + y0, row0 + y1))
             dq_band = torch.empty_like(qc[:, y0:y1])
             _bwd_launch(band_route, plan, qc[:, y0:y1].contiguous(), kc, vc,
                         gc[:, y0:y1].contiguous(), dq_band, dk, dvv, scale, kernel_size, True)
@@ -530,8 +541,7 @@ def _launch_bwd(q, k, v, dout, kernel_size, scale):
 class _FusedNA(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, kernel_size, scale, row_cell0, full_hq):
-        ctx.meta = (kernel_size, scale)
-        ctx.banded = full_hq != q.shape[1] or row_cell0 != 0
+        ctx.meta = (kernel_size, scale, row_cell0, full_hq)
         ctx.save_for_backward(q, k, v)
         if q.device.type == "cpu":
             return cross_scale_na2d_fused_ref(q, k, v, kernel_size, scale, row_cell0, full_hq)
@@ -539,15 +549,15 @@ class _FusedNA(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        if ctx.banded:
-            raise NotImplementedError("banded fused NA is inference-only")
-        kernel_size, scale = ctx.meta
+        kernel_size, scale, row_cell0, full_hq = ctx.meta
         q, k, v = ctx.saved_tensors
         g = g.to(q.dtype)
         if q.device.type == "cpu":
-            grads = cross_scale_na2d_fused_bwd_ref(q, k, v, g, kernel_size, scale)
+            grads = cross_scale_na2d_fused_bwd_ref(q, k, v, g, kernel_size, scale, row_cell0,
+                                                   full_hq)
         else:
-            grads = _launch_bwd(q, k, v, g, kernel_size, scale)
+            grads = _launch_bwd(q, k, v, g, kernel_size, scale,
+                                *_band_rows(q, k, row_cell0, full_hq))
         return (*grads, None, None, None, None)
 
 
@@ -558,9 +568,12 @@ def cross_scale_na2d_fused(q, k, v, kernel_size: int, scale=None, row_cell0: int
     d**-0.5. CUDA tensors launch K3 forward and K4 backward; CPU tensors run
     the plain versions.
 
-    Banded execution (inference only; K4 raises, as the JAX package does):
-    q holds the query rows from LR cell row ``row_cell0`` on of a
-    ``full_hq``-row grid, and the windows follow the global grid."""
+    Banded execution: q holds the query rows from LR cell row ``row_cell0``
+    on of a ``full_hq``-row grid, and the windows follow the global grid. A
+    band is differentiable (the JAX package's banded kernel is not): K4 runs
+    on the band's rows, dq is the band's rows of the whole grid's dq, and dk,
+    dv are the band's share of the whole grid's, so the bands of a partition
+    of the rows sum to them."""
     if kernel_size % 2 != 1:
         raise ValueError(f"kernel size must be odd, got {kernel_size}")
     full = q.shape[1] if full_hq is None else int(full_hq)

@@ -25,11 +25,14 @@ tile's whole box fits (one head of d 256 at k 15) walks the box in chunks
 with the scale folded in, as the JAX wrapper does.
 
 Banded variants (the JAX kernel's ``row_cell0`` / ``band_cells`` /
-``out_acc`` / ``enc_banded``, inference only) compute only LR cell rows
+``out_acc`` / ``enc_banded``) compute only LR cell rows
 [row_cell0, row_cell0 + band_cells) of the output with the global window
 rule, optionally into a shared full-size output in place and from an
 encoder output that holds only the band's input rows: the streamed
-4096^2 path (``naf_torch.api.naf_streamed``).
+4096^2 path (``naf_torch.api.naf_streamed``) and the spatially sharded
+forward and train step (``naf_torch.parallel``). A slab is differentiable
+(the JAX package's banded calls are not); ``out_acc`` writes in place and
+is inference-only.
 
 The wrapper takes the plain version for CPU tensors only; for CUDA tensors
 it launches the kernel or raises (launches counted in
@@ -37,7 +40,8 @@ it launches the kernel or raises (launches counted in
 ``naf_upsample_attention.route_launches``). Its backward differentiates a
 twin, as the JAX package's ``_fused_q_twin`` does: pool-up and RoPE through
 torch autograd, then the attention through ``cross_scale_na2d_fused``, whose
-forward and backward are kernels K3 and K4 on CUDA tensors.
+forward and backward are kernels K3 and K4 on CUDA tensors; a band's twin
+pools the band's rows and attends with K3/K4's banded calls.
 """
 
 from __future__ import annotations
@@ -282,34 +286,44 @@ def _launch(enc, keys, values, rows_tab, cols_tab, rope_d_head, num_heads, kerne
 
 
 def fused_q_twin(enc, keys, values, rows_tab, cols_tab, rope_d_head=64, *,
-                 num_heads: int, kernel_size: int, scale=None):
+                 num_heads: int, kernel_size: int, scale=None, row_cell0: int = 0,
+                 band_cells=None, enc_banded: bool = False):
     """Differentiation twin of K2 (JAX ``_fused_q_twin``): pool-up -> RoPE
     from the separable tables -> ``cross_scale_na2d_fused``. q is formed in
-    enc's dtype, as in the JAX twin."""
+    enc's dtype, as in the JAX twin. A band (``row_cell0``, ``band_cells``,
+    ``enc_banded`` as in the plain version) pools only its query rows
+    (:func:`_pool_band`), takes its rows of the RoPE row table and attends
+    with K3/K4's banded call; it returns the band's slab."""
     b, hi, wi, c = enc.shape
     hq, wq = rows_tab.shape[0], cols_tab.shape[0]
     _, hk, wk, cv = values.shape
     n = num_heads
     d, dv = c // n, cv // n
-    xu = adaptive_avg_pool2d(enc, (hq, wq))
+    y0, band_h, hi_full, enc_row0 = _band(enc.shape, hq, hk, row_cell0, band_cells, enc_banded)
+    xu = _pool_band(enc, hq, wq, y0, band_h, hi_full, enc_row0)
     rot = rotate_half(xu, rope_d_head)
-    cos = (rows_tab[:, None, :c] * cols_tab[None, :, :c]).to(xu.dtype)
-    sin = (rows_tab[:, None, c:] * cols_tab[None, :, c:]).to(xu.dtype)
+    rt = rows_tab[y0 : y0 + band_h]
+    cos = (rt[:, None, :c] * cols_tab[None, :, :c]).to(xu.dtype)
+    sin = (rt[:, None, c:] * cols_tab[None, :, c:]).to(xu.dtype)
     q = xu * cos + rot * sin
     out = cross_scale_na2d_fused(
-        q.reshape(b, hq, wq, n, d), keys.reshape(b, hk, wk, n, d),
-        values.reshape(b, hk, wk, n, dv), kernel_size, scale=scale)
-    return out.reshape(b, hq, wq, cv)
+        q.reshape(b, band_h, wq, n, d), keys.reshape(b, hk, wk, n, d),
+        values.reshape(b, hk, wk, n, dv), kernel_size, scale=scale,
+        row_cell0=row_cell0, full_hq=hq)
+    return out.reshape(b, band_h, wq, cv)
 
 
 class _FusedQ(torch.autograd.Function):
+    """K2 forward (a whole grid or a band's slab), the twin's gradient."""
+
     @staticmethod
     def forward(ctx, enc, keys, values, rows_tab, cols_tab, rope_d_head, num_heads,
-                kernel_size, scale):
+                kernel_size, scale, row_cell0, band_cells, enc_banded):
         ctx.meta = (rope_d_head, num_heads, kernel_size, scale)
+        ctx.band = dict(row_cell0=row_cell0, band_cells=band_cells, enc_banded=enc_banded)
         ctx.save_for_backward(enc, keys, values, rows_tab, cols_tab)
         return _launch(enc, keys, values, rows_tab, cols_tab, rope_d_head, num_heads,
-                       kernel_size, scale)
+                       kernel_size, scale, **ctx.band)
 
     @staticmethod
     def backward(ctx, g):
@@ -317,8 +331,8 @@ class _FusedQ(torch.autograd.Function):
         inputs = _detached(ctx.saved_tensors, ctx)
         with torch.enable_grad():
             out = fused_q_twin(*inputs, rope_d_head, num_heads=num_heads,
-                               kernel_size=kernel_size, scale=scale)
-        return (*_grads((out,), (g,), inputs), None, None, None, None)
+                               kernel_size=kernel_size, scale=scale, **ctx.band)
+        return (*_grads((out,), (g,), inputs), *[None] * 7)
 
 
 def naf_upsample_attention(enc, keys, values, rows_tab, cols_tab, rope_d_head=64, *,
@@ -328,25 +342,35 @@ def naf_upsample_attention(enc, keys, values, rows_tab, cols_tab, rope_d_head=64
     version). CPU tensors take the plain version; CUDA tensors launch K2
     (count in ``naf_upsample_attention.launches``, per route in
     ``naf_upsample_attention.route_launches``: bf16 "wgmma", f32 "fma", or
-"fma_chunked" where no tile's whole K/V box fits shared memory). The
-    full-grid call is differentiable; the banded variants are inference-only
-    and raise if a gradient is required, as the JAX package sends them
-    straight to its kernel."""
-    band = dict(row_cell0=row_cell0, band_cells=band_cells, out_acc=out_acc,
-                enc_banded=enc_banded)
-    banded = row_cell0 != 0 or band_cells is not None or out_acc is not None or enc_banded
-    if banded and torch.is_grad_enabled() and any(
-            t.requires_grad for t in (enc, keys, values, rows_tab, cols_tab)):
-        raise NotImplementedError("the banded variants of K2 are inference-only")
+    "fma_chunked" where no tile's whole K/V box fits shared memory).
+
+    The full-grid call and a band's slab (``row_cell0``, ``band_cells``,
+    ``enc_banded``) are differentiable through :func:`fused_q_twin`: the
+    gradient reaches the band's ``enc`` rows, the whole ``keys`` and
+    ``values``. On CPU tensors a band under autograd runs the twin itself
+    (the plain K3/K4), so that its arithmetic is the one the card's
+    backward differentiates. ``out_acc`` writes in place and raises if a
+    gradient is required."""
+    tensors = (enc, keys, values, rows_tab, cols_tab)
+    needs_grad = torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+    band = dict(row_cell0=row_cell0, band_cells=band_cells, enc_banded=enc_banded)
+    if out_acc is not None:
+        if needs_grad:
+            raise NotImplementedError("out_acc writes in place: K2 into out_acc is "
+                                      "inference-only")
+        if enc.device.type == "cpu":
+            return naf_upsample_attention_ref(*tensors, rope_d_head, num_heads=num_heads,
+                                              kernel_size=kernel_size, scale=scale,
+                                              out_acc=out_acc, **band)
+        return _launch(*tensors, rope_d_head, num_heads, kernel_size, scale, out_acc=out_acc,
+                       **band)
     if enc.device.type == "cpu":
-        return naf_upsample_attention_ref(
-            enc, keys, values, rows_tab, cols_tab, rope_d_head, num_heads=num_heads,
-            kernel_size=kernel_size, scale=scale, **band)
-    if banded:
-        return _launch(enc, keys, values, rows_tab, cols_tab, rope_d_head, num_heads,
-                       kernel_size, scale, **band)
-    return _FusedQ.apply(enc, keys, values, rows_tab, cols_tab, rope_d_head, num_heads,
-                         kernel_size, scale)
+        banded = row_cell0 != 0 or band_cells is not None or enc_banded
+        fn = fused_q_twin if banded and needs_grad else naf_upsample_attention_ref
+        return fn(*tensors, rope_d_head, num_heads=num_heads, kernel_size=kernel_size,
+                  scale=scale, **band)
+    return _FusedQ.apply(*tensors, rope_d_head, num_heads, kernel_size, scale, row_cell0,
+                         band_cells, enc_banded)
 
 
 naf_upsample_attention.launches = 0

@@ -9,6 +9,8 @@ partition one program. Here every rank is a process with a
     replicate(mesh, model)                   # rank 0's parameters and buffers everywhere
     block = naf_spatial_forward(mesh, model, image, lr_feats, (H, W))  # this rank's block
     out = gather(mesh, block)                # the whole (B, H, W, C) output, NHWC
+    step = naf_spatial_train_step(mesh, model, optimizer, use_bf16=False)
+    loss = step(image, lr_feats, shard_spatial(mesh, target), (H, W))  # the global loss
 
 Batches shard over ``data``. The query grid, the only axis that grows with
 the output, shards over ``space``: each rank owns a band of LR cell rows and
@@ -17,6 +19,10 @@ and every rank holds them whole, so the attention needs no collective. The
 conv encoder is computed on each rank's rows plus a halo, with its GroupNorm
 statistics summed over ``space`` by ``all_reduce``: the counterpart of the
 halo exchanges and the statistics reduction XLA inserts under ``jit``.
+Training runs the same band with gradients (:func:`naf_spatial_train_step`):
+the statistics and keys are summed by a differentiable ``all_reduce``, whose
+backward sums their gradients over ``space`` again, and one ``all_reduce``
+of the flat parameter gradients joins the ranks before the optimizer.
 
 :func:`run_ranks` starts N ranks as spawned processes with a file
 rendezvous (the dry run, the tests and ``chip_smoke.py`` use it); under
@@ -47,6 +53,7 @@ __all__ = [
     "shard_spatial",
     "gather",
     "naf_spatial_forward",
+    "naf_spatial_train_step",
     "pjit_upsample",
     "run_ranks",
 ]
@@ -152,65 +159,31 @@ def gather(mesh, block: torch.Tensor) -> torch.Tensor:
     return out.to(block.device) if staged else out
 
 
-def _stack_rows(encoder, x, r0: int, r1: int, group):
-    """Rows [r0, r1) of one encoder stack's output, computed from the image
-    ``x`` (B, H, W, 3) on these rows plus a halo of ``k_stem//2 + L*(k//2)``
-    rows: the stem, then each GroupNorm -> SiLU -> conv layer on K1
-    (``gn_silu_conv_fused``) over every held row. Each layer's GroupNorm
-    statistics are this rank's channel sums over its own rows, summed over
-    ``group`` by one ``all_reduce``. The reflect padding at an interior band
-    edge is wrong; the rows it reaches lie in the halo and are dropped,
-    ``k//2`` each side after each conv (``encoder_banded._band_chain``
-    slices them away at its end)."""
-    from naf_torch.kernels.encoder_banded import _layer_params
-    from naf_torch.kernels.encoder_fused import (
-        _channel_sums, _gn_affine, _stack_spec, _stem_conv, gn_silu_conv_fused,
-    )
+class _SumOver(torch.autograd.Function):
+    """``all_reduce`` (sum) over a group, differentiable: the backward sums
+    the gradient over the group too, since every rank's loss reads the sum.
+    The counterpart of ``torch.distributed.nn.functional.all_reduce``, which
+    torch deprecates (a warning at every call) for functional collectives
+    that have no gradient."""
 
-    _, num_groups, eps = _stack_spec(encoder)
-    (stem_w, stem_b), layers = _layer_params(encoder)
-    _, h, w, _ = x.shape
-    p_stem = stem_w.shape[-1] // 2
-    halo = p_stem + sum(wt.shape[-1] // 2 for wt, _, _, _ in layers)
-    a, b = max(0, r0 - halo), min(h, r1 + halo)
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        x = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(x, group=group)
+        return x
 
-    def drop(y, a, b, p):
-        """Drop the p rows a conv's padding reached at each interior edge."""
-        a2, b2 = (min(a + p, r0) if a else a), (max(b - p, r1) if b < h else b)
-        return y[:, a2 - a : y.shape[1] - (b - b2)].contiguous(), a2, b2
-
-    y, a, b = drop(_stem_conv(x[:, a:b].contiguous(), stem_w, stem_b), a, b, p_stem)
-    for weight, bias, gamma, beta in layers:
-        psums = _channel_sums(y[:, r0 - a : r1 - a])
-        dist.all_reduce(psums, group=group)
-        scale, shift = _gn_affine(psums, gamma, beta, h * w, num_groups, eps)
-        y, _ = gn_silu_conv_fused(y, scale, shift, weight, bias)
-        y, a, b = drop(y, a, b, weight.shape[-1] // 2)
-    return y[:, r0 - a : r1 - a]
+    @staticmethod
+    def backward(ctx, g):
+        return _SumOver.apply(g, ctx.group), None
 
 
-@torch.inference_mode()
-def naf_spatial_forward(mesh, model, image: torch.Tensor, lr_feats: torch.Tensor, out_hw):
-    """Spatially sharded NAF inference on the fused path: this rank's
-    (B/data, Ho/space, Wo, C) block of ``model(image, lr_feats, out_hw)``,
-    NHWC, as JAX's ``out_specs=P("data", "space")``. ``image`` (B, H, W, 3)
-    and ``lr_feats`` (B, hk, wk, C) are the whole batch, the same on every
-    rank.
-
-    Each rank on ``space`` owns LR cell rows [s*hk/S, (s+1)*hk/S) and the
-    encoder rows that band pools from: the image is guarded whole (3
-    channels), both encoder stacks run on the rank's rows plus a halo with
-    the GroupNorm statistics summed over ``space`` (:func:`_stack_rows`),
-    the pooled keys are this band's contribution (``RoPE.pooled`` with
-    ``row0``), summed in f32 over ``space`` and cast once, and one banded K2
-    call (``row_cell0``, ``band_cells``, ``enc_banded``, the whole RoPE
-    tables) writes the band's output rows. On CUDA tensors every rank
-    launches K1 (8 times) and K2 (once).
-
-    Raises where ``space`` does not divide the LR rows or ``data`` the
-    batch (as the JAX package does), and where the port's band rules refuse:
-    whole cell rows (``band_cells``) and a band of whole encoder rows.
-    Inference only."""
+def _spatial_band(mesh, model, image: torch.Tensor, lr_feats: torch.Tensor, out_hw):
+    """This rank's (B/data, Ho/space, Wo, C) block of ``model(image,
+    lr_feats, out_hw)`` on the fused path, with or without gradients: the
+    body of :func:`naf_spatial_forward` and :func:`naf_spatial_train_step`.
+    Raises where the band rules refuse (see :func:`naf_spatial_forward`)."""
+    from naf_torch.kernels.encoder_fused import encoder_stack_band
     from naf_torch.kernels.na2d_fused_q import naf_upsample_attention
     from naf_torch.models.naf import band_cells
     from naf_torch.ops.resize import resize_bilinear
@@ -240,17 +213,125 @@ def naf_spatial_forward(mesh, model, image: torch.Tensor, lr_feats: torch.Tensor
     image = image.contiguous()
     group = mesh.get_group("space")
     e0 = s * eb
-    enc = torch.cat([_stack_rows(st, image, e0, e0 + eb, group)
+
+    def sum_space(t):
+        return _SumOver.apply(t, group)
+
+    enc = torch.cat([encoder_stack_band(st, image, e0, e0 + eb, sum_space)
                      for st in (ienc.encoder, ienc.sem_encoder)], dim=-1)
     rope = ienc.rope
     keys = rope.pooled(enc, (oh, ow), (hk, wk), row0=e0, full_h=hi).float()
-    dist.all_reduce(keys, group=group)
-    keys = keys.to(enc.dtype).contiguous()
+    keys = sum_space(keys).to(enc.dtype).contiguous()
     sin_r, cos_r, sin_c, cos_c = rope.tables(oh, ow)
     return naf_upsample_attention(
         enc, keys, feats, torch.cat([cos_r, sin_r], dim=-1), torch.cat([cos_c, sin_c], dim=-1),
         rope.d_head, num_heads=model.heads_attn, kernel_size=model.kernel_size,
         row_cell0=s * cells, band_cells=cells, enc_banded=True)
+
+
+@torch.inference_mode()
+def naf_spatial_forward(mesh, model, image: torch.Tensor, lr_feats: torch.Tensor, out_hw):
+    """Spatially sharded NAF inference on the fused path: this rank's
+    (B/data, Ho/space, Wo, C) block of ``model(image, lr_feats, out_hw)``,
+    NHWC, as JAX's ``out_specs=P("data", "space")``. ``image`` (B, H, W, 3)
+    and ``lr_feats`` (B, hk, wk, C) are the whole batch, the same on every
+    rank.
+
+    Each rank on ``space`` owns LR cell rows [s*hk/S, (s+1)*hk/S) and the
+    encoder rows that band pools from: the image is guarded whole (3
+    channels), both encoder stacks run on the rank's rows plus a halo with
+    the GroupNorm statistics summed over ``space``
+    (``encoder_fused.encoder_stack_band``),
+    the pooled keys are this band's contribution (``RoPE.pooled`` with
+    ``row0``), summed in f32 over ``space`` and cast once, and one banded K2
+    call (``row_cell0``, ``band_cells``, ``enc_banded``, the whole RoPE
+    tables) writes the band's output rows. On CUDA tensors every rank
+    launches K1 (8 times) and K2 (once).
+
+    Raises where ``space`` does not divide the LR rows or ``data`` the
+    batch (as the JAX package does), and where the port's band rules refuse:
+    whole cell rows (``band_cells``) and a band of whole encoder rows."""
+    return _spatial_band(mesh, model, image, lr_feats, out_hw)
+
+
+class _Band(torch.nn.Module):
+    """``model`` as a submodule whose forward is this rank's band, so that
+    ``functional_call`` can run the band on cast parameters."""
+
+    def __init__(self, mesh, model):
+        super().__init__()
+        self.mesh, self.model = mesh, model
+
+    def forward(self, image, lr_feats, out_hw):
+        return _spatial_band(self.mesh, self.model, image, lr_feats, out_hw)
+
+
+def naf_spatial_train_step(mesh, model, optimizer, use_bf16: bool):
+    """Spatially sharded training: returns ``step(image, lr_feats, target,
+    out_hw) -> loss``, one step of ``mean((model(image, lr_feats, out_hw) -
+    target)**2)`` over the whole batch on a (data, space) mesh that updates
+    the model's parameters and ``optimizer`` in place (the counterpart of
+    the JAX dry run's jitted ``value_and_grad`` step, which GSPMD
+    partitions). ``image`` (B, H, W, 3) and ``lr_feats`` (B, hk, wk, C) are
+    the whole batch, as :func:`naf_spatial_forward` takes them; ``target``
+    is this rank's (B/data, Ho/space, Wo, C) block (:func:`shard_spatial`).
+
+    Each rank runs its band (:func:`naf_spatial_forward`'s computation) with
+    gradients and takes its share of the loss: its sum of squares over the
+    element count of its ``data`` shard's output. The GroupNorm statistics
+    and the keys are summed over ``space`` by a differentiable
+    ``all_reduce``, whose backward sums their gradients over ``space``, so
+    every rank's backward sees the whole loss of its ``data`` shard through
+    them. Each rank recomputes its halo rows from the image and keeps only
+    its band, so no output row is counted twice: the sum over ``space`` of
+    the ranks' parameter gradients is the gradient of the ``data`` shard's
+    mean. One ``all_reduce`` of the flat f32 gradients and the loss shares
+    over the whole world, divided by ``data``, gives every rank the
+    gradient of the global mean; then the optimizer steps, so every rank
+    holds the same parameters. The returned loss is the global mean, the
+    same on every rank.
+
+    On CUDA tensors every rank launches 8 K1 and one banded K2 in the
+    forward, and in the backward one K3 (the K2 twin's recompute) and K4 in
+    one or more bands of the rank's query rows. With ``use_bf16`` the
+    parameters stay f32 masters, as in the trainer
+    (``naf_torch.train.trainer``): the band runs on bf16 casts
+    (``functional_call``) of them and of the inputs, and the gradients
+    reach the masters through the casts.
+
+    Raises on ``na_impl="xla"`` and, at the first step, where the band rules
+    of :func:`naf_spatial_forward` refuse: it never falls back to a
+    whole-grid forward on each rank."""
+    from torch.func import functional_call
+
+    from naf_torch.train.trainer import _cast_params, _sum_over
+
+    if model.na_impl == "xla":
+        raise ValueError('the spatial train step runs the fused path: na_impl="xla" has no '
+                         "banded attention")
+    dtype = torch.bfloat16 if use_bf16 else torch.float32
+    band = _Band(mesh, model)
+    n_data, _ = _axis(mesh, "data")
+    n_space, _ = _axis(mesh, "space")
+
+    def step(image, lr_feats, target, out_hw):
+        params = {f"model.{k}": p for k, p in _cast_params(model, dtype).items()}
+        pred = functional_call(band, params, (image.to(dtype), lr_feats.to(dtype), out_hw))
+        if pred.shape != target.shape:
+            raise ValueError(f"target block {tuple(target.shape)} is not this rank's output "
+                             f"block {tuple(pred.shape)}")
+        share = (pred.float() - target.float()).square().sum() / (target.numel() * n_space)
+        optimizer.zero_grad(set_to_none=True)
+        share.backward()
+        for p in model.parameters():
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        loss = share.detach().reshape(1).clone()
+        _sum_over(None, [*(p.grad for p in model.parameters()), loss], n_data)
+        optimizer.step()
+        return loss[0]
+
+    return step
 
 
 def pjit_upsample(mesh, model):

@@ -118,14 +118,21 @@ def _cast_params(model, dtype):
     return {k: p.to(dtype) for k, p in model.named_parameters()}
 
 
-def _mean_over(group, tensors) -> None:
-    """Replace each tensor by its mean over the ranks of ``group``, in place,
-    with one ``all_reduce`` of an f32 bucket."""
+def _sum_over(group, tensors, divisor: int = 1) -> None:
+    """Replace each tensor by its sum over the ranks of ``group`` (None: the
+    whole world) divided by ``divisor``, in place, with one ``all_reduce``
+    of an f32 bucket."""
     flat = torch.cat([t.reshape(-1).float() for t in tensors])
     dist.all_reduce(flat, group=group)
-    flat /= dist.get_world_size(group)
+    flat /= divisor
     for t, part in zip(tensors, flat.split([t.numel() for t in tensors])):
         t.copy_(part.view_as(t))
+
+
+def _mean_over(group, tensors) -> None:
+    """Replace each tensor by its mean over the ranks of ``group``, in place
+    (:func:`_sum_over`)."""
+    _sum_over(group, tensors, dist.get_world_size(group))
 
 
 def make_train_step(model, backbone, optimizer, use_bf16: bool,

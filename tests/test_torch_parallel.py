@@ -27,6 +27,7 @@ import dataclasses
 import glob
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -269,6 +270,9 @@ def test_dryrun_cli_on_four_cpu_ranks():
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "DRYRUN_OK" in proc.stdout
     assert "spatial mesh (2, 2), gathered output (2, 128, 256, 384)" in proc.stdout
+    spatial = re.search(r"spatial train step on mesh \(2, 2\): loss (\S+) on every rank",
+                        proc.stdout)
+    assert spatial and np.isfinite(float(spatial.group(1)))
     assert time.monotonic() - t0 < 240
 
 

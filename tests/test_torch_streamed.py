@@ -187,15 +187,19 @@ def test_fused_q_banded_validation_and_no_gradient():
     with pytest.raises(ValueError, match="out_acc"):
         naf_upsample_attention(*args, dh, **kw, row_cell0=0, band_cells=4,
                                out_acc=torch.zeros(1, 64, 64, 95))
+    # a slab is differentiable; out_acc writes in place and has no gradient
     enc = args[0].clone().requires_grad_()
     with pytest.raises(NotImplementedError, match="inference-only"):
-        naf_upsample_attention(enc, *args[1:], dh, **kw, row_cell0=4, band_cells=4)
+        naf_upsample_attention(enc, *args[1:], dh, **kw, row_cell0=4, band_cells=4,
+                               out_acc=torch.zeros(1, 64, 64, 96))
 
 
 def test_fused_na_banded_ref_matches_pallas_and_k4_raises():
     """K3's banded plain version (q = the rows of cell rows [4, 8) of a
-    48-row grid) against the TPU kernel's banded forward in interpret mode;
-    the backward of a band raises, as the JAX package's does."""
+    48-row grid) against the TPU kernel's banded forward in interpret mode.
+    The JAX package's banded kernel has no backward; the port's band does
+    (K4's plain version on the band's rows): its dq is the band's rows of
+    the whole grid's."""
     rng = np.random.RandomState(10)
     q = rng.randn(1, 16, 48, 2, 16).astype(np.float32)
     k = rng.randn(1, 12, 12, 2, 16).astype(np.float32)
@@ -209,9 +213,12 @@ def test_fused_na_banded_ref_matches_pallas_and_k4_raises():
     with pytest.raises(ValueError, match="whole cell rows"):
         cross_scale_na2d_fused(args[0][:, :5], *args[1:], 5, **band)
     qg = args[0].clone().requires_grad_()
-    out = cross_scale_na2d_fused(qg, *args[1:], 5, **band)
-    with pytest.raises(NotImplementedError, match="inference-only"):
-        out.sum().backward()
+    cross_scale_na2d_fused(qg, *args[1:], 5, **band).sum().backward()
+    whole = torch.from_numpy(rng.randn(1, 48, 48, 2, 16).astype(np.float32))
+    whole[:, 16:32] = args[0]
+    whole.requires_grad_()
+    cross_scale_na2d_fused(whole, *args[1:], 5)[:, 16:32].sum().backward()
+    torch.testing.assert_close(qg.grad, whole.grad[:, 16:32], atol=2e-3, rtol=2e-3)
 
 
 def test_naf_band_rows_matches_jax_banded_model():
