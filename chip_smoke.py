@@ -253,9 +253,25 @@ Phase 21 runs after phase 20, before phase 8:
    -> 448^2 on a real-shard photograph: cosine > 0.999. The phase prints
    its wall time.
 
+Phase 22 runs after phase 21, before phase 8:
+
+22. the headline bench (``naf_torch.bench.headline``, the counterpart of
+   ``bench.py``) at bench.py's sizes, 2 samples of 3 calls a field: the
+   448^2 forward, the bench step, 2048^2, 448^2 -> 2048^2, the bare K3 and
+   the streamed 4096^2 request; every field finite and positive, each
+   field's call on the kernels ``headline.expected_launches`` names (8 K1 +
+   1 K2 a forward, the step 8 K1 + 1 K2 + 1 K3 + 1 K4, the bare call 1 K3,
+   the streamed request 8 K1 and a K2 a band) on the tensor-core route;
+   then ``--stages`` (448^2 + 128^2 x 384 -> 2048^2), each stage's
+   launches, K2 alone and the stages before it each below the whole
+   forward, pre_attn + fused_q within half of it (the residual is
+   recorded: -10.6% to 7.3% of it on an H100). Prints the record, bench.py's
+   line and the phase's wall time.
+
 Prints a JSON line of per-kernel numbers (``launches_bench`` on K1-K5: the
 launches of phase 20's rows; ``launches_quality`` on K1-K4: phase 21's;
-``launches_spatial_train`` on K1-K4: phase 17's spatial train steps),
+``launches_spatial_train`` on K1-K4: phase 17's spatial train steps;
+``launches_headline`` on every kernel: phase 22's fields),
 the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``. Exits non-zero on any failure,
 and when no CUDA device is present. Imports nothing of JAX.
@@ -3577,6 +3593,68 @@ def phase_quality(dev, card, workdir):
                       "seconds": secs}
 
 
+# phase 22: the headline bench (naf_torch.bench.headline, the counterpart of
+# bench.py) at its full size, 2 samples of 3 calls a field and a stage
+HEADLINE_TIMER = dict(iters=3, repeats=2, warmup=1)
+# how far the stages timed alone may miss the whole forward, as a share of
+# it: the residual measured -10.6% to 7.3% on an H100 at 448^2 -> 2048^2,
+# pre_attn alone being host-bound (one run's samples spanned 10.3-15.8 ms)
+HEADLINE_GLUE_SHARE = 0.5
+
+
+def phase_headline(dev, card):
+    """Phase 22, the headline bench through ``naf_torch.bench.headline.run``
+    (bench.py's fields at its sizes: bf16, NAF at seed 0's weights, the
+    inputs of one RandomState(0) in bench.py's order) and ``stages`` (448^2
+    + 128^2 x 384 -> 2048^2), each at 2 samples of 3 calls: every field's
+    median, min and max finite and positive, each field's call on the
+    kernels of ``headline.expected_launches`` (``fps_4096``: one K2 a band)
+    on the tensor-core route, each stage's call on its own (model 8 K1 + 1
+    K2, encoder and pre_attn 8 K1, fused_q 1 K2), K2 alone and the stages
+    before it each below the whole forward, and pre_attn + fused_q within
+    ``HEADLINE_GLUE_SHARE`` of it (the residual, the glue the stages leave
+    out, is recorded). Prints the record, bench.py's line and the stages. Returns the launches of the run (counts zeroed
+    before it, read after it) and the results."""
+    from naf_torch.bench import headline
+
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    _zero_counts()
+    rec = headline.run(device=dev, **HEADLINE_TIMER)
+    torch.cuda.synchronize()
+    counts = _all_counts()
+    want = headline.expected_launches()
+    for name, res in rec["fields"].items():
+        headline.check_launches(name, res["launches"], want[name])
+        if not all(math.isfinite(res[k]) and res[k] > 0 for k in ("ms", "ms_min", "ms_max",
+                                                                  "value")):
+            raise AssertionError(f"headline {name}: not finite and positive: {res}")
+    line = headline.bench_line(rec)
+    st = headline.stages(device=dev, **HEADLINE_TIMER)
+    for name, res in st["detail"].items():
+        headline.check_launches(f"stage {name}", res["launches"],
+                                headline.STAGE_LAUNCHES[name])
+    ms = st["stages_ms"]
+    if not (0 < ms["encoder"] and 0 < ms["pre_attn"] < ms["model"]
+            and 0 < ms["fused_q"] < ms["model"]
+            and abs(ms["glue_residual"]) <= HEADLINE_GLUE_SHARE * ms["model"]):
+        raise AssertionError(f"headline stages: {ms}")
+    for name, res in rec["fields"].items():
+        print(f"headline {name}: {res['value']:.3f} ({res['ms']:.3f} ms [{res['ms_min']:.3f}-"
+              f"{res['ms_max']:.3f}]), peak {res['peak_mib']} MiB, a call launches "
+              + ", ".join(f"{k} {v}" for k, v in res["launches"].items()) + f" ({card})",
+              flush=True)
+    print(f"headline stages, 448^2 + 128^2 x 384 -> {st['out']}^2: canary "
+          f"{st['canary_ms']:.3f} ms; " + ", ".join(f"{k} {v:.3f}" for k, v in ms.items())
+          + f" ms ({card})", flush=True)
+    print(json.dumps(rec), flush=True)
+    print(json.dumps(line), flush=True)
+    secs = time.perf_counter() - t0
+    print(f"phase 22 (the headline): {secs:.1f} s", flush=True)
+    launches = {k: counts[k] for k in ("k1", "k2", "k3", "k4", "k5", "k6")}
+    return launches, {"record": rec, "line": line, "stages": st, "seconds": secs}
+
+
 def _sass(name: str) -> str:
     """The SASS of a kernel library, from the cuobjdump of the toolkit whose
     nvcc built it."""
@@ -3723,6 +3801,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(dir=os.path.dirname(os.path.abspath(__file__))) as work:
         quality_launches, quality = phase_quality(dev, card, work)
+    torch.cuda.empty_cache()
+    head_launches, head = phase_headline(dev, card)
     timing = _phase_timing_fresh()
 
     k1, k1b = timing["k1_k3"], timing["k1_k1"]
@@ -3808,6 +3888,10 @@ def main() -> int:
     # phase 21: the quality loop's training steps, panels and probes
     for i, name in enumerate(("k1", "k2", "k3", "k4")):
         kernels[i]["launches_quality"] = quality_launches[name]
+    # phase 22: every call of the headline's fields (warm-up, samples, the
+    # counted call)
+    for i, name in enumerate(("k1", "k2", "k3", "k4", "k5", "k6")):
+        kernels[i]["launches_headline"] = head_launches[name]
     kernels[1].update({"launches_banded": band_launches["k2"],
                        **{f"{k}_banded": v for k, v in k2_band.items()}})
     kernels[2].update({"launches_anyup": base_launches["k3"],
@@ -3840,7 +3924,7 @@ def main() -> int:
                       "denoiser": denoiser, "denoise_plans": den_kernels["plans"],
                       "restorers": restorers, "parallel": parallel, "backbones": backbones,
                       "large_img": large_img, "evals": evals, "bench": bench,
-                      "quality": quality, "card": card}))
+                      "quality": quality, "headline": head, "card": card}))
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -124,18 +124,23 @@ def _count_params(model, img_size: int, lr_size: int, embed_dim: int, out_size: 
     return _census(model, img_size, lr_size, embed_dim, out_size)["params"]
 
 
-def _peak_mb(fn, dev: torch.device) -> Optional[float]:
-    """Peak allocated MB of one ``fn()`` above what was allocated before it;
-    None off the card."""
+def _peak_call(fn, dev: torch.device):
+    """One ``fn()``: its output and its peak allocated MB above what was
+    allocated before it (None off the card)."""
     if dev.type != "cuda":
-        return None
+        return fn(), None
     torch.cuda.synchronize(dev)
     base = torch.cuda.memory_allocated(dev)
     torch.cuda.reset_peak_memory_stats(dev)
     out = fn()
     torch.cuda.synchronize(dev)
-    del out
-    return round((torch.cuda.max_memory_allocated(dev) - base) / 2**20, 1)
+    return out, round((torch.cuda.max_memory_allocated(dev) - base) / 2**20, 1)
+
+
+def _peak_mb(fn, dev: torch.device) -> Optional[float]:
+    """Peak allocated MB of one ``fn()`` above what was allocated before it;
+    None off the card, where ``fn`` is not called."""
+    return _peak_call(fn, dev)[1] if dev.type == "cuda" else None
 
 
 def _device_name(dev: torch.device) -> str:

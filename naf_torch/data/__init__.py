@@ -12,3 +12,13 @@ from naf_torch.data.datasets import (  # noqa: F401
 )
 from naf_torch.data.loader import DataLoader  # noqa: F401
 from naf_torch.data.transforms import image_transform, label_transform  # noqa: F401
+
+DATASET_REGISTRY = {
+    "ade20k": ADE20KDataset,
+    "cityscapes": CityscapesDataset,
+    "coco": COCOStuffDataset,
+    "voc": VOCDataset,
+    "kitti360": KITTI360Dataset,
+    "davis": DAVISFramesDataset,
+    "imagefolder": ImageFolderDataset,
+}
