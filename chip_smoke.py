@@ -262,11 +262,12 @@ Phase 22 runs after phase 21, before phase 8:
    field's call on the kernels ``headline.expected_launches`` names (8 K1 +
    1 K2 a forward, the step 8 K1 + 1 K2 + 1 K3 + 1 K4, the bare call 1 K3,
    the streamed request 8 K1 and a K2 a band) on the tensor-core route;
-   then ``--stages`` (448^2 + 128^2 x 384 -> 2048^2), each stage's
-   launches, K2 alone and the stages before it each below the whole
-   forward, pre_attn + fused_q within half of it (the residual is
-   recorded: -10.6% to 7.3% of it on an H100). Prints the record, bench.py's
-   line and the phase's wall time.
+   then ``--stages`` (448^2 + 128^2 x 384 -> 2048^2): the forward's
+   launches and its profiled stretch by span (``naf_torch.utils.spans``),
+   the encoder and the attention on the device, the attention below the
+   whole forward, the spans' own device times over 95% of the busy time,
+   the idle parts summing to the stretch's idle. Prints the record, bench.py's line
+   and the phase's wall time.
 
 Prints a JSON line of per-kernel numbers (``launches_bench`` on K1-K5: the
 launches of phase 20's rows; ``launches_quality`` on K1-K4: phase 21's;
@@ -3596,10 +3597,6 @@ def phase_quality(dev, card, workdir):
 # phase 22: the headline bench (naf_torch.bench.headline, the counterpart of
 # bench.py) at its full size, 2 samples of 3 calls a field and a stage
 HEADLINE_TIMER = dict(iters=3, repeats=2, warmup=1)
-# how far the stages timed alone may miss the whole forward, as a share of
-# it: the residual measured -10.6% to 7.3% on an H100 at 448^2 -> 2048^2,
-# pre_attn alone being host-bound (one run's samples spanned 10.3-15.8 ms)
-HEADLINE_GLUE_SHARE = 0.5
 
 
 def phase_headline(dev, card):
@@ -3609,12 +3606,13 @@ def phase_headline(dev, card):
     + 128^2 x 384 -> 2048^2), each at 2 samples of 3 calls: every field's
     median, min and max finite and positive, each field's call on the
     kernels of ``headline.expected_launches`` (``fps_4096``: one K2 a band)
-    on the tensor-core route, each stage's call on its own (model 8 K1 + 1
-    K2, encoder and pre_attn 8 K1, fused_q 1 K2), K2 alone and the stages
-    before it each below the whole forward, and pre_attn + fused_q within
-    ``HEADLINE_GLUE_SHARE`` of it (the residual, the glue the stages leave
-    out, is recorded). Prints the record, bench.py's line and the stages. Returns the launches of the run (counts zeroed
-    before it, read after it) and the results."""
+    on the tensor-core route, the stages' forward on 8 K1 + 1 K2, and its
+    profiled stretch by span: the encoder's and the attention's device time
+    positive, the attention's below the whole forward, the spans' own
+    device times over 95% of the device's busy time, the idle parts summing
+    to the stretch's idle. Prints the record, bench.py's line and the spans.
+    Returns the launches of the run (counts zeroed before it, read after it)
+    and the results."""
     from naf_torch.bench import headline
 
     t0 = time.perf_counter()
@@ -3631,22 +3629,24 @@ def phase_headline(dev, card):
             raise AssertionError(f"headline {name}: not finite and positive: {res}")
     line = headline.bench_line(rec)
     st = headline.stages(device=dev, **HEADLINE_TIMER)
-    for name, res in st["detail"].items():
-        headline.check_launches(f"stage {name}", res["launches"],
-                                headline.STAGE_LAUNCHES[name])
-    ms = st["stages_ms"]
-    if not (0 < ms["encoder"] and 0 < ms["pre_attn"] < ms["model"]
-            and 0 < ms["fused_q"] < ms["model"]
-            and abs(ms["glue_residual"]) <= HEADLINE_GLUE_SHARE * ms["model"]):
-        raise AssertionError(f"headline stages: {ms}")
+    headline.check_launches("stages", st["launches"], headline.STAGE_LAUNCHES)
+    sp = st["spans"]
+    idle = sum(v["idle_ms"] for v in sp.values())
+    if not (0 < sp["naf.encoder"]["device_ms"]
+            and 0 < sp["naf.attention"]["device_ms"] < st["model_ms"]
+            and sum(sp[n]["device_ms"] for n in headline.STAGE_SPANS) >= 0.95 * st["busy_ms"]
+            and abs(idle - (st["window_ms"] - st["busy_ms"])) <= 1e-6 * st["window_ms"]):
+        raise AssertionError(f"headline stages: {sp}, window {st['window_ms']} ms, busy "
+                             f"{st['busy_ms']} ms a call")
     for name, res in rec["fields"].items():
         print(f"headline {name}: {res['value']:.3f} ({res['ms']:.3f} ms [{res['ms_min']:.3f}-"
               f"{res['ms_max']:.3f}]), peak {res['peak_mib']} MiB, a call launches "
               + ", ".join(f"{k} {v}" for k, v in res["launches"].items()) + f" ({card})",
               flush=True)
     print(f"headline stages, 448^2 + 128^2 x 384 -> {st['out']}^2: canary "
-          f"{st['canary_ms']:.3f} ms; " + ", ".join(f"{k} {v:.3f}" for k, v in ms.items())
-          + f" ms ({card})", flush=True)
+          f"{st['canary_ms']:.3f} ms; model {st['model_ms']:.3f} ms; " + "; ".join(
+              k + "".join(f" {m} {v[m]:.3f}" for m in ("device_ms", "host_self_ms", "idle_ms")
+                          if m in v) for k, v in sp.items()) + f" a call ({card})", flush=True)
     print(json.dumps(rec), flush=True)
     print(json.dumps(line), flush=True)
     secs = time.perf_counter() - t0

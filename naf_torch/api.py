@@ -27,6 +27,7 @@ import torch
 from torch import nn
 
 from naf_torch.models.naf import NAF, band_cells
+from naf_torch.utils.spans import span, to_device
 
 __all__ = ["naf", "load_naf_params", "NAFUpsampler", "naf_streamed"]
 
@@ -81,17 +82,19 @@ def naf(model: NAF, image, lr_feats, target_size: Tuple[int, int],
 
     The reference forward contract: image (B, 3, H_img, W_img), lr_feats
     (B, C, h, w) -> (B, C, *target_size); NHWC with channels_last=True.
-    Inputs move to the model's device and dtype.
+    Inputs move to the model's device and dtype. The call is the span
+    ``naf.call`` (``naf_torch.utils.spans``).
     """
-    ref = next(model.parameters())
-    image = torch.as_tensor(image).to(ref.device, ref.dtype)
-    lr_feats = torch.as_tensor(lr_feats).to(ref.device, ref.dtype)
-    if not channels_last:
-        image = image.permute(0, 2, 3, 1)
-        lr_feats = lr_feats.permute(0, 2, 3, 1)
-    out = model(image.contiguous(), lr_feats.contiguous(),
-                (int(target_size[0]), int(target_size[1])))
-    return out if channels_last else out.permute(0, 3, 1, 2)
+    with span("naf.call"):
+        ref = next(model.parameters())
+        image = to_device(image, ref.device, ref.dtype)
+        lr_feats = to_device(lr_feats, ref.device, ref.dtype)
+        if not channels_last:
+            image = image.permute(0, 2, 3, 1)
+            lr_feats = lr_feats.permute(0, 2, 3, 1)
+        out = model(image.contiguous(), lr_feats.contiguous(),
+                    (int(target_size[0]), int(target_size[1])))
+        return out if channels_last else out.permute(0, 3, 1, 2)
 
 
 class NAFUpsampler:
@@ -130,8 +133,8 @@ def naf_streamed(model: NAF, image, lr_feats, target_size: Tuple[int, int], band
     output.
     """
     ref = next(model.parameters())
-    image = torch.as_tensor(image).to(ref.device, ref.dtype)
-    lr_feats = torch.as_tensor(lr_feats).to(ref.device, ref.dtype).contiguous()
+    image = to_device(image, ref.device, ref.dtype)
+    lr_feats = to_device(lr_feats, ref.device, ref.dtype).contiguous()
     oh, ow = int(target_size[0]), int(target_size[1])
     hk = lr_feats.shape[1]
     cells_per_band = band_cells(oh, hk, band_rows)

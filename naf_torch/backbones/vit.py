@@ -37,6 +37,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from naf_torch.utils.spans import to_device
+
 __all__ = ["ViT", "ViTConfig", "rope_tables", "resize_weights", "resize_jax",
            "resize_bicubic_jax"]
 
@@ -98,8 +100,8 @@ def resize_jax(x: torch.Tensor, size, method: str) -> torch.Tensor:
     ``jax.image.resize(x, (B, *size, C), method)`` does ("cubic" or
     "linear"), in f32."""
     h, w = x.shape[1], x.shape[2]
-    wh = torch.from_numpy(resize_weights(h, int(size[0]), method)).to(x.device)
-    ww = torch.from_numpy(resize_weights(w, int(size[1]), method)).to(x.device)
+    wh = to_device(resize_weights(h, int(size[0]), method), x.device)
+    ww = to_device(resize_weights(w, int(size[1]), method), x.device)
     return torch.einsum("oh,bhwc,pw->bopc", wh, x.float(), ww)
 
 
@@ -289,7 +291,7 @@ class ViT(nn.Module):
         n_prefix = 1 + cfg.num_reg_tokens
         rope = rope_tables(cfg, gh, gw)
         if rope is not None:
-            rope = tuple(a.to(x.device) for a in rope)
+            rope = tuple(to_device(a, x.device) for a in rope)
         if cfg.ln_pre:
             x = self.norm_pre(x)
         for blk in self.blocks:

@@ -30,6 +30,7 @@ from torch import nn
 
 from naf_torch.api import _device
 from naf_torch.backbones.vit import ViT, ViTConfig
+from naf_torch.utils.spans import to_device
 
 __all__ = ["PretrainedViTWrapper", "load_multiple_backbones", "BACKBONE_REGISTRY",
            "backbone_config", "RasaHead"]
@@ -210,8 +211,8 @@ class PretrainedViTWrapper:
 
     def normalize(self, image01: torch.Tensor) -> torch.Tensor:
         """Apply this backbone's normalisation to a [0, 1] NHWC image."""
-        mean = torch.tensor(self.config["mean"], dtype=image01.dtype, device=image01.device)
-        std = torch.tensor(self.config["std"], dtype=image01.dtype, device=image01.device)
+        mean = to_device(self.config["mean"], image01.device, image01.dtype)
+        std = to_device(self.config["std"], image01.device, image01.dtype)
         return (image01 - mean) / std
 
 

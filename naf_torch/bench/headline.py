@@ -47,9 +47,11 @@ launches, its peak, ``tf32`` and the card's name and power limit) on one
 line, then last a line with exactly ``bench.py``'s keys. A field that fails
 raises and the command exits non-zero, where ``bench.py`` records
 ``fps_4096_error``. ``--only FIELD`` runs one field (``tools/north_star.py``);
-``--stages [OUT]`` times the forward by stage in one process
-(``tools/northstar_decomp.py``: a bf16 8192^3 matmul canary, then ``model``,
-``encoder``, ``pre_attn``, ``fused_q`` and ``glue_residual``).
+``--stages [OUT]`` breaks the forward down by layer in one process
+(``tools/northstar_decomp.py``: a bf16 8192^3 matmul canary, the whole
+forward timed, then one profiled stretch of it read by the port's spans,
+``naf_torch.utils.spans``: each span's device, host self and device idle
+ms a call).
 
 Runs on the card by default and raises without CUDA; ``device="cpu"``
 runs the plain path (the tests pass smaller ``sizes``, a dict with
@@ -66,15 +68,19 @@ import time
 
 import numpy as np
 import torch
+from torch.profiler import ProfilerActivity, profile
 
-from naf_torch.api import _device, load_naf_params, naf_streamed
+from naf_torch.api import _device, load_naf_params, naf, naf_streamed
 from naf_torch.bench.harness import _device_name, _free, _peak_call, _train_step
 from naf_torch.kernels import launch_counts
 from naf_torch.kernels.na2d_fused import cross_scale_na2d_fused
 from naf_torch.kernels.na2d_fused_q import naf_upsample_attention
+from naf_torch.utils import spans
 from naf_torch.utils.benchmarking import card_line, device_time_stats, tf32 as _tf32
+from naf_torch.utils.spans import to_device
 
-__all__ = ["HEADLINE", "FIELDS", "STAGE_LAUNCHES", "headline_inputs", "expected_launches",
+__all__ = ["HEADLINE", "FIELDS", "STAGE_SPANS", "STAGE_LAUNCHES", "headline_inputs",
+           "expected_launches",
            "check_launches", "run", "stages", "bench_line", "main"]
 
 # bench.py's shapes (NHWC; q, k, v as (B, H, W, heads, d))
@@ -125,7 +131,7 @@ def headline_inputs(sizes=None, device="cuda", dtype=DTYPE, names=None) -> dict:
         if name == "head":
             x = x * 0.01
         if name in names:
-            out[name] = torch.from_numpy(x).to(device, dtype)
+            out[name] = to_device(x, device, dtype)
     return out
 
 
@@ -141,9 +147,10 @@ def expected_launches(sizes=None) -> dict:
             "fps_4096": {"k1": 8, "k2": sizes["out4k"] // sizes["band_rows"]}}
 
 
-# the launches one call of each stage makes on the card
-STAGE_LAUNCHES = {"model": {"k1": 8, "k2": 1}, "encoder": {"k1": 8}, "pre_attn": {"k1": 8},
-                  "fused_q": {"k2": 1}}
+# the spans --stages reads (the entry, then its children in call order), and
+# the launches of the forward it profiles, on the card
+STAGE_SPANS = ("naf.call", "naf.encoder", "naf.keys", "naf.attention")
+STAGE_LAUNCHES = {"k1": 8, "k2": 1}
 
 
 def check_launches(label: str, launches: dict, want: dict) -> None:
@@ -344,13 +351,14 @@ def bench_line(rec: dict) -> dict:
 def stages(out=None, device="cuda", sizes=None, iters: int = STAGE_ITERS,
            repeats: int = 3, warmup: int = 3, tf32: bool = False) -> dict:
     """``tools/northstar_decomp.py`` in one process: a bf16 matmul canary,
-    then the forward at image + feats2 -> ``out``^2 (default ``out2``) and
-    its stages: ``model`` (``NAF.forward``), ``encoder``
-    (``encode_guarded``), ``pre_attn`` (``NAF._fused_q_inputs``: the encoder,
-    the pooled keys and the RoPE tables), ``fused_q`` (K2 on those inputs,
-    computed once beforehand) and ``glue_residual`` = model - pre_attn -
-    fused_q. Each stage's median ms in ``stages_ms``, its spread and
-    launches in ``detail``."""
+    then the forward at image + feats2 -> ``out``^2 (default ``out2``)
+    through its entry (``naf``, NHWC): ``model_ms`` timed as the fields are,
+    one counted call's ``launches`` and ``peak_mib``, then one profiled
+    stretch of ``iters`` calls read by the spans (``spans.breakdown``):
+    per call, ``spans`` holds each span's own device ms, host self ms and
+    device idle ms, and ``outside`` the host time and idle outside every span;
+    ``window_ms`` and ``busy_ms`` are the stretch's wall and device busy
+    time a call."""
     dev, sizes = _device(device), sizes or HEADLINE
     size = (int(out or sizes["out2"]),) * 2
     timer = dict(iters=iters, repeats=repeats, warmup=warmup, device=dev)
@@ -360,33 +368,31 @@ def stages(out=None, device="cuda", sizes=None, iters: int = STAGE_ITERS,
         a = torch.ones(sizes["canary"], sizes["canary"], dtype=DTYPE, device=dev)
         canary = device_time_stats(torch.matmul, a, a, **timer)
         del a
-        enc = model.image_encoder
+
+        def fn():
+            return naf(model, image, feats, size, channels_last=True)
+
         with torch.no_grad():
-            inputs = model._fused_q_inputs(image, feats, size)
-        d_head = enc.rope.d_head
-        fns = {
-            "model": lambda: model(image, feats, size),
-            "encoder": lambda: enc.encode_guarded(image, size),
-            "pre_attn": lambda: model._fused_q_inputs(image, feats, size),
-            "fused_q": lambda: naf_upsample_attention(
-                *inputs[:2], feats, *inputs[2:], d_head, num_heads=model.heads_attn,
-                kernel_size=model.kernel_size),
-        }
-        detail = {}
-        with torch.no_grad():
-            for name, fn in fns.items():
-                st = device_time_stats(fn, **timer)
-                _, launches, peak = _counted_call(fn, dev)
-                detail[name] = _result(st["median"], st["min"], st["max"], False, launches,
-                                       peak)
-                _free(dev)
-    ms = {k: v["ms"] for k, v in detail.items()}
-    ms["glue_residual"] = ms["model"] - ms["pre_attn"] - ms["fused_q"]
+            st = device_time_stats(fn, **timer)
+            _, launches, peak = _counted_call(fn, dev)
+            activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
+                                                   if dev.type == "cuda" else [])
+            n0 = len(spans.records())
+            with profile(activities=activities) as prof:
+                _sync(dev)
+                t0 = time.time_ns()
+                for _ in range(iters):
+                    fn()
+                _sync(dev)
+                t1 = time.time_ns()
+        _free(dev)
+    by = spans.breakdown(prof, spans.records()[n0:], t0, t1, iters)
     return {**_header(dev, tf32, sizes), "out": size[0], "canary_ms": canary["median"],
-            "canary": f"bf16 {sizes['canary']}^3 matmul", "stages_ms": ms,
-            "fps": 1e3 / ms["model"], "detail": detail,
+            "canary": f"bf16 {sizes['canary']}^3 matmul", "model_ms": st["median"],
+            "model_ms_min": st["min"], "model_ms_max": st["max"], "fps": 1e3 / st["median"],
+            "launches": launches, "peak_mib": peak, **by,
             "timing": f"{_timer(dev)}, {repeats} samples of {iters} calls after {warmup} "
-                      "warm-up calls"}
+                      f"warm-up calls; then one profiled stretch of {iters} calls"}
 
 
 def main(argv=None) -> int:
@@ -395,7 +401,7 @@ def main(argv=None) -> int:
     ap.add_argument("--only", nargs="?", const="fps_448to2048_r16", choices=list(FIELDS),
                     help="one field (default fps_448to2048_r16), as tools/north_star.py")
     ap.add_argument("--stages", nargs="?", type=int, const=0, metavar="OUT",
-                    help="the 448^2 + 128^2 x 384 -> OUT^2 forward by stage (default 2048)")
+                    help="the 448^2 + 128^2 x 384 -> OUT^2 forward by span (default 2048)")
     ap.add_argument("--tf32", action="store_true",
                     help="let cuDNN and cuBLAS run f32 convs and matmuls on TF32 (default: off)")
     ap.add_argument("--device", default="cuda",
@@ -404,8 +410,10 @@ def main(argv=None) -> int:
     if args.stages is not None:
         rec = stages(args.stages or None, device=args.device, tf32=args.tf32)
         print(json.dumps(rec), flush=True)
-        print("canary {canary_ms:.3f} ms; ".format(**rec) + ", ".join(
-            f"{k} {v:.3f} ms" for k, v in rec["stages_ms"].items()), flush=True)
+        print("canary {canary_ms:.3f} ms; model {model_ms:.3f} ms; ".format(**rec) + "; ".join(
+            k + (f" device {v['device_ms']:.3f}" if "device_ms" in v else "")
+            + f" host {v['host_self_ms']:.3f} idle {v['idle_ms']:.3f}"
+            for k, v in rec["spans"].items()) + " ms a call", flush=True)
         return 0
     rec = run(device=args.device, only=args.only, tf32=args.tf32)
     print(json.dumps(rec), flush=True)

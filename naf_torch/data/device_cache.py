@@ -16,6 +16,8 @@ from typing import Iterator
 import numpy as np
 import torch
 
+from naf_torch.utils.spans import to_device
+
 __all__ = ["device_cached_stack", "device_cached_batches", "index_batches"]
 
 
@@ -23,7 +25,7 @@ def device_cached_stack(dataset, device="cuda") -> torch.Tensor:
     """The whole transformed dataset as one (N, H, W, C) float32 tensor on
     ``device``, uploaded once."""
     imgs = np.stack([np.asarray(dataset[i]["image"], np.float32) for i in range(len(dataset))])
-    return torch.from_numpy(imgs).to(device)
+    return to_device(imgs, device)
 
 
 def index_batches(n: int, batch_size: int, shuffle: bool = True, seed: int = 0,
@@ -52,4 +54,4 @@ def device_cached_batches(dataset, batch_size: int, shuffle: bool = True, seed: 
     must have one shape for every i)."""
     stack = device_cached_stack(dataset, device)
     for idx in index_batches(len(dataset), batch_size, shuffle, seed, drop_last):
-        yield stack.index_select(0, torch.from_numpy(idx).to(stack.device))
+        yield stack.index_select(0, to_device(idx, stack.device))

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from naf_torch.parallel import rank_device
+from naf_torch.utils.spans import to_device
 
 __all__ = ["spatial_case", "train_case", "spatial_train_case", "each", "main"]
 
@@ -104,8 +105,8 @@ def spatial_case(spec: dict) -> dict:
     model = _model(spec, dev, dtype)
     mesh = make_mesh(spec["data"], spec["space"])
     replicate(mesh, model)
-    image = torch.from_numpy(spec["image"]).to(dev, dtype)
-    feats = torch.from_numpy(spec["feats"]).to(dev, dtype)
+    image = to_device(spec["image"], dev, dtype)
+    feats = to_device(spec["feats"], dev, dtype)
     out_hw = tuple(spec["out_hw"])
     if spec.get("route", "spatial") == "spatial":
         fwd = lambda: naf_spatial_forward(mesh, model, image, feats, out_hw)  # noqa: E731
@@ -180,7 +181,7 @@ def _steps(spec, model, backbone, dev, mesh=None):
     opt = make_optimizer(model, cfg)
     step = make_train_step(model, backbone, opt, spec["use_bf16"], seed=spec.get("seed", 0),
                            grad_group=None if mesh is None else mesh.get_group("data"))
-    ups, back = (torch.from_numpy(spec[k]).to(dev) for k in ("ups", "back"))
+    ups, back = (to_device(spec[k], dev) for k in ("ups", "back"))
     if mesh is not None:
         from naf_torch.parallel import shard_batch
 
@@ -310,9 +311,9 @@ def spatial_train_case(spec: dict) -> dict:
     if dev.type == "cuda" and not use_bf16:
         torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     mesh = make_mesh(spec["data"], spec["space"])
-    image, feats = (torch.from_numpy(spec[k]).to(dev) for k in ("image", "feats"))
+    image, feats = (to_device(spec[k], dev) for k in ("image", "feats"))
     if spec.get("target") is not None:
-        target = torch.from_numpy(spec["target"]).to(dev)
+        target = to_device(spec["target"], dev)
     else:
         gen = torch.Generator(device=dev).manual_seed(spec["target_seed"])
         target = torch.randn(tuple(spec["target_shape"]), generator=gen, device=dev,
@@ -382,8 +383,8 @@ def _dryrun_rank(n: int) -> dict:
     dev = rank_device()
     model = _model({"naf": {}, "seed": 0}, dev, torch.float32)
     batch, hk = n // space, 8 * space
-    image = torch.from_numpy(rng.randn(batch, hk, 64, 3).astype(np.float32)).to(dev)
-    feats = torch.from_numpy(rng.randn(batch, hk, 32, 384).astype(np.float32)).to(dev)
+    image = to_device(rng.randn(batch, hk, 64, 3).astype(np.float32), dev)
+    feats = to_device(rng.randn(batch, hk, 32, 384).astype(np.float32), dev)
     out = gather(mesh, naf_spatial_forward(mesh, model, image, feats, (hk * 8, 256)))
     if tuple(out.shape) != (batch, hk * 8, 256, 384) or not bool(torch.isfinite(out).all()):
         raise AssertionError(f"sharded forward: shape {tuple(out.shape)}, finite "

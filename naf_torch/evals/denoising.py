@@ -15,6 +15,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from naf_torch.utils.spans import to_device
+
 __all__ = ["NoiseGenerator", "DenoisingLoss", "psnr", "ssim", "ssim_loss"]
 
 
@@ -60,7 +62,7 @@ def _depthwise_filter(x: torch.Tensor, window: np.ndarray) -> torch.Tensor:
     """Per-channel 2-D filter of an NHWC tensor, zero padding k // 2, in full
     f32 (cuDNN's TF32 off, as the JAX package asks for HIGHEST precision)."""
     k, c = window.shape[0], x.shape[-1]
-    w = torch.from_numpy(window).to(x.device, x.dtype).expand(c, 1, k, k)
+    w = to_device(window, x.device, x.dtype).expand(c, 1, k, k)
     with torch.backends.cudnn.flags(enabled=torch.backends.cudnn.enabled, allow_tf32=False):
         y = F.conv2d(x.permute(0, 3, 1, 2), w, padding=k // 2, groups=c)
     return y.permute(0, 2, 3, 1)

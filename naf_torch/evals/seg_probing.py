@@ -44,6 +44,7 @@ import torch.nn.functional as F
 from naf_torch.api import _device
 from naf_torch.backbones.wrapper import IMAGENET_DEFAULT_MEAN, IMAGENET_DEFAULT_STD
 from naf_torch.ops.resize import resize_bilinear
+from naf_torch.utils.spans import to_device
 
 IGNORE = 255
 
@@ -131,7 +132,7 @@ class LinearProbe:
     @torch.no_grad()
     def _features(self, image, target_hw) -> torch.Tensor:
         target_hw = tuple(int(v) for v in target_hw)
-        image = torch.as_tensor(np.ascontiguousarray(image)).to(self.device, torch.float32)
+        image = to_device(np.ascontiguousarray(image), self.device, torch.float32)
         feats = self.feature_fn(image, target_hw)
         if tuple(feats.shape[1:3]) != target_hw:
             # the reference resizes the logits; the classifier is linear, so
@@ -145,7 +146,7 @@ class LinearProbe:
             if rng.rand() < self.cfg.hflip_prob:
                 image, target = image[:, :, ::-1], target[:, :, ::-1]
             feats = self._features(image, target.shape[-2:])
-            target = torch.as_tensor(np.ascontiguousarray(target)).to(self.device)
+            target = to_device(np.ascontiguousarray(target), self.device)
             loss = self._loss(feats, target)
             self.opt.zero_grad(set_to_none=True)
             loss.backward()
@@ -171,8 +172,8 @@ def build_feature_fn(backbone, model, dtype: torch.dtype):
     normalisation of the image, the upsampler on the ImageNet-normalised
     image, both in ``dtype``."""
     def feature_fn(image01, target_hw):
-        mean = torch.tensor(IMAGENET_DEFAULT_MEAN, device=image01.device)
-        std = torch.tensor(IMAGENET_DEFAULT_STD, device=image01.device)
+        mean = to_device(IMAGENET_DEFAULT_MEAN, image01.device)
+        std = to_device(IMAGENET_DEFAULT_STD, image01.device)
         lr = backbone(backbone.normalize(image01).to(dtype))
         return model(((image01 - mean) / std).to(dtype), lr, tuple(int(v) for v in target_hw))
 

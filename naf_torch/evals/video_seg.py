@@ -40,6 +40,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from naf_torch.utils.spans import to_device
+
 __all__ = [
     "restrict_neighborhood",
     "label_propagation",
@@ -93,7 +95,7 @@ def label_propagation(feat_tar: torch.Tensor, feat_sources: torch.Tensor, segs: 
         fs = feat_sources / feat_sources.norm(dim=1, keepdim=True).clamp(min=1e-12)
         aff = torch.exp(torch.einsum("qc,ncs->nqs", ft.float(), fs.float()) / 0.1)
         if size_mask > 0:
-            aff = aff * torch.from_numpy(restrict_neighborhood(h, w, size_mask)).to(aff.device)
+            aff = aff * to_device(restrict_neighborhood(h, w, size_mask), aff.device)
         aff = aff.transpose(1, 2).reshape(-1, h * w)  # (n_ctx * s, q)
         kth = torch.topk(aff, topk, dim=0).values[topk - 1]  # each query's k-th largest
         aff = torch.where(aff < kth, 0.0, aff)

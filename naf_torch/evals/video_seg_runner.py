@@ -23,6 +23,7 @@ from naf_torch.evals.video_seg import (
     norm_mask,
 )
 from naf_torch.ops.resize import resize_bicubic, resize_bilinear, resize_nearest_exact
+from naf_torch.utils.spans import to_device
 
 __all__ = ["extract_feature", "run_video", "evaluate_davis_results"]
 
@@ -35,7 +36,7 @@ def _read_frame(path: str, patch_size: int, device):
 
     arr = np.asarray(Image.open(path).convert("RGB"), np.float32) / 255.0
     h, w = arr.shape[:2]
-    frame = torch.from_numpy(arr)[None].to(device)
+    frame = to_device(arr[None], device)
     th, tw = h // patch_size * patch_size, w // patch_size * patch_size
     if (th, tw) != (h, w):
         frame = resize_bilinear(frame, (th, tw))
@@ -49,8 +50,8 @@ def extract_feature(backbone, upsampler_fn, frame: torch.Tensor, ups_factor: int
     output size."""
     lr_feats = backbone(backbone.normalize(frame).to(backbone.dtype))
     hr_hw = (lr_feats.shape[1] * ups_factor, lr_feats.shape[2] * ups_factor)
-    mean = torch.tensor(IMAGENET_DEFAULT_MEAN, device=frame.device)
-    std = torch.tensor(IMAGENET_DEFAULT_STD, device=frame.device)
+    mean = to_device(IMAGENET_DEFAULT_MEAN, frame.device)
+    std = to_device(IMAGENET_DEFAULT_STD, frame.device)
     img_ups = resize_bicubic((frame - mean) / std, hr_hw)
     return upsampler_fn(img_ups, lr_feats, hr_hw)
 
@@ -63,7 +64,7 @@ def _first_seg(mask_path: str, h: int, w: int, device):
     seg = np.asarray(Image.open(mask_path))
     n_obj = int(seg.max()) + 1
     onehot = np.stack([(seg == i).astype(np.float32) for i in range(n_obj)], axis=-1)
-    small = resize_nearest_exact(torch.from_numpy(onehot)[None].to(device), (h, w))[0]
+    small = resize_nearest_exact(to_device(onehot[None], device), (h, w))[0]
     return small.permute(2, 0, 1)[None], seg
 
 

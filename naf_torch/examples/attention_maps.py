@@ -19,6 +19,7 @@ import torch
 
 from naf_torch.api import load_naf_params
 from naf_torch.ops.window import cross_scale_lr_indices
+from naf_torch.utils.spans import to_device
 
 
 def synthetic_image(size: int) -> np.ndarray:
@@ -92,9 +93,9 @@ def main(argv=None):
         img = synthetic_image(args.size)
     model = load_naf_params(args.naf_ckpt, device=args.device)
     dev = next(model.parameters()).device
-    image = torch.from_numpy(img)[None].to(dev)
-    feats = torch.from_numpy(
-        rng.randn(1, args.lr_size, args.lr_size, args.dim_feats).astype(np.float32)).to(dev)
+    image = to_device(img[None], dev)
+    feats = to_device(
+        rng.randn(1, args.lr_size, args.lr_size, args.dim_feats).astype(np.float32), dev)
     pixels = [tuple(int(v) for v in spec.split(",")) for spec in args.pixels]
     heats = attention_maps(model, image, feats, args.size, pixels)
     Image.fromarray(overlay_panel(img, heats, pixels)).save(args.out)

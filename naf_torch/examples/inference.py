@@ -22,6 +22,7 @@ import torch
 from naf_torch.api import load_naf_params
 from naf_torch.backbones import PretrainedViTWrapper
 from naf_torch.backbones.wrapper import IMAGENET_DEFAULT_MEAN, IMAGENET_DEFAULT_STD
+from naf_torch.utils.spans import to_device
 from naf_torch.utils.visualization import plot_feats
 
 
@@ -38,8 +39,8 @@ def upsample_panels(image01: torch.Tensor, backbone: PretrainedViTWrapper, model
     """The backbone's LR features of a (1, H, W, 3) [0, 1] image, then NAF's
     upsampling of them to each target size (guided by the ImageNet-normalised
     image), as f32 NHWC arrays."""
-    mean = torch.tensor(IMAGENET_DEFAULT_MEAN, dtype=image01.dtype, device=image01.device)
-    std = torch.tensor(IMAGENET_DEFAULT_STD, dtype=image01.dtype, device=image01.device)
+    mean = to_device(IMAGENET_DEFAULT_MEAN, image01.device, image01.dtype)
+    std = to_device(IMAGENET_DEFAULT_STD, image01.device, image01.dtype)
     with torch.inference_mode():
         lr_feats = backbone(backbone.normalize(image01))
         panels = [lr_feats] + [model((image01 - mean) / std, lr_feats, (ts, ts))
@@ -75,7 +76,7 @@ def main(argv=None):
     backbone = PretrainedViTWrapper(args.backbone, checkpoint=args.backbone_ckpt, dtype=dtype,
                                     device=args.device)
     model = load_naf_params(args.naf_ckpt, device=args.device, dtype=dtype)
-    image = torch.from_numpy(img)[None].to(next(model.parameters()).device, dtype)
+    image = to_device(img[None], next(model.parameters()).device, dtype)
     panels = upsample_panels(image, backbone, model, args.target_sizes)
     print(f"LR features: {panels[0].shape}")
     for ts, hr in zip(args.target_sizes, panels[1:]):

@@ -40,6 +40,7 @@ import torch
 import torch.nn.functional as F
 
 from naf_torch.kernels import _build
+from naf_torch.utils.spans import to_device
 
 __all__ = [
     "DUAL_ROUTE",
@@ -171,7 +172,7 @@ def _pack_index(shapes, n_block: int, device):
         start += n
     idx = pack_weights_tc(src, n_block).flatten() - 1
     padded = bool((idx < 0).any())
-    return torch.where(idx < 0, start - 1, idx).to(device), padded
+    return to_device(torch.where(idx < 0, start - 1, idx), device), padded
 
 
 def _packed(weights, n_block: int, dtype):

@@ -49,6 +49,7 @@ import torch
 from naf_torch.kernels import _build
 from naf_torch.ops.na2d import cross_scale_na2d
 from naf_torch.ops.window import cross_scale_lr_indices
+from naf_torch.utils.spans import to_device
 
 __all__ = [
     "cross_scale_na2d_fused",
@@ -160,8 +161,8 @@ def cross_scale_na2d_fused_bwd_ref(q, k, v, dout, kernel_size: int, scale=None,
     dev = q.device
     row0, full = _band_rows(q, k, row_cell0, full_hq)
     idx_h = cross_scale_lr_indices(full, hk, kernel_size)[row0 : row0 + hq]
-    idx_h = torch.from_numpy(np.ascontiguousarray(idx_h)).to(dev)
-    idx_w = torch.from_numpy(cross_scale_lr_indices(wq, wk, kernel_size)).to(dev)
+    idx_h = to_device(np.ascontiguousarray(idx_h), dev)
+    idx_w = to_device(cross_scale_lr_indices(wq, wk, kernel_size), dev)
     kf = k.float()
     vf = v.float()
     dk = torch.zeros(b, hk * wk, n, d, device=dev)
@@ -225,7 +226,7 @@ def _fit_tile(smem_bytes, tiles, limits, idx_h, idx_w, hk, wk, ks, d, dv):
 
 
 def _on(device, *arrays):
-    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in arrays)
+    return tuple(to_device(np.ascontiguousarray(a), device) for a in arrays)
 
 
 @functools.lru_cache(maxsize=64)
@@ -355,7 +356,7 @@ def _plan_tc(hq, wq, hk, wk, ks, d, dv, backward, device, rows=None):
                          f"for the mask's division (NB * urw >= 2^16) or the block exceeds "
                          f"shared memory")
     tqh, tqw, urh, urw, nb, row_lo, col_lo = best
-    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    to = lambda a: to_device(np.ascontiguousarray(a), device)
     return (tqh, tqw, urh, urw, nb, to(_window_counts(idx_h, row_lo, tqh, urh)),
             to(_window_counts(idx_w, col_lo, tqw, urw)), to(row_lo), to(col_lo))
 

@@ -60,6 +60,7 @@ from naf_torch.kernels.na2d_fused import (
 from naf_torch.nn.rope import rotate_half
 from naf_torch.ops.na2d import cross_scale_na2d
 from naf_torch.ops.pool import _pool_matrix, adaptive_avg_pool2d
+from naf_torch.utils.spans import to_device
 
 __all__ = ["naf_upsample_attention", "naf_upsample_attention_ref", "fused_q_twin"]
 
@@ -113,7 +114,7 @@ def _pool_band(x, hq: int, wq: int, y0: int, band_h: int, hi_full: int, enc_row0
     if (y0, band_h, hi_full) == (0, hq, x.shape[1]):
         return adaptive_avg_pool2d(x, (hq, wq))
     ph = _pool_matrix(hi_full, hq)[y0 : y0 + band_h, enc_row0 : enc_row0 + x.shape[1]]
-    x = torch.einsum("oh,bhwc->bowc", torch.from_numpy(ph).to(x.device, x.dtype), x)
+    x = torch.einsum("oh,bhwc->bowc", to_device(ph, x.device, x.dtype), x)
     return adaptive_avg_pool2d(x, (band_h, wq))
 
 

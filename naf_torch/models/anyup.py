@@ -23,6 +23,7 @@ from naf_torch.nn.attention import CrossScaleAttention
 from naf_torch.nn.conv import Encoder
 from naf_torch.ops.pool import adaptive_avg_pool2d
 from naf_torch.ops.resize import resize_bilinear
+from naf_torch.utils.spans import to_device
 
 __all__ = ["AnyUpsampler", "anyup_state_dict_from_torch"]
 
@@ -71,8 +72,8 @@ def anyup_state_dict_from_torch(state_dict: Mapping, img_layers: int = 2) -> dic
         for leaf in ("weight", "bias"):
             key = f"{dot}{name}.{leaf}"
             if key in state_dict:
-                out[f"encoder.{name}.{leaf}"] = torch.as_tensor(state_dict[key]).detach().to(
-                    "cpu", torch.float32)
+                out[f"encoder.{name}.{leaf}"] = to_device(state_dict[key], "cpu",
+                                                           torch.float32).detach()
                 consumed.add(key)
     leftovers = [k for k in keys if k not in consumed]
     if leftovers:

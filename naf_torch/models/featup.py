@@ -29,6 +29,7 @@ from torch import nn
 from naf_torch.ops.adaptive_conv import adaptive_conv, reflect_pad2d
 from naf_torch.ops.pool import adaptive_avg_pool2d
 from naf_torch.ops.resize import resize_bicubic, resize_bilinear
+from naf_torch.utils.spans import to_device
 
 __all__ = ["Conv1x1", "JBULearnedRange", "JBUStack", "ChannelNorm", "FeatUp", "JBU",
            "featup_state_dict_from_torch"]
@@ -91,7 +92,7 @@ class JBULearnedRange(nn.Module):
         kernel = torch.softmax(torch.cat(rows, dim=-1) * temp, dim=-1)
 
         # Gaussian spatial kernel
-        patch_sq = torch.from_numpy(_patch_sq(d)).to(kernel.device)
+        patch_sq = to_device(_patch_sq(d), kernel.device)
         spatial = torch.exp(-patch_sq / (2 * self.sigma_spatial.float() ** 2))
         kernel = kernel * spatial
         kernel = kernel / kernel.sum(-1, keepdim=True).clamp_min(1e-7)
@@ -177,5 +178,5 @@ def featup_state_dict_from_torch(state: Mapping) -> dict:
     ``state["state_dict"]``, rename ``model.1.`` -> ``norm.``)."""
     if "state_dict" in state:
         state = state["state_dict"]
-    return {k.replace("model.1.", "norm."): torch.as_tensor(v).detach().to("cpu", torch.float32)
+    return {k.replace("model.1.", "norm."): to_device(v, "cpu", torch.float32).detach()
             for k, v in state.items() if "upsampler" in k or "model.1.norm" in k}

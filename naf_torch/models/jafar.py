@@ -27,6 +27,7 @@ from torch import nn
 from naf_torch.models.featup import Conv1x1
 from naf_torch.nn.conv import Encoder, group_norm_nhwc
 from naf_torch.ops.pool import adaptive_avg_pool2d
+from naf_torch.utils.spans import to_device
 
 __all__ = ["JAFAR", "JafarRoPE", "SFT", "GlobalCrossAttention"]
 
@@ -120,7 +121,7 @@ class JAFAR(nn.Module):
         ch = np.linspace(0, 1, h, dtype=np.float32)
         cw = np.linspace(0, 1, w, dtype=np.float32)
         coords = np.stack(np.meshgrid(ch, cw, indexing="ij"), -1).reshape(-1, 2)
-        coords = torch.from_numpy(coords).to(x.device, x.dtype)
+        coords = to_device(coords, x.device, x.dtype)
         x = self.rope(x.reshape(b, h * w, self.dim), coords).reshape(b, h, w, self.dim)
 
         queries = group_norm_nhwc(adaptive_avg_pool2d(self.query_encoder(x), (oh, ow)), 8)

@@ -14,6 +14,7 @@ from torch import nn
 
 from naf_torch.ops.adaptive_conv import reflect_pad2d, unfold_nhwc
 from naf_torch.ops.resize import resize_bilinear
+from naf_torch.utils.spans import to_device
 
 __all__ = ["JBF", "joint_bilateral_blur"]
 
@@ -29,7 +30,7 @@ def joint_bilateral_blur(inp: torch.Tensor, guidance: torch.Tensor, kernel_size:
     ax = np.arange(kernel_size, dtype=np.float32) - r
     g1 = np.exp(-0.5 * (ax / sigma_space) ** 2)
     space = (g1[:, None] * g1[None, :]).reshape(-1)
-    space = torch.as_tensor(space / space.sum(), dtype=inp.dtype, device=inp.device)
+    space = to_device(space / space.sum(), inp.device, inp.dtype)
 
     kernel = color_kernel * space[None, :, None, None]
     kernel = kernel / kernel.sum(1, keepdim=True)

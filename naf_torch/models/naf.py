@@ -46,6 +46,7 @@ from naf_torch.nn.conv import Encoder
 from naf_torch.nn.rope import RoPE, RopeDraws
 from naf_torch.ops.pool import adaptive_avg_pool2d
 from naf_torch.ops.resize import resize_bilinear
+from naf_torch.utils.spans import span
 
 __all__ = ["NAF", "ImageEncoder", "band_cells"]
 
@@ -78,12 +79,13 @@ class ImageEncoder(nn.Module):
 
     def encode_guarded(self, x: torch.Tensor, output_size: Tuple[int, int]) -> torch.Tensor:
         """Input guard + both stacks, without pooling or RoPE (those are
-        fused downstream into K2)."""
-        oh, ow = int(output_size[0]), int(output_size[1])
-        h, w = x.shape[1], x.shape[2]
-        if (h, w) != self.guard_size(h, w, oh, ow):
-            x = resize_bilinear(x, self.guard_size(h, w, oh, ow))
-        return self.encode(x)
+        fused downstream into K2); the span ``naf.encoder``."""
+        with span("naf.encoder"):
+            oh, ow = int(output_size[0]), int(output_size[1])
+            h, w = x.shape[1], x.shape[2]
+            if (h, w) != self.guard_size(h, w, oh, ow):
+                x = resize_bilinear(x, self.guard_size(h, w, oh, ow))
+            return self.encode(x)
 
     @staticmethod
     def guard_size(h: int, w: int, oh: int, ow: int) -> Tuple[int, int]:
@@ -145,23 +147,25 @@ class NAF(nn.Module):
 
     def _fused_q_inputs(self, image, features, output_size):
         """Encoder output, pooled keys and the cos|sin row/column tables of
-        the fused path."""
+        the fused path; the keys and tables are the span ``naf.keys``."""
         oh, ow = int(output_size[0]), int(output_size[1])
         hk, wk = features.shape[1], features.shape[2]
         enc = self.image_encoder.encode_guarded(image, (oh, ow))
-        rope = self.image_encoder.rope
-        keys = rope.pooled(enc, (oh, ow), (hk, wk))
-        sin_r, cos_r, sin_c, cos_c = rope.tables(oh, ow)
-        return (enc.contiguous(), keys.contiguous(), torch.cat([cos_r, sin_r], dim=-1),
-                torch.cat([cos_c, sin_c], dim=-1))
+        with span("naf.keys"):
+            rope = self.image_encoder.rope
+            keys = rope.pooled(enc, (oh, ow), (hk, wk))
+            sin_r, cos_r, sin_c, cos_c = rope.tables(oh, ow)
+            return (enc.contiguous(), keys.contiguous(), torch.cat([cos_r, sin_r], dim=-1),
+                    torch.cat([cos_c, sin_c], dim=-1))
 
     def _fused_q(self, image, features, output_size):
         enc, keys, rows_tab, cols_tab = self._fused_q_inputs(image, features, output_size)
-        return naf_upsample_attention(
-            enc, keys, features.contiguous(), rows_tab, cols_tab,
-            self.image_encoder.rope.d_head, num_heads=self.heads_attn,
-            kernel_size=self.kernel_size,
-        )
+        with span("naf.attention"):
+            return naf_upsample_attention(
+                enc, keys, features.contiguous(), rows_tab, cols_tab,
+                self.image_encoder.rope.d_head, num_heads=self.heads_attn,
+                kernel_size=self.kernel_size,
+            )
 
     def _banded(self, image, features, output_size, band_rows: int):
         """Row-banded attention (exact; inference only). The encoder runs at
@@ -185,10 +189,11 @@ class NAF(nn.Module):
         out = torch.empty((image.shape[0], oh, ow, features.shape[-1]), dtype=enc.dtype,
                           device=enc.device)
         for c0 in range(0, features.shape[1], cells_per_band):
-            naf_upsample_attention(
-                enc, keys, feats, rows_tab, cols_tab, self.image_encoder.rope.d_head,
-                num_heads=self.heads_attn, kernel_size=self.kernel_size, row_cell0=c0,
-                band_cells=cells_per_band, out_acc=out)
+            with span("naf.attention"):
+                naf_upsample_attention(
+                    enc, keys, feats, rows_tab, cols_tab, self.image_encoder.rope.d_head,
+                    num_heads=self.heads_attn, kernel_size=self.kernel_size, row_cell0=c0,
+                    band_cells=cells_per_band, out_acc=out)
         return out
 
 

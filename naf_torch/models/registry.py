@@ -21,6 +21,7 @@ import torch
 from torch import nn
 
 from naf_torch.api import _device, _init_weights
+from naf_torch.utils.spans import to_device
 
 __all__ = ["build_model", "build_from_config", "instantiate", "ModelWrapper", "register",
            "MODEL_REGISTRY"]
@@ -153,8 +154,8 @@ class ModelWrapper:
         out by default, NHWC with ``channels_last=True``; inputs move to the
         model's device and dtype."""
         with torch.inference_mode():
-            image = torch.as_tensor(image).to(self.device, self.dtype)
-            features = torch.as_tensor(features).to(self.device, self.dtype)
+            image = to_device(image, self.device, self.dtype)
+            features = to_device(features, self.device, self.dtype)
             if not channels_last:
                 image, features = image.permute(0, 2, 3, 1), features.permute(0, 2, 3, 1)
             out = self.model(image.contiguous(), features.contiguous(),

@@ -29,6 +29,7 @@ import torch
 from torch import nn
 
 from naf_torch.ops.pool import _pool_matrix, adaptive_avg_pool2d
+from naf_torch.utils.spans import to_device
 
 __all__ = ["RoPE", "RopeDraws", "rope_periods", "rotate_half"]
 
@@ -107,7 +108,7 @@ class RoPE(nn.Module):
         return out
 
     def _angles(self, coords) -> torch.Tensor:
-        c = torch.as_tensor(coords, dtype=torch.float32).to(self.periods.device)
+        c = to_device(coords, self.periods.device, torch.float32)
         return (2.0 * math.pi) * c[:, None] / self.periods.float()
 
     def draw(self, generator: Optional[torch.Generator] = None) -> RopeDraws:
@@ -161,9 +162,8 @@ class RoPE(nn.Module):
 
     def rotate_matrix(self, dtype=torch.float32) -> torch.Tensor:
         """(C, C) signed-permutation rotate-half matrix for this head shape."""
-        return torch.from_numpy(_rotate_half_matrix(self.num_heads, self.d_head)).to(
-            self.periods.device, dtype
-        )
+        return to_device(_rotate_half_matrix(self.num_heads, self.d_head), self.periods.device,
+                         dtype)
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 generator: Optional[torch.Generator] = None,
@@ -211,8 +211,8 @@ class RoPE(nn.Module):
             """Unique (2*nfreq + 1, out, in) pool-down * table * pool-up mats:
             cos and sin of each frequency, and the all-ones slot."""
             ang = self._angles(coords)
-            pu = torch.from_numpy(_pool_matrix(in_len, mid_len)).to(dev)
-            pd = torch.from_numpy(_pool_matrix(mid_len, out_len)).to(dev)
+            pu = to_device(_pool_matrix(in_len, mid_len), dev)
+            pd = to_device(_pool_matrix(mid_len, out_len), dev)
             ones = torch.ones((mid_len, 1), dtype=torch.float32, device=dev)
             uniq = torch.cat([ang.cos(), ang.sin(), ones], dim=-1)
             return torch.einsum("oi,iu,ij->uoj", pd, uniq, pu)
@@ -228,8 +228,8 @@ class RoPE(nn.Module):
             else:
                 cos_map = np.concatenate([[one] * nfreq, f] * 2)
                 sin_map = np.concatenate([[one] * nfreq, f + nfreq] * 2)
-            cos_map = torch.from_numpy(np.tile(cos_map, self.num_heads)).to(dev)
-            sin_map = torch.from_numpy(np.tile(sin_map, self.num_heads)).to(dev)
+            cos_map = to_device(np.tile(cos_map, self.num_heads), dev)
+            sin_map = to_device(np.tile(sin_map, self.num_heads), dev)
             return a_uniq[cos_map], a_uniq[sin_map]
 
         dt = x.dtype

@@ -18,6 +18,7 @@ from __future__ import annotations
 import torch
 
 from naf_torch.ops.window import cross_scale_lr_indices, na_gather_indices
+from naf_torch.utils.spans import to_device
 
 __all__ = ["na2d", "cross_scale_na2d"]
 
@@ -52,8 +53,8 @@ def na2d(q, k, v, kernel_size, dilation=(1, 1), scale=None, return_weights=False
     if scale is None:
         scale = q.shape[-1] ** -0.5
     dev = q.device
-    idx_h = torch.from_numpy(na_gather_indices(q.shape[1], kh, dh)).to(dev)
-    idx_w = torch.from_numpy(na_gather_indices(q.shape[2], kw, dw)).to(dev)
+    idx_h = to_device(na_gather_indices(q.shape[1], kh, dh), dev)
+    idx_w = to_device(na_gather_indices(q.shape[2], kw, dw), dev)
     return _na2d_from_indices(q, k, v, idx_h, idx_w, scale, return_weights)
 
 
@@ -78,9 +79,8 @@ def cross_scale_na2d(q, k, v, kernel_size, scale=None, return_weights=False,
     b, hq, wq = q.shape[:3]
     hk, wk = k.shape[1], k.shape[2]
     dev = q.device
-    idx_h = torch.from_numpy(
-        cross_scale_lr_indices(full_hq or hq, hk, kh)[row0 : row0 + hq]).to(dev)
-    idx_w = torch.from_numpy(cross_scale_lr_indices(wq, wk, kw)).to(dev)
+    idx_h = to_device(cross_scale_lr_indices(full_hq or hq, hk, kh)[row0 : row0 + hq], dev)
+    idx_w = to_device(cross_scale_lr_indices(wq, wk, kw), dev)
     if row_block is None:
         per_row = b * wq * kh * kw * q.shape[3] * (q.shape[4] + v.shape[4]) * 4
         row_block = max(min(_ROW_BLOCK_BYTES // max(per_row, 1), hq), 1)

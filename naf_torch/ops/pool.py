@@ -13,6 +13,8 @@ import functools
 import numpy as np
 import torch
 
+from naf_torch.utils.spans import to_device
+
 __all__ = ["adaptive_avg_pool2d"]
 
 
@@ -40,9 +42,9 @@ def adaptive_avg_pool2d(x: torch.Tensor, output_size: tuple[int, int]) -> torch.
     if not x.is_floating_point():
         x = x.float()
     if h_in != h_out:
-        ph = torch.from_numpy(_pool_matrix(h_in, h_out)).to(x.device, x.dtype)
+        ph = to_device(_pool_matrix(h_in, h_out), x.device, x.dtype)
         x = torch.einsum("oh,...hwc->...owc", ph, x)
     if w_in != w_out:
-        pw = torch.from_numpy(_pool_matrix(w_in, w_out)).to(x.device, x.dtype)
+        pw = to_device(_pool_matrix(w_in, w_out), x.device, x.dtype)
         x = torch.einsum("ow,...hwc->...hoc", pw, x)
     return x

@@ -23,6 +23,8 @@ import functools
 import numpy as np
 import torch
 
+from naf_torch.utils.spans import to_device
+
 __all__ = ["resize_bilinear", "resize_nearest_exact", "resize_bicubic"]
 
 
@@ -66,11 +68,11 @@ def _bicubic_matrix(in_size: int, out_size: int) -> np.ndarray:
 
 def _lerp_axis(x: torch.Tensor, axis: int, in_size: int, out_size: int) -> torch.Tensor:
     lo, hi, frac = _bilinear_index_weight(in_size, out_size)
-    x_lo = x.index_select(axis, torch.from_numpy(lo).to(x.device))
-    x_hi = x.index_select(axis, torch.from_numpy(hi).to(x.device))
+    x_lo = x.index_select(axis, to_device(lo, x.device))
+    x_hi = x.index_select(axis, to_device(hi, x.device))
     shape = [1] * x.ndim
     shape[axis] = out_size
-    t = torch.from_numpy(frac).to(x.device, x_lo.dtype).reshape(shape)
+    t = to_device(frac, x.device, x_lo.dtype).reshape(shape)
     return x_lo + (x_hi - x_lo) * t
 
 
@@ -95,11 +97,9 @@ def resize_nearest_exact(x: torch.Tensor, size: tuple[int, int]) -> torch.Tensor
     h_out, w_out = int(size[0]), int(size[1])
     h_in, w_in = x.shape[-3], x.shape[-2]
     if h_in != h_out:
-        x = x.index_select(x.ndim - 3, torch.from_numpy(
-            _nearest_exact_index(h_in, h_out)).to(x.device))
+        x = x.index_select(x.ndim - 3, to_device(_nearest_exact_index(h_in, h_out), x.device))
     if w_in != w_out:
-        x = x.index_select(x.ndim - 2, torch.from_numpy(
-            _nearest_exact_index(w_in, w_out)).to(x.device))
+        x = x.index_select(x.ndim - 2, to_device(_nearest_exact_index(w_in, w_out), x.device))
     return x
 
 
@@ -115,9 +115,9 @@ def resize_bicubic(x: torch.Tensor, size: tuple[int, int]) -> torch.Tensor:
     if not x.is_floating_point():
         x = x.float()
     if h_in != h_out:
-        mh = torch.from_numpy(_bicubic_matrix(h_in, h_out)).to(x.device, x.dtype)
+        mh = to_device(_bicubic_matrix(h_in, h_out), x.device, x.dtype)
         x = torch.einsum("oh,...hwc->...owc", mh, x)
     if w_in != w_out:
-        mw = torch.from_numpy(_bicubic_matrix(w_in, w_out)).to(x.device, x.dtype)
+        mw = to_device(_bicubic_matrix(w_in, w_out), x.device, x.dtype)
         x = torch.einsum("ow,...hwc->...hoc", mw, x)
     return x if orig_dtype.is_floating_point else x.to(orig_dtype)

@@ -99,6 +99,7 @@ def main() -> int:
     from naf_torch.kernels import encoder_fused as ef
     from naf_torch.parallel import run_ranks
     from naf_torch.utils.benchmarking import card_line
+    from naf_torch.utils.spans import to_device
 
     if not torch.cuda.is_available():
         raise SystemExit("wgrad_partition needs a CUDA device")
@@ -113,7 +114,7 @@ def main() -> int:
     # this process: the one-process step's gradient, the encoder convs captured
     dev = torch.device("cuda", 0)
     model = _model(spec, dev, torch.float32).train()
-    image, feats = (torch.from_numpy(spec[k]).to(dev) for k in ("image", "feats"))
+    image, feats = (to_device(spec[k], dev) for k in ("image", "feats"))
     gen = torch.Generator(device=dev).manual_seed(spec["target_seed"])
     target = torch.randn(tuple(spec["target_shape"]), generator=gen, device=dev)
     records, undo = _capture(ef)

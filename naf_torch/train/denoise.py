@@ -21,8 +21,9 @@ generator seeded from (seed, s) on the batch's device (``step_generator``),
 so a step is reproducible on its own. Validation runs in f32: PSNR / SSIM
 on clamped outputs and a [noisy | denoised | clean] panel.
 
-Each step is annotated for ``torch.profiler`` with the ranges
-``denoise.forward``, ``denoise.backward`` and ``denoise.optimizer``.
+Each step is annotated for ``torch.profiler`` with the spans
+(``naf_torch.utils.spans``) ``denoise.forward``, ``denoise.backward`` and
+``denoise.optimizer``.
 """
 
 from __future__ import annotations
@@ -36,7 +37,6 @@ from typing import Iterator, Optional
 import numpy as np
 import torch
 from torch.func import functional_call
-from torch.profiler import record_function
 
 from naf_torch.api import _device, _init_weights
 from naf_torch.backbones.wrapper import IMAGENET_DEFAULT_MEAN, IMAGENET_DEFAULT_STD
@@ -44,6 +44,7 @@ from naf_torch.data.device_cache import index_batches
 from naf_torch.evals.denoising import DenoisingLoss, NoiseGenerator, psnr, ssim
 from naf_torch.ops.resize import resize_bilinear
 from naf_torch.train.trainer import _cast_params, step_generator
+from naf_torch.utils.spans import span, to_device
 
 __all__ = ["DenoiseConfig", "make_denoise_step", "make_denoise_chunk", "train_denoiser",
            "validate_denoiser"]
@@ -73,8 +74,8 @@ def make_optimizer(model: torch.nn.Module, cfg: DenoiseConfig) -> torch.optim.Ad
 
 
 def _normalize(x: torch.Tensor) -> torch.Tensor:
-    mean = torch.tensor(IMAGENET_DEFAULT_MEAN, dtype=x.dtype, device=x.device)
-    std = torch.tensor(IMAGENET_DEFAULT_STD, dtype=x.dtype, device=x.device)
+    mean = to_device(IMAGENET_DEFAULT_MEAN, x.device, x.dtype)
+    std = to_device(IMAGENET_DEFAULT_STD, x.device, x.dtype)
     return (x - mean) / std
 
 
@@ -90,15 +91,15 @@ def make_denoise_step(model, optimizer, criterion, noise_gen, noise_params, img_
     def step(clean: torch.Tensor, gen: torch.Generator) -> torch.Tensor:
         noisy = noise_gen(gen, clean, noise_params)
         noisy_norm = _normalize(noisy)
-        with record_function("denoise.forward"):
+        with span("denoise.forward"):
             params = _cast_params(model, dtype)
             pred = functional_call(model, (params, dict(model.named_buffers())),
                                    (noisy_norm.to(dtype), noisy.to(dtype), img_hw))
             loss = criterion(pred, clean)["total"]
-        with record_function("denoise.backward"):
+        with span("denoise.backward"):
             optimizer.zero_grad(set_to_none=True)
             loss.backward()
-        with record_function("denoise.optimizer"):
+        with span("denoise.optimizer"):
             optimizer.step()
         return loss.detach()
 
@@ -113,7 +114,7 @@ def make_denoise_chunk(step, seed: int):
     device tensor; nothing inside waits on the card."""
 
     def chunk(stack: torch.Tensor, idx: np.ndarray, step0: int) -> torch.Tensor:
-        idx_dev = torch.from_numpy(np.ascontiguousarray(idx, np.int64)).to(stack.device)
+        idx_dev = to_device(np.ascontiguousarray(idx, np.int64), stack.device)
         losses = torch.empty(idx_dev.shape[0], device=stack.device)
         for i in range(idx_dev.shape[0]):
             clean = stack.index_select(0, idx_dev[i])
@@ -173,7 +174,7 @@ def train_denoiser(model, data_iter: Optional[Iterator], cfg: DenoiseConfig,
                          "elapsed_s": round(time.time() - t0, 1)}, cfg.train_steps)
             return model
         for step in range(cfg.train_steps):
-            clean = torch.as_tensor(np.asarray(next(data_iter)), dtype=torch.float32).to(dev)
+            clean = to_device(np.asarray(next(data_iter)), dev, torch.float32)
             if tuple(clean.shape[1:3]) != img_hw:
                 clean = resize_bilinear(clean, img_hw)
             loss = step_fn(clean, step_generator(cfg.seed, step, dev))
@@ -198,7 +199,7 @@ def validate_denoiser(model, data_iter, cfg: DenoiseConfig, viz_path: Optional[s
     for step, batch in enumerate(data_iter):
         if step >= cfg.val_steps:
             break
-        clean = torch.as_tensor(batch, dtype=torch.float32).to(dev)
+        clean = to_device(batch, dev, torch.float32)
         if tuple(clean.shape[1:3]) != img_hw:
             clean = resize_bilinear(clean, img_hw)
         noisy = noise_gen(step_generator(cfg.seed + 1, step, dev), clean, cfg.noise_params)

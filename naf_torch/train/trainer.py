@@ -17,8 +17,9 @@ image); the model predicts hr_feats from (image, lr_feats) with MSE
 - ``use_checkpointing`` recomputes the model forward in the backward pass
   (``torch.utils.checkpoint``).
 
-Each step is annotated for ``torch.profiler`` with the ranges
-``naf.backbone``, ``naf.forward``, ``naf.backward`` and ``naf.optimizer``.
+Each step is annotated for ``torch.profiler`` with the spans
+(``naf_torch.utils.spans``) ``naf.backbone``, ``naf.forward``,
+``naf.backward`` and ``naf.optimizer``.
 Metrics stream to ``metrics.jsonl``; checkpoints (parameters, AdamW state and
 step, ``torch.save``) make a resume exact.
 
@@ -53,7 +54,6 @@ import numpy as np
 import torch
 import torch.distributed as dist
 from torch.func import functional_call
-from torch.profiler import record_function
 
 from naf_torch.api import _device, _init_weights
 from naf_torch.backbones.wrapper import IMAGENET_DEFAULT_MEAN, IMAGENET_DEFAULT_STD
@@ -64,6 +64,7 @@ from naf_torch.ops.resize import resize_bilinear
 from naf_torch.parallel import replicate, shard_batch
 from naf_torch.train.distill import sample_lr_size
 from naf_torch.train.losses import mse_loss
+from naf_torch.utils.spans import span, to_device
 
 __all__ = [
     "TrainConfig", "make_train_step", "make_train_chunk", "make_optimizer", "train_upsampler",
@@ -149,12 +150,12 @@ def make_train_step(model, backbone, optimizer, use_bf16: bool,
 
     def step(image_ups, image_back, step_idx: int, lr_size, out_hw, crop_hw,
              draws: Optional[RopeDraws] = None):
-        with record_function("naf.backbone"), torch.no_grad():
+        with span("naf.backbone"), torch.no_grad():
             hr_feats = backbone(image_back.to(dtype))
             lr_feats = backbone(resize_bilinear(image_back, lr_size).to(dtype))
         if draws is None:
             draws = rope.draw(step_generator(seed, step_idx))
-        with record_function("naf.forward"):
+        with span("naf.forward"):
             # the model input image: min(224, 4 * hr_size) (train.py:126)
             img_hr = resize_bilinear(image_ups, crop_hw).to(dtype)
             params = _cast_params(model, dtype)
@@ -170,7 +171,7 @@ def make_train_step(model, backbone, optimizer, use_bf16: bool,
             else:
                 pred = forward(img_hr, lr_feats)
             loss = mse_loss(pred, hr_feats)
-        with record_function("naf.backward"):
+        with span("naf.backward"):
             optimizer.zero_grad(set_to_none=True)
             loss.backward()
             loss = loss.detach()
@@ -181,7 +182,7 @@ def make_train_step(model, backbone, optimizer, use_bf16: bool,
                 mean_loss = loss.float().reshape(1).clone()
                 _mean_over(grad_group, [*(p.grad for p in model.parameters()), mean_loss])
                 loss = mean_loss[0]
-        with record_function("naf.optimizer"):
+        with span("naf.optimizer"):
             optimizer.step()
         return loss
 
@@ -201,7 +202,7 @@ def make_train_chunk(step, imagenet_stats, backbone_stats):
     (im_mean, im_std), (b_mean, b_std) = imagenet_stats, backbone_stats
 
     def chunk(stack, idx, step0: int, lr_size, out_hw, crop_hw) -> torch.Tensor:
-        idx_dev = torch.from_numpy(np.ascontiguousarray(idx, np.int64)).to(stack.device)
+        idx_dev = to_device(np.ascontiguousarray(idx, np.int64), stack.device)
         losses = torch.empty(idx_dev.shape[0], device=stack.device)
         for i in range(idx_dev.shape[0]):
             img = stack.index_select(0, idx_dev[i])
@@ -286,7 +287,7 @@ def train_upsampler(model, backbone, data_iter: Optional[Iterator[np.ndarray]],
     ps = backbone.patch_size
     for _ in range(start_step):  # the lr sizes the skipped steps drew
         sample_lr_size((cfg.img_size, cfg.img_size), ps, cfg.down_factor, rng)
-    stats = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)
+    stats = lambda a: to_device(a, dev, torch.float32)
     # the model's input takes ImageNet statistics, the backbone's its own
     im_mean, im_std = stats(IMAGENET_DEFAULT_MEAN), stats(IMAGENET_DEFAULT_STD)
     b_mean, b_std = stats(backbone.config["mean"]), stats(backbone.config["std"])
@@ -314,7 +315,7 @@ def train_upsampler(model, backbone, data_iter: Optional[Iterator[np.ndarray]],
     with metrics as mf:
         for step in range(start_step, cfg.train_steps):
             batch = next(data_iter)
-            img = torch.as_tensor(np.asarray(batch), dtype=torch.float32).to(dev)
+            img = to_device(np.asarray(batch), dev, torch.float32)
             img_ups = (img - im_mean) / im_std
             img_back = (img - b_mean) / b_std
             lr_size = sample_lr_size(tuple(img.shape[1:3]), ps, cfg.down_factor, rng)
@@ -372,7 +373,7 @@ def _train_chunked(model, optimizer, step_fn, stack, batch_size, cfg, rng, ps, i
                 records.append(rec)
             print(f"step {done}/{cfg.train_steps} loss {rec['loss']:.5f}", flush=True)
             if viz_every and (done % max(viz_every, 1) < k or done >= cfg.train_steps):
-                img = stack.index_select(0, torch.from_numpy(idx[-1]).to(stack.device))
+                img = stack.index_select(0, to_device(idx[-1], stack.device))
                 panel(done, img, (img - im_stats[0]) / im_stats[1],
                       (img - b_stats[0]) / b_stats[1], lr_size, hr_hw, crop_hw)
             if done % ckpt_every < k or done >= cfg.train_steps:

@@ -60,12 +60,19 @@ def test_line_and_vs_baseline(record):
 
 @pytest.mark.cuda
 def test_stages_on_the_card(record):
+    """The forward's launches, and its profiled stretch by span: the
+    encoder and the attention launch device work, the spans' own device
+    times cover nearly all of it, and the idle parts sum to the stretch's
+    idle."""
     rec = h.stages(sizes=CARD, **QUICK)
-    assert list(rec["detail"]) == list(h.STAGE_LAUNCHES)
-    for name, res in rec["detail"].items():
-        h.check_launches(f"stage {name}", res["launches"], h.STAGE_LAUNCHES[name])
-    ms = rec["stages_ms"]
-    assert 0 < ms["fused_q"] < ms["model"] and 0 < ms["encoder"] and rec["canary_ms"] > 0
+    h.check_launches("stages", rec["launches"], h.STAGE_LAUNCHES)
+    sp = rec["spans"]
+    assert list(sp) == [*h.STAGE_SPANS, "outside"] and rec["canary_ms"] > 0
+    assert 0 < sp["naf.attention"]["device_ms"] < rec["model_ms"]
+    assert 0 < sp["naf.encoder"]["device_ms"] and 0 < rec["busy_ms"] < rec["window_ms"]
+    assert sum(sp[n]["device_ms"] for n in h.STAGE_SPANS) >= 0.95 * rec["busy_ms"]
+    idle = sum(v["idle_ms"] for v in sp.values())
+    assert idle == pytest.approx(rec["window_ms"] - rec["busy_ms"], rel=1e-6)
 
 
 @pytest.mark.cuda

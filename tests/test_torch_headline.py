@@ -222,11 +222,14 @@ def test_only_and_stages(record):
     rec = h.run("cpu", SMALL, only="fps_448to2048_r16", **QUICK)
     assert list(rec["fields"]) == ["fps_448to2048_r16"] and "peak_mib_448" not in rec
     st = h.stages(device="cpu", sizes=SMALL, **QUICK)
-    assert list(st["stages_ms"]) == ["model", "encoder", "pre_attn", "fused_q",
-                                     "glue_residual"]
-    assert st["out"] == SMALL["out2"] and st["canary_ms"] > 0
-    ms = st["stages_ms"]
-    assert ms["glue_residual"] == pytest.approx(ms["model"] - ms["pre_attn"] - ms["fused_q"])
+    spans = st["spans"]
+    assert list(spans) == [*h.STAGE_SPANS, "outside"] and st["launches"] == {}
+    assert st["out"] == SMALL["out2"] and st["canary_ms"] > 0 and st["model_ms"] > 0
+    assert st["busy_ms"] == 0 and all(v["device_ms"] == 0 for k, v in spans.items()
+                                      if k != "outside")  # no device on the CPU
+    host = [v["host_self_ms"] for v in spans.values()]
+    assert all(v > 0 for v in host) and sum(host) == pytest.approx(st["window_ms"])
+    assert sum(v["idle_ms"] for v in spans.values()) == pytest.approx(st["window_ms"])
     with pytest.raises(ValueError, match="no field"):
         h.run("cpu", SMALL, only="fps_448", **QUICK)
 
@@ -242,7 +245,9 @@ def test_cli(monkeypatch, capsys, record):
 
     def fake_stages(out, **kw):
         calls.append(("stages", out, kw))
-        return {"canary_ms": 1.0, "stages_ms": {"model": 2.0}}
+        return {"canary_ms": 1.0, "model_ms": 2.0,
+                "spans": {"naf.call": {"device_ms": 1.5, "host_self_ms": 0.1, "idle_ms": 0.1},
+                          "outside": {"host_self_ms": 0.2, "idle_ms": 0.2}}}
 
     monkeypatch.setattr(h, "run", fake_run)
     monkeypatch.setattr(h, "stages", fake_stages)
@@ -255,6 +260,9 @@ def test_cli(monkeypatch, capsys, record):
     assert list(json.loads(lines[0])["fields"]) == ["fps_448to2048_r16"]
     assert lines[-1].startswith("fps_448to2048_r16 = ")
     assert h.main(["--stages", "--tf32"]) == 0 and h.main(["--stages", "896"]) == 0
+    assert capsys.readouterr().out.strip().splitlines()[-1] == (
+        "canary 1.000 ms; model 2.000 ms; naf.call device 1.500 host 0.100 idle 0.100; "
+        "outside host 0.200 idle 0.200 ms a call")
     assert calls == [("run", dict(device="cpu", only=None, tf32=False)),
                      ("run", dict(device="cpu", only="fps_448to2048_r16", tf32=False)),
                      ("stages", None, dict(device="cuda", tf32=True)),
