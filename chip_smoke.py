@@ -27,7 +27,8 @@ and narrow routes (none in either fails), then, each phase on its own lines:
    256) and a one-head dv 3 (``K2_SHAPES``);
 3. the main path: ``NAFUpsampler`` with seeded random bf16 weights at the
    production config serves three 448^2 requests and one 448^2 -> 2048^2
-   request, with launch counters showing 8 K1 and 1 K2 launches per forward
+   request, with launch counters showing 8 K1, 1 K2 and 1 keys-kernel
+   launches per forward
    (every bf16 K2 launch on the tensor-core route, here and in phases 10-12);
    its output is held against the modular path (plain attention oracle) on
    the card and against an f32 copy of the model on the CPU (cosine > 0.999);
@@ -35,7 +36,9 @@ and narrow routes (none in either fails), then, each phase on its own lines:
    K1's share; ``NAFUpsampler(dim=96)`` serves a 448^2 request with 8 K1 and
    1 K2 launches, held against its f32 CPU copy (cosine > 0.999);
    one gradient of each wrapper is held against autograd of its plain
-   version (2e-3); per-forward time and the forward's own peak memory;
+   version (2e-3); per-forward time and the forward's own peak memory; a
+   2048^2 guide + 128^2 x 384 -> 2048^2 forward's peak attributed by
+   allocating frame (the top 5 printed);
 4. K3 (cross-scale NA forward) and K4 (its recompute-P backward) against
    their plain versions at the training shape (4, 32^2 <- 16^2, 4 heads,
    d 64, dv 192), at 448^2 <- 28^2 (d 64, dv 96), at the ragged 100^2 <- 28^2
@@ -269,10 +272,20 @@ Phase 22 runs after phase 21, before phase 8:
    the idle parts summing to the stretch's idle. Prints the record, bench.py's line
    and the phase's wall time.
 
+Phase 23 runs after phase 2, before phase 3:
+
+23. the keys kernel (``kernels.rope_keys``: pooled RoPE keys and K2's
+   tables in one launch) against its f32 plain version at the main path's
+   shapes (448^2 + 28^2, 448^2 -> 2048^2 + 128^2, 2048^2 + 128^2; bf16, C
+   256, 4 RoPE heads): keys within one rounding of the f32 keys (2^-8 |ref|
+   + 1e-5 max|ref|), tables to 1e-6, one launch a call; its device time
+   beside the plain version's and the bound.
+
 Prints a JSON line of per-kernel numbers (``launches_bench`` on K1-K5: the
 launches of phase 20's rows; ``launches_quality`` on K1-K4: phase 21's;
 ``launches_spatial_train`` on K1-K4: phase 17's spatial train steps;
-``launches_headline`` on every kernel: phase 22's fields),
+``launches_headline`` on K1-K6: phase 22's fields; the keys kernel's
+launches from phase 3, its error and times from phase 23),
 the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``. Exits non-zero on any failure,
 and when no CUDA device is present. Imports nothing of JAX.
@@ -556,10 +569,71 @@ def phase_k2(dev):
     return max(errs.values()), coss
 
 
+# (enc side, output side, key side) of the main path's keys-kernel calls:
+# 448^2 + 28^2 (identity pool-up), 448^2 -> 2048^2 + 128^2 (ragged pool-up)
+# and a 2048^2 guide + 128^2
+KEYS_SHAPES = {"448": (448, 448, 28), "448to2048": (448, 2048, 128), "2048": (2048, 2048, 128)}
+
+
+def phase_keys(dev, card):
+    """The keys kernel (``rope_keys``: pooled RoPE keys and K2's cos|sin
+    tables) against its f32 plain version on the same inputs at every shape
+    of KEYS_SHAPES, bf16 at NAF's widths (C 256, 4 RoPE heads): keys within
+    one rounding of the f32 keys, |got - ref| <= 2^-8 |ref| + 1e-5 max|ref|
+    (the kernel sums in f32 and rounds once), tables equal to 1e-6; one
+    launch a call; the kernel's device time (torch.profiler) beside the
+    plain version's and the bound, max(bytes / peak bandwidth, FLOPs / f32
+    peak): enc read once, the keys and both tables written once, 4 FLOPs an
+    element read. No single PyTorch call computes the function."""
+    from naf_torch.kernels.rope_keys import rope_keys, rope_keys_ref
+    from naf_torch.nn.rope import RoPE
+
+    bw_peak = _peaks(card)[0]
+    gen = torch.Generator(device=dev).manual_seed(23)
+    rope = RoPE(256, 4).to(dev)
+    res = {}
+    for label, (hi, out, hk) in KEYS_SHAPES.items():
+        enc = torch.randn(1, hi, hi, 256, generator=gen, device=dev).bfloat16()
+        up, down = (out, out), (hk, hk)
+        before = rope_keys.launches
+        keys, rows_tab, cols_tab = rope_keys(rope, enc, up, down)
+        torch.cuda.synchronize()
+        if rope_keys.launches - before != 1:
+            raise AssertionError(f"keys kernel {label}: {rope_keys.launches - before} launches")
+        ref_keys, ref_rows, ref_cols = rope_keys_ref(rope, enc.float(), up, down)
+        err = (keys.float() - ref_keys).abs()
+        bar = 2.0 ** -8 * ref_keys.abs() + 1e-5 * ref_keys.abs().max()
+        share = float((err / bar).max())
+        if share > 1.0:
+            raise AssertionError(f"keys kernel {label}: keys {share:.3f} of the one-rounding bar")
+        tab_err = max(float((rows_tab - ref_rows).abs().max()),
+                      float((cols_tab - ref_cols).abs().max()))
+        if tab_err > 1e-6:
+            raise AssertionError(f"keys kernel {label}: tables off by {tab_err:.3e}")
+        del keys, rows_tab, cols_tab, ref_keys, ref_rows, ref_cols, bar
+        ms = _kernel_ms(lambda: rope_keys(rope, enc, up, down), "rope_keys", reps=20)
+        plain = _time_ms(lambda: rope_keys_ref(rope, enc, up, down), iters=3)
+        nbytes = 2 * (enc.numel() + hk * hk * 256) + 4 * 2 * out * 2 * 256
+        flops = 4 * enc.numel()
+        bound = max(nbytes / bw_peak, flops / F32_FLOPS) * 1e3
+        res[label] = dict(max_abs_err=float(err.max()), bar_share=share, table_err=tab_err,
+                          ms=ms, plain_ms=plain, bound_ms=bound,
+                          bound_by="bytes" if nbytes / bw_peak > flops / F32_FLOPS
+                          else "operations", library_ms=None)
+        print(f"keys kernel {label} (enc {hi}^2 x 256 -> {out}^2 -> {hk}^2, bf16): max_abs_err "
+              f"{float(err.max()):.3e} ({share:.3f} of the one-rounding bar), tables "
+              f"{tab_err:.1e}; kernel {ms:.4f} ms, bound {bound:.4f} ms ({bound / ms:.1%}); "
+              f"plain {plain:.3f} ms ({card})", flush=True)
+        del enc, err
+        torch.cuda.empty_cache()
+    return res
+
+
 def phase_main(dev, card):
     from naf_torch import NAFUpsampler, load_naf_params
     from naf_torch.kernels.encoder_fused import gn_silu_conv_fused
     from naf_torch.kernels.na2d_fused_q import naf_upsample_attention
+    from naf_torch.kernels.rope_keys import rope_keys
 
     ups = NAFUpsampler(seed=0, device=dev, dtype=torch.bfloat16)
     gen = torch.Generator(device=dev).manual_seed(2)
@@ -572,14 +646,19 @@ def phase_main(dev, card):
     _zero_counts()
     for image, feats, out in inputs:
         k1, k2 = gn_silu_conv_fused.launches, naf_upsample_attention.launches
+        kk = rope_keys.launches
         o = ups(image, feats, out)
-        if (gn_silu_conv_fused.launches - k1, naf_upsample_attention.launches - k2) != (8, 1):
-            raise AssertionError("a forward did not launch K1 8 times and K2 once")
+        if (gn_silu_conv_fused.launches - k1, naf_upsample_attention.launches - k2,
+                rope_keys.launches - kk) != (8, 1, 1):
+            raise AssertionError("a forward did not launch K1 8 times, K2 once and the keys "
+                                 "kernel once")
         outs.append(o)
     torch.cuda.synchronize()
     launches = {"k1": gn_silu_conv_fused.launches, "k2": naf_upsample_attention.launches,
-                "k2_wgmma": naf_upsample_attention.route_launches["wgmma"]}
-    if launches != {"k1": 8 * len(reqs), "k2": len(reqs), "k2_wgmma": len(reqs)}:
+                "k2_wgmma": naf_upsample_attention.route_launches["wgmma"],
+                "keys": rope_keys.launches}
+    if launches != {"k1": 8 * len(reqs), "k2": len(reqs), "k2_wgmma": len(reqs),
+                    "keys": len(reqs)}:
         raise AssertionError(f"launch counts {launches}: every bf16 K2 on the wgmma route")
     for (image, feats, out), o in zip(inputs, outs):
         if o.shape != (1, 384, *out) or o.dtype != torch.bfloat16 or not bool(o.isfinite().all()):
@@ -623,7 +702,27 @@ def phase_main(dev, card):
               flush=True)
         prof = _profile(lambda: ups(image, feats, out), f"448^2 -> {label}^2")
         stats[label] = (ms, peak, prof)
-    return launches, stats, c96
+    del inputs
+    torch.cuda.empty_cache()
+    return launches, stats, c96, _guide_peak_frames(ups, gen, dev)
+
+
+def _guide_peak_frames(ups, gen, dev):
+    """A 2048^2 guide + 128^2 x 384 -> 2048^2 forward's own peak, attributed
+    by allocating frame (``_peak_by_frame``): which of the forward's
+    buffers are live when its memory peaks."""
+    image = torch.randn(1, 3, 2048, 2048, generator=gen, device=dev)
+    feats = torch.randn(1, 384, 128, 128, generator=gen, device=dev)
+    ups(image, feats, (2048, 2048))
+    peak, live, frames = _peak_by_frame(lambda: ups(image, feats, (2048, 2048)))
+    print(f"forward 2048^2 guide -> 2048^2 bf16: peak {peak:.1f} MiB above its start, "
+          f"{live:.1f} MiB of it allocated in the call; live at the peak, by frame:", flush=True)
+    for key, mib, n in frames:
+        print(f"  {mib:9.1f} MiB in {n:3d} blocks: {key}", flush=True)
+    del image, feats
+    torch.cuda.empty_cache()
+    return dict(peak_mib=peak, live_mib=live, frames=[dict(frame=k, mib=m, blocks=n)
+                                                      for k, m, n in frames])
 
 
 def _serve_dim96(dev, gen):
@@ -985,8 +1084,9 @@ def _zero_counts():
     from naf_torch.kernels.encoder_fused import gn_silu_conv_dual_fused, gn_silu_conv_fused
     from naf_torch.kernels.na2d_fused import cross_scale_na2d_fused
     from naf_torch.kernels.na2d_fused_q import naf_upsample_attention
+    from naf_torch.kernels.rope_keys import rope_keys
 
-    gn_silu_conv_fused.launches = naf_upsample_attention.launches = 0
+    gn_silu_conv_fused.launches = naf_upsample_attention.launches = rope_keys.launches = 0
     naf_upsample_attention.route_launches = dict.fromkeys(naf_upsample_attention.route_launches, 0)
     cross_scale_na2d_fused.launches = cross_scale_na2d_fused.bwd_launches = 0
     cross_scale_na2d_fused.route_launches = dict.fromkeys(cross_scale_na2d_fused.route_launches, 0)
@@ -1324,7 +1424,7 @@ BASELINES = ("FeatUp", "JBU", "AnyUp", "JAFAR", "JBF", "Bilinear", "Nearest", "N
 # launches per forward on the baselines path; every other count stays
 BASELINE_LAUNCHES = {"FeatUp": {"k5": 4, "k5_wide": 4}, "JBU": {"k5": 1, "k5_narrow": 1},
                      "AnyUp": {"k3": 1},
-                     "NAF": {"k1": 8, "k2": 1, "k2_fma": 1}}
+                     "NAF": {"k1": 8, "k2": 1, "k2_fma": 1, "keys": 1}}
 RESTORERS = ("JBU", "JBF")  # forward(image_norm, image, output_size)
 
 
@@ -3772,7 +3872,8 @@ def main() -> int:
 
     k1_err = phase_k1(dev)
     k2_err, k2_cos = phase_k2(dev)
-    launches, stats, c96 = phase_main(dev, card)
+    keys = phase_keys(dev, card)
+    launches, stats, c96, guide_peak = phase_main(dev, card)
     phase_grads(dev)
     k34_err = phase_k34(dev)
     k6_err = phase_k6(dev)
@@ -3868,6 +3969,15 @@ def main() -> int:
              source="naf_torch/kernels/csrc/encoder_dual.cu",
              replaces="naf_tpu/kernels/encoder_fused.py:272", launches=dual_launches["k6"],
              max_abs_err=k6_err, **timing["k6"], hgmma=hgmma["encoder_dual"]))
+    kernels.append(
+        # the keys kernel: launches from the main path (1 per forward), error
+        # and times at 448^2 (phase 23), the other main-path shapes suffixed;
+        # it replaces no TPU kernel (the JAX package's keys are plain jnp)
+        dict(name="rope_keys", route="cuda", source="naf_torch/kernels/csrc/rope_keys.cu",
+             replaces=None, jax_counterpart="naf_tpu/models/naf.py:258 (plain jnp)",
+             launches=launches["keys"], **keys["448"],
+             **{f"{k}_{label}": v for label in ("448to2048", "2048")
+                for k, v in keys[label].items() if k != "library_ms"}))
     kernels[0]["launches_banded_encoder"] = banded["streamed_encoder"]["launches_k1"]
     # phase 17: both ranks' sharded forwards (8 K1 and 1 K2 on each rank)
     kernels[0]["launches_parallel"] = par_launches["k1"]
@@ -3917,6 +4027,7 @@ def main() -> int:
     train_keys = ("step_ms", "peak_mib", "split", "losses", "cpu_loss", "card_loss", "grad_cos")
     print(json.dumps({"kernels": kernels, "forward_ms": {k: v[0] for k, v in stats.items()},
                       "peak_mib": {k: v[1] for k, v in stats.items()},
+                      "peak_frames_2048_guide": guide_peak,
                       "forward_profile": {k: v[2] for k, v in stats.items()},
                       "train": {k: train[k] for k in train_keys},
                       "baselines": baselines, "k5_splits": k5_splits, "dual_route": dual,

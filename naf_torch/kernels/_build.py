@@ -21,7 +21,8 @@ __all__ = ["build", "load", "SOURCES"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "naf_torch"
-SOURCES = ("encoder_fused", "encoder_dual", "na2d_fused_q", "na2d_fused", "adaptive_conv")
+SOURCES = ("encoder_fused", "encoder_dual", "na2d_fused_q", "na2d_fused", "adaptive_conv",
+           "rope_keys")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-lineinfo",

@@ -13,8 +13,9 @@ The image encoder concatenates a 1x1-kernel "pixel" stack and a 3x3-kernel
 output by a bilinear downscale, pools to the output size and applies RoPE.
 
 Inference (no ``return_weights``) takes the fused path: both encoder stacks
-on kernel K1 into one packed buffer, the keys by the separable pooled-RoPE
-collapse, then kernel K2 (pool-up + RoPE + attention in one pass). On CPU
+on kernel K1 into one packed buffer, the keys and RoPE tables by the keys
+kernel (``kernels.rope_keys``: the separable pooled-RoPE collapse in one
+launch), then kernel K2 (pool-up + RoPE + attention in one pass). On CPU
 tensors the same path runs the kernels' plain versions.
 
 Training (``train=True``) takes the modular path, as the JAX package does:
@@ -41,6 +42,7 @@ from torch import nn
 
 from naf_torch.kernels.encoder_fused import encoder_stack_fused_packed
 from naf_torch.kernels.na2d_fused_q import naf_upsample_attention
+from naf_torch.kernels.rope_keys import rope_keys
 from naf_torch.nn.attention import CrossScaleAttention
 from naf_torch.nn.conv import Encoder
 from naf_torch.nn.rope import RoPE, RopeDraws
@@ -147,16 +149,14 @@ class NAF(nn.Module):
 
     def _fused_q_inputs(self, image, features, output_size):
         """Encoder output, pooled keys and the cos|sin row/column tables of
-        the fused path; the keys and tables are the span ``naf.keys``."""
+        the fused path; the keys and tables (one launch of the keys kernel
+        on the card, ``kernels.rope_keys``) are the span ``naf.keys``."""
         oh, ow = int(output_size[0]), int(output_size[1])
         hk, wk = features.shape[1], features.shape[2]
         enc = self.image_encoder.encode_guarded(image, (oh, ow))
         with span("naf.keys"):
-            rope = self.image_encoder.rope
-            keys = rope.pooled(enc, (oh, ow), (hk, wk))
-            sin_r, cos_r, sin_c, cos_c = rope.tables(oh, ow)
-            return (enc.contiguous(), keys.contiguous(), torch.cat([cos_r, sin_r], dim=-1),
-                    torch.cat([cos_c, sin_c], dim=-1))
+            enc = enc.contiguous()
+            return (enc, *rope_keys(self.image_encoder.rope, enc, (oh, ow), (hk, wk)))
 
     def _fused_q(self, image, features, output_size):
         enc, keys, rows_tab, cols_tab = self._fused_q_inputs(image, features, output_size)

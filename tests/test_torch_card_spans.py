@@ -3,7 +3,8 @@ profiled stretch of the 448^2 + 128^2 x 384 -> 2048^2 bf16 forward through
 ``NAFUpsampler``: every span in every call, the records' stamps against the
 profile's events of the same name (the median gap is printed), the
 attention span's device time against K2's kernels, ``to_device``'s copies
-against the profile's pageable host-to-device memcpys, and the benchmark's
+against the profile's pageable host-to-device memcpys (none in the
+inference call; ``RoPE.tables`` alone still copies), and the benchmark's
 idle split by span (``h100bench/metrics/program_spans.py``, which finds the
 window's ends from the gaps) against the program's own
 (``spans.breakdown``, given them).
@@ -53,6 +54,23 @@ def stretch():
         for _ in range(CALLS):
             ups(image, feats, (2048, 2048))
     prof = holder.prof
+    host, ann, dev = _events(prof)
+    # a path that still copies host arrays: RoPE's tables alone, in a span
+    n1, c1 = len(spans.records()), spans.to_device.copies
+    with trace.profiled() as holder:
+        for _ in range(CALLS):
+            with spans.span("tables"):
+                ups.model.image_encoder.rope.tables(2048, 2048)
+        torch.cuda.synchronize()
+    tables = {"records": spans.records()[n1:], "copies": spans.to_device.copies - c1,
+              "dev": _events(holder.prof)[2]}
+    return {"records": spans.records()[n0:n1], "copies": c1 - c0, "host": host, "ann": ann,
+            "dev": dev, "prof": prof, "tables": tables}
+
+
+def _events(prof):
+    """({name: [(start, end)]} of host events, of GPU annotations, and
+    [(name, start, end)] of device operations) of a profile, in ns."""
     host, ann, dev = {}, {}, []
     for e in prof.profiler.kineto_results.events():
         s, t = e.start_ns(), e.start_ns() + e.duration_ns()
@@ -62,8 +80,7 @@ def stretch():
             ann.setdefault(e.name(), []).append((s, t))
         else:
             dev.append((e.name(), s, t))
-    return {"records": spans.records()[n0:], "copies": spans.to_device.copies - c0,
-            "host": host, "ann": ann, "dev": dev, "prof": prof}
+    return host, ann, dev
 
 
 @pytest.mark.cuda
@@ -102,11 +119,17 @@ def test_attention_device_time_covers_k2(stretch):
 
 @pytest.mark.cuda
 def test_copies_match_the_pageable_memcpys(stretch):
-    memcpys = [n for n, _, _ in stretch["dev"] if PAGEABLE_H2D.search(n)]
-    charged = sum(r.copies for r in stretch["records"])
-    print(f"host-to-device copies a call: to_device {stretch['copies'] / CALLS}, charged "
-          f"{charged / CALLS}, pageable memcpys {len(memcpys) / CALLS}")
-    assert stretch["copies"] == charged == len(memcpys) > 0
+    """``to_device``'s count, the copies charged to the spans and the
+    profile's pageable host-to-device memcpys agree: none in the inference
+    calls (the keys kernel copies nothing from the host), and two a call of
+    ``RoPE.tables`` alone (its row and column coordinates)."""
+    for label, part, want in (("inference call", stretch, 0),
+                              ("RoPE.tables", stretch["tables"], 2)):
+        memcpys = [n for n, _, _ in part["dev"] if PAGEABLE_H2D.search(n)]
+        charged = sum(r.copies for r in part["records"])
+        print(f"host-to-device copies a {label}: to_device {part['copies'] / CALLS}, charged "
+              f"{charged / CALLS}, pageable memcpys {len(memcpys) / CALLS}")
+        assert part["copies"] == charged == len(memcpys) == want * CALLS, label
 
 
 @pytest.mark.cuda
