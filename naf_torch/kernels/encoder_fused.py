@@ -40,7 +40,7 @@ import torch
 import torch.nn.functional as F
 
 from naf_torch.kernels import _build
-from naf_torch.utils.spans import to_device
+from naf_torch.utils.spans import span, to_device
 
 __all__ = [
     "DUAL_ROUTE",
@@ -638,7 +638,8 @@ class _FusedStacks(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         needs = (ctx.needs_input_grad[0],) + ctx.needs_input_grad[3:]
-        grads = _twin_grads(ctx.saved_tensors, needs, ctx.specs, g)
+        with span("naf.encoder.backward"):
+            grads = _twin_grads(ctx.saved_tensors, needs, ctx.specs, g)
         return (grads[0], None, None, *grads[1:])
 
 

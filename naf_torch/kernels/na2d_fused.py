@@ -49,7 +49,7 @@ import torch
 from naf_torch.kernels import _build
 from naf_torch.ops.na2d import cross_scale_na2d
 from naf_torch.ops.window import cross_scale_lr_indices
-from naf_torch.utils.spans import to_device
+from naf_torch.utils.spans import span, to_device
 
 __all__ = [
     "cross_scale_na2d_fused",
@@ -552,13 +552,14 @@ class _FusedNA(torch.autograd.Function):
     def backward(ctx, g):
         kernel_size, scale, row_cell0, full_hq = ctx.meta
         q, k, v = ctx.saved_tensors
-        g = g.to(q.dtype)
-        if q.device.type == "cpu":
-            grads = cross_scale_na2d_fused_bwd_ref(q, k, v, g, kernel_size, scale, row_cell0,
-                                                   full_hq)
-        else:
-            grads = _launch_bwd(q, k, v, g, kernel_size, scale,
-                                *_band_rows(q, k, row_cell0, full_hq))
+        with span("naf.attention.backward"):
+            g = g.to(q.dtype)
+            if q.device.type == "cpu":
+                grads = cross_scale_na2d_fused_bwd_ref(q, k, v, g, kernel_size, scale,
+                                                       row_cell0, full_hq)
+            else:
+                grads = _launch_bwd(q, k, v, g, kernel_size, scale,
+                                    *_band_rows(q, k, row_cell0, full_hq))
         return (*grads, None, None, None, None)
 
 

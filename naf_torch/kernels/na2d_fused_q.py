@@ -60,7 +60,7 @@ from naf_torch.kernels.na2d_fused import (
 from naf_torch.nn.rope import rotate_half
 from naf_torch.ops.na2d import cross_scale_na2d
 from naf_torch.ops.pool import _pool_matrix, adaptive_avg_pool2d
-from naf_torch.utils.spans import to_device
+from naf_torch.utils.spans import span, to_device
 
 __all__ = ["naf_upsample_attention", "naf_upsample_attention_ref", "fused_q_twin"]
 
@@ -329,11 +329,12 @@ class _FusedQ(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         rope_d_head, num_heads, kernel_size, scale = ctx.meta
-        inputs = _detached(ctx.saved_tensors, ctx)
-        with torch.enable_grad():
-            out = fused_q_twin(*inputs, rope_d_head, num_heads=num_heads,
-                               kernel_size=kernel_size, scale=scale, **ctx.band)
-        return (*_grads((out,), (g,), inputs), *[None] * 7)
+        with span("naf.attention.backward"):
+            inputs = _detached(ctx.saved_tensors, ctx)
+            with torch.enable_grad():
+                out = fused_q_twin(*inputs, rope_d_head, num_heads=num_heads,
+                                   kernel_size=kernel_size, scale=scale, **ctx.band)
+            return (*_grads((out,), (g,), inputs), *[None] * 7)
 
 
 def naf_upsample_attention(enc, keys, values, rows_tab, cols_tab, rope_d_head=64, *,

@@ -27,6 +27,11 @@ The spans of the inference path: ``naf.call`` (``api.naf``, the entry),
 keys and RoPE tables of ``NAF._fused_q_inputs``), ``naf.attention`` (each
 K2 call). The trainer's ``naf.backbone``, ``naf.forward``, ``naf.backward``
 and ``naf.optimizer``, and the denoiser's ``denoise.*``, are spans too.
+Inside the backward, ``naf.attention.backward`` (the custom Functions of K2
+and of K3/K4) and ``naf.encoder.backward`` (the encoder twin's) run on the
+autograd engine's thread: the stack of open records is the process's, so
+they nest under the span the caller waits in (``naf.backward``,
+``denoise.backward``), and their ranges hold that thread's kernels.
 
 ``breakdown(prof, recs, t0, t1, calls)`` reads a profiled stretch by its
 spans: each span's own device, host and device idle time a call
@@ -94,8 +99,11 @@ class _Span:
 
 def span(name: str):
     """A context manager around one layer's work; a no-op unless a profiler
-    runs."""
-    if not _profiler._is_profiler_enabled:
+    runs, and inside a span of the same name (K3/K4's backward inside K2's):
+    the profiler gives a range the device time from its first kernel to its
+    last, so a nested range of one name would count the inner kernels
+    twice."""
+    if not _profiler._is_profiler_enabled or (_open and _open[-1].name == name):
         return _NULL
     return _Span(name)
 

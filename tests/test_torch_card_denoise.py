@@ -223,3 +223,31 @@ def test_f32_denoiser_step_on_card_matches_cpu(cuda_device):
     cos = float(card_grad.double() @ cpu_grad.double()
                 / (card_grad.double().norm() * cpu_grad.double().norm()))
     assert cos > 0.999
+
+
+@pytest.mark.cuda
+def test_reference_ssim_gradient_on_card(cuda_device):
+    """The benchmark's plain SSIM (``h100bench/reference/denoise.py``) and
+    the port's SSIM loss take the CPU's gradient on the card, in full f32.
+    avg_pool2d's CUDA backward on a permuted NHWC view is wrong (105% of
+    the exact gradient away, torch 2.11), so the reference pools
+    contiguous copies."""
+    from h100bench.reference.denoise import ssim
+    from naf_torch.evals.denoising import ssim_loss
+
+    gen = torch.Generator().manual_seed(6)
+    clean = torch.rand(2, 48, 48, 3, generator=gen)
+    pred = clean + 0.1 * torch.randn(clean.shape, generator=gen)
+
+    def grads(device):
+        out = []
+        for fn in (lambda p, t: 1.0 - ssim(p, t), ssim_loss):
+            x = pred.to(device).requires_grad_(True)
+            (g,) = torch.autograd.grad(fn(x, clean.to(device)), x)
+            out.append(g.cpu().double())
+        return out
+
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        cpu, card = grads("cpu"), grads(cuda_device)
+    for g in (*card, cpu[1]):  # the f32 sums in another order: 1e-5 of the norm
+        assert float((g - cpu[0]).norm() / cpu[0].norm()) < 1e-4

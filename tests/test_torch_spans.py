@@ -237,3 +237,41 @@ def test_every_record_function_in_the_helper():
                                               and n.name == "record_function"):
                 found.append(str(p.relative_to(PKG.parent)))
     assert found and set(found) == {str(HELPER.relative_to(PKG.parent))}, found
+
+
+def test_a_span_inside_one_of_its_name_adds_no_record():
+    """The profiler gives a range the device time from its first kernel to
+    its last, so a range nested in one of its own name would count the
+    inner kernels twice (K3/K4's backward inside K2's): it is not opened."""
+    def work():
+        with spans.span("naf.attention.backward"):
+            with spans.span("naf.attention.backward"):
+                with spans.span("inner"):
+                    pass
+        with spans.span("naf.attention.backward"):
+            pass
+
+    recs, _ = _profiled(work)
+    assert [r.name for r in recs] == ["naf.attention.backward", "inner",
+                                      "naf.attention.backward"]
+    assert recs[1].parent is recs[0] and recs[2].parent is None
+
+
+def test_attention_backward_span_under_the_trainers_backward():
+    """K3/K4's custom Function (the "pallas" attention runs its plain
+    versions on the CPU) opens ``naf.attention.backward`` in its backward,
+    nested under ``naf.backward``."""
+    torch.manual_seed(0)
+    model = NAF(dim=32, heads_attn=2, heads_rope=2, kernel_size=3, na_impl="pallas")
+    opt = torch.optim.AdamW(model.parameters(), lr=1e-3)
+
+    def backbone(x):  # (B, H, W, 3) -> (B, H/8, W/8, 12)
+        return x[:, ::8, ::8].repeat(1, 1, 1, 4)
+
+    step = make_train_step(model, backbone, opt, use_bf16=False)
+    image = torch.rand(1, 64, 64, 3)
+    recs, events = _profiled(lambda: step(image, image, 0, (32, 32), (8, 8), (32, 32)))
+    assert [r.name for r in recs if r.parent is None] == TRAINER
+    back = [r for r in recs if r.name == "naf.attention.backward"]
+    assert len(back) == 1 and back[0].parent.name == "naf.backward"
+    assert "naf.attention.backward" in events
