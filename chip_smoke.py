@@ -281,11 +281,24 @@ Phase 23 runs after phase 2, before phase 3:
    + 1e-5 max|ref|), tables to 1e-6, one launch a call; its device time
    beside the plain version's and the bound.
 
+Phase 24 runs after phase 23, before phase 3:
+
+24. the stem kernel (``encoder_fused.stem_conv_fused``: a stack's stem conv,
+   bias, io-dtype roundings and the first GroupNorm's channel sums in one
+   launch) against its plain version (``_stem_conv`` + ``_channel_sums``,
+   TF32 off) at the cells' shapes (448^2, 448^2 at batch 8, 2048^2; bf16, F
+   128, k 1 and 3): y within one rounding at each of its two rounding
+   points and equal on >= 99.9% of its elements, the sums and per-tile
+   partials of its own y to 1e-5 of the sums of magnitudes, one launch a
+   call; both stacks' device time beside the bound and the plain glue it
+   replaces (cuDNN's TF32 on, as the port served it).
+
 Prints a JSON line of per-kernel numbers (``launches_bench`` on K1-K5: the
 launches of phase 20's rows; ``launches_quality`` on K1-K4: phase 21's;
 ``launches_spatial_train`` on K1-K4: phase 17's spatial train steps;
 ``launches_headline`` on K1-K6: phase 22's fields; the keys kernel's
-launches from phase 3, its error and times from phase 23),
+launches from phase 3, its error and times from phase 23; the stem
+kernel's launches from phase 3, its error and times from phase 24),
 the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``. Exits non-zero on any failure,
 and when no CUDA device is present. Imports nothing of JAX.
@@ -629,9 +642,125 @@ def phase_keys(dev, card):
     return res
 
 
+# (batch, side) of the stem kernel's shapes: the inference cells' 448^2 guide,
+# the denoiser's batch of 8 at 448^2, and the 2048^2 guide
+STEM_SHAPES = {"448": (1, 448), "448_b8": (8, 448), "2048": (1, 2048)}
+
+
+def _spacing(v, dtype):
+    """The io dtype's rounding step at |v| (bf16: 8 significant bits)."""
+    bits = {torch.bfloat16: 8, torch.float32: 24}[dtype]
+    m = v.abs().clamp_min(torch.finfo(torch.float32).tiny)
+    return torch.exp2(torch.floor(torch.log2(m)) - (bits - 1))
+
+
+def stem_check(label, x, weight, bias):
+    """The stem kernel on CUDA tensors against its plain version on the same
+    inputs, cuDNN's TF32 off. bf16: y within one rounding step at each of
+    its two rounding points (the f32 conv's, and y's after the bias add)
+    and equal on >= 99.9% of its elements; f32: within (3k^2 + 1) 2^-24 of
+    the sum of the terms' magnitudes of a float64 conv. The sums and the
+    per-tile partials against those of the kernel's own y, in float64, to
+    1e-5 of the sums of magnitudes. One launch. Returns (max abs err of y,
+    share of y equal, worst sums error as a share of its bar)."""
+    from naf_torch.kernels import encoder_fused as ef
+
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        before = ef.stem_conv_fused.launches
+        y, part = ef._launch_stem_tiles(x, weight, bias)
+        torch.cuda.synchronize()
+        if ef.stem_conv_fused.launches - before != 1:
+            raise AssertionError(f"stem {label}: {ef.stem_conv_fused.launches - before} launches")
+        conv = ef._conv_nhwc(x, weight)
+        want = (conv.to(x.dtype) + bias.to(x.dtype)).float()
+        err = (y.float() - want).abs()
+        if x.dtype == torch.bfloat16:
+            bar = _spacing(conv, x.dtype) + _spacing(want, x.dtype)
+        else:
+            k = weight.shape[-1]
+            want = (ef._conv_nhwc(x.double(), weight.double()) + bias.double()).float()
+            err = (y - want).abs()
+            mag = ef._conv_nhwc(x.double().abs(), weight.double().abs()) + bias.double().abs()
+            bar = ((3 * k * k + 1) * 2.0 ** -24 * mag).float()
+        del conv
+        worst = float((err / bar).max())
+        same = float((err == 0).double().mean())
+        if worst > 1.0 or (x.dtype == torch.bfloat16 and same < 0.999):
+            raise AssertionError(f"stem {label}: y {worst:.3f} of its bar, {same:.5f} equal")
+        # [sum |y|, sum y^2] is the magnitude of [sum y, sum y^2]
+        yd = y.double()
+        tiles, tile_mags = ef.stem_tile_sums_ref(yd), ef.stem_tile_sums_ref(yd.abs())
+        sum_share = max(
+            float(((part.sum(dim=1).double() - tiles.sum(dim=1)).abs()
+                   / (1e-5 * tile_mags.sum(dim=1) + 1e-30)).max()),
+            float(((part.double() - tiles).abs() / (1e-5 * tile_mags + 1e-30)).max()))
+        if sum_share > 1.0:
+            raise AssertionError(f"stem {label}: sums {sum_share:.3f} of their 1e-5 bar")
+        return float(err.max()), same, sum_share
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+
+
+def phase_stem(dev, card):
+    """Phase 24: the stem kernel (both stacks' stems, F 128, k 1 and 3, bf16,
+    NAF's init scale) at STEM_SHAPES through :func:`stem_check`; its device
+    time per forward (torch.profiler: the kernel, and the wrapper's whole
+    work with its sum over tiles) beside the bound, max(bytes / peak
+    bandwidth, FLOPs / f32 peak) per stack with the image read once and y
+    and the partials written once, and beside the plain glue it replaces,
+    timed as the port served it (cuDNN's TF32 on)."""
+    from naf_torch.kernels.encoder_fused import stem_conv_fused, stem_conv_ref
+
+    bw_peak = _peaks(card)[0]
+    gen = torch.Generator(device=dev).manual_seed(24)
+    f = 128
+    stems = [(k, (torch.randn(f, 3, k, k, generator=gen, device=dev) * (3 * k * k) ** -0.5)
+              .bfloat16(), (torch.randn(f, generator=gen, device=dev) * 0.1).bfloat16())
+             for k in (1, 3)]
+    res = {}
+    for label, (b, side) in STEM_SHAPES.items():
+        x = torch.randn(b, side, side, 3, generator=gen, device=dev).bfloat16()
+        checks = [stem_check(f"{label} k{k}", x, w, bias) for k, w, bias in stems]
+        both = lambda: [stem_conv_fused(x, w, bias) for _, w, bias in stems]  # noqa: E731
+        plain = lambda: [stem_conv_ref(x, w, bias) for _, w, bias in stems]  # noqa: E731
+        kernel_ms = _kernel_ms(both, "stem_conv_kernel", reps=20)
+        ms = _kernel_ms(both, None, reps=20)
+        tf32 = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            plain_ms = _kernel_ms(plain, None, reps=5)
+        finally:
+            torch.backends.cudnn.allow_tf32 = tf32
+        tiles = -(-side // 8) * -(-side // 16)
+        bound = 0.0
+        flops_all = nbytes_all = 0
+        for k, _, _ in stems:
+            nbytes = 2 * b * side * side * (3 + f) + 4 * b * tiles * 2 * f
+            flops = 2 * b * side * side * f * 3 * k * k
+            bound += max(nbytes / bw_peak, flops / F32_FLOPS) * 1e3
+            flops_all += flops
+            nbytes_all += nbytes
+        res[label] = dict(max_abs_err=max(c[0] for c in checks),
+                          share_equal=min(c[1] for c in checks),
+                          sums_bar_share=max(c[2] for c in checks), ms=ms,
+                          kernel_ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound,
+                          bound_by="operations" if flops_all / F32_FLOPS > nbytes_all / bw_peak
+                          else "bytes", library_ms=None)
+        print(f"stem kernel {label} ({b} x {side}^2 x 3 -> 2 x {f}, k 1 and 3, bf16): y max abs "
+              f"err {res[label]['max_abs_err']:.3e}, {res[label]['share_equal']:.5%} equal to "
+              f"the plain y; sums {res[label]['sums_bar_share']:.3f} of their bar; both stems "
+              f"{ms:.4f} ms (kernels {kernel_ms:.4f}), bound {bound:.4f} ms "
+              f"({bound / kernel_ms:.1%}); plain glue {plain_ms:.4f} ms ({card})", flush=True)
+        del x
+        torch.cuda.empty_cache()
+    return res
+
+
 def phase_main(dev, card):
     from naf_torch import NAFUpsampler, load_naf_params
-    from naf_torch.kernels.encoder_fused import gn_silu_conv_fused
+    from naf_torch.kernels.encoder_fused import gn_silu_conv_fused, stem_conv_fused
     from naf_torch.kernels.na2d_fused_q import naf_upsample_attention
     from naf_torch.kernels.rope_keys import rope_keys
 
@@ -646,19 +775,19 @@ def phase_main(dev, card):
     _zero_counts()
     for image, feats, out in inputs:
         k1, k2 = gn_silu_conv_fused.launches, naf_upsample_attention.launches
-        kk = rope_keys.launches
+        kk, ks = rope_keys.launches, stem_conv_fused.launches
         o = ups(image, feats, out)
         if (gn_silu_conv_fused.launches - k1, naf_upsample_attention.launches - k2,
-                rope_keys.launches - kk) != (8, 1, 1):
-            raise AssertionError("a forward did not launch K1 8 times, K2 once and the keys "
-                                 "kernel once")
+                rope_keys.launches - kk, stem_conv_fused.launches - ks) != (8, 1, 1, 2):
+            raise AssertionError("a forward did not launch K1 8 times, K2 once, the keys "
+                                 "kernel once and the stem kernel twice")
         outs.append(o)
     torch.cuda.synchronize()
     launches = {"k1": gn_silu_conv_fused.launches, "k2": naf_upsample_attention.launches,
                 "k2_wgmma": naf_upsample_attention.route_launches["wgmma"],
-                "keys": rope_keys.launches}
+                "keys": rope_keys.launches, "stem": stem_conv_fused.launches}
     if launches != {"k1": 8 * len(reqs), "k2": len(reqs), "k2_wgmma": len(reqs),
-                    "keys": len(reqs)}:
+                    "keys": len(reqs), "stem": 2 * len(reqs)}:
         raise AssertionError(f"launch counts {launches}: every bf16 K2 on the wgmma route")
     for (image, feats, out), o in zip(inputs, outs):
         if o.shape != (1, 384, *out) or o.dtype != torch.bfloat16 or not bool(o.isfinite().all()):
@@ -1081,12 +1210,17 @@ def _all_counts() -> dict:
 
 def _zero_counts():
     from naf_torch.kernels.adaptive_conv_fused import adaptive_conv_fused
-    from naf_torch.kernels.encoder_fused import gn_silu_conv_dual_fused, gn_silu_conv_fused
+    from naf_torch.kernels.encoder_fused import (
+        gn_silu_conv_dual_fused,
+        gn_silu_conv_fused,
+        stem_conv_fused,
+    )
     from naf_torch.kernels.na2d_fused import cross_scale_na2d_fused
     from naf_torch.kernels.na2d_fused_q import naf_upsample_attention
     from naf_torch.kernels.rope_keys import rope_keys
 
     gn_silu_conv_fused.launches = naf_upsample_attention.launches = rope_keys.launches = 0
+    stem_conv_fused.launches = 0
     naf_upsample_attention.route_launches = dict.fromkeys(naf_upsample_attention.route_launches, 0)
     cross_scale_na2d_fused.launches = cross_scale_na2d_fused.bwd_launches = 0
     cross_scale_na2d_fused.route_launches = dict.fromkeys(cross_scale_na2d_fused.route_launches, 0)
@@ -1424,7 +1558,7 @@ BASELINES = ("FeatUp", "JBU", "AnyUp", "JAFAR", "JBF", "Bilinear", "Nearest", "N
 # launches per forward on the baselines path; every other count stays
 BASELINE_LAUNCHES = {"FeatUp": {"k5": 4, "k5_wide": 4}, "JBU": {"k5": 1, "k5_narrow": 1},
                      "AnyUp": {"k3": 1},
-                     "NAF": {"k1": 8, "k2": 1, "k2_fma": 1, "keys": 1}}
+                     "NAF": {"k1": 8, "k2": 1, "k2_fma": 1, "keys": 1, "stem": 2}}
 RESTORERS = ("JBU", "JBF")  # forward(image_norm, image, output_size)
 
 
@@ -3873,6 +4007,7 @@ def main() -> int:
     k1_err = phase_k1(dev)
     k2_err, k2_cos = phase_k2(dev)
     keys = phase_keys(dev, card)
+    stem = phase_stem(dev, card)
     launches, stats, c96, guide_peak = phase_main(dev, card)
     phase_grads(dev)
     k34_err = phase_k34(dev)
@@ -3978,6 +4113,17 @@ def main() -> int:
              launches=launches["keys"], **keys["448"],
              **{f"{k}_{label}": v for label in ("448to2048", "2048")
                 for k, v in keys[label].items() if k != "library_ms"}))
+    kernels.append(
+        # the stem kernel: launches from the main path (2 per forward), error
+        # and times at 448^2 (phase 24), the other cells' shapes suffixed; it
+        # replaces no TPU kernel (the JAX package's stem is plain XLA)
+        dict(name="stem_conv_fused", route="cuda", source="naf_torch/kernels/csrc/encoder_fused.cu",
+             replaces=None,
+             jax_counterpart="naf_tpu/kernels/encoder_fused.py:683-689,715 (plain XLA "
+                             "_stem_conv_matmul + _channel_sums)",
+             launches=launches["stem"], **stem["448"],
+             **{f"{k}_{label}": v for label in ("448_b8", "2048")
+                for k, v in stem[label].items() if k != "library_ms"}))
     kernels[0]["launches_banded_encoder"] = banded["streamed_encoder"]["launches_k1"]
     # phase 17: both ranks' sharded forwards (8 K1 and 1 K2 on each rank)
     kernels[0]["launches_parallel"] = par_launches["k1"]

@@ -9,7 +9,10 @@ kernel (``csrc/encoder_fused.cu``):
 where scale/shift fold the GroupNorm normalisation and affine into a
 per-sample, per-channel multiply-add, finalised from the previous layer's
 channel sums by :func:`_gn_affine`, so GroupNorm never takes a pass over the
-activations. The stem conv and the first channel sums stay torch glue.
+activations. Each stack's stem (3 -> F) is one launch of a second kernel in
+the same library, :func:`stem_conv_fused`: the conv, its bias and the io-dtype
+roundings, with the first GroupNorm's channel sums on K1's own tiles. The
+JAX package computes the stem as plain XLA; that kernel replaces none.
 
 :func:`encoder_stack_fused_packed` runs the pixel (k=1) and semantic (k=3)
 stacks and has each stack's last layer write its half of one
@@ -53,6 +56,9 @@ __all__ = [
     "encoder_stack_fused_packed",
     "encoder_stack_ref",
     "pack_weights_tc",
+    "stem_conv_fused",
+    "stem_conv_ref",
+    "stem_tile_sums_ref",
     "tile_plan",
 ]
 
@@ -225,6 +231,8 @@ def _lib():
     lib.naf_gn_silu_conv_fma.restype = i32
     lib.naf_gn_silu_conv_wgmma.argtypes = [ptr] * 7 + [i32] * 9 + [ptr]
     lib.naf_gn_silu_conv_wgmma.restype = i32
+    lib.naf_stem_conv.argtypes = [ptr] * 5 + [i32] * 6 + [ptr]
+    lib.naf_stem_conv.restype = i32
     return lib
 
 
@@ -351,6 +359,107 @@ def gn_silu_conv_fused(x, scale, shift, weight, bias):
 gn_silu_conv_fused.launches = 0
 
 
+def stem_conv_ref(x, weight, bias):
+    """Plain version of the stem kernel: (y (B,H,W,F) in x's dtype, psums
+    (B,2,F) f32 of that rounded y), by :func:`_stem_conv` and
+    :func:`_channel_sums`."""
+    y = _stem_conv(x, weight, bias)
+    return y, _channel_sums(y)
+
+
+def stem_tile_sums_ref(y):
+    """What the stem kernel writes before its wrapper sums the tiles: f32
+    [sum, sum of squares] of y (B,H,W,F) over each tile of
+    :func:`tile_plan`, tiles row-major, (B, tiles, 2, F), in f32 or, for a
+    float64 y, in float64."""
+    b, h, w, f = y.shape
+    tiles_h, tiles_w, _, _ = tile_plan(h, w, 1)
+    yf = F.pad(y.to(torch.promote_types(y.dtype, torch.float32)),
+               (0, 0, 0, tiles_w * TILE[1] - w, 0, tiles_h * TILE[0] - h))
+    t = yf.reshape(b, tiles_h, TILE[0], tiles_w, TILE[1], f)
+    sums = torch.stack([t.sum(dim=(2, 4)), (t * t).sum(dim=(2, 4))], dim=3)
+    return sums.reshape(b, tiles_h * tiles_w, 2, f)
+
+
+def _stem_shape_error(x_shape, weight_shape, bias_shape, contiguous: bool = True):
+    """Why the stem kernel cannot take these operands, or None: a contiguous
+    NHWC image of 3 channels, an (F, 3, k, k) weight with k in {1, 3}, an
+    (F,) bias, and H, W >= 2 where k = 3 (reflect padding)."""
+    if len(x_shape) != 4 or not contiguous:
+        return "the stem kernel takes a contiguous NHWC image"
+    _, h, w, c = x_shape
+    if c != 3:
+        return f"the stem kernel takes 3 image channels, got {c}"
+    if len(weight_shape) != 4 or tuple(weight_shape[1:]) not in ((3, 1, 1), (3, 3, 3)):
+        return f"weight {tuple(weight_shape)} must be (F, 3, k, k) with k in (1, 3)"
+    if tuple(bias_shape) != (weight_shape[0],):
+        return f"bias {tuple(bias_shape)} must be ({weight_shape[0]},)"
+    if weight_shape[-1] == 3 and min(h, w) < 2:
+        return "reflect padding needs H, W >= 2"
+    return None
+
+
+def _launch_stem_tiles(x, weight, bias):
+    """Launch the stem kernel on CUDA tensors: (y, its per-tile partials
+    (B, tiles, 2, F)). F not a multiple of 8 runs on weights and a bias
+    zero-padded to one (16-byte stores), then is sliced back."""
+    if x.device.type != "cuda":
+        raise ValueError(f"the stem kernel launches on CUDA tensors, got {x.device}")
+    io_bf16 = _route(x.dtype) == "wgmma"
+    err = _stem_shape_error(x.shape, weight.shape, bias.shape, x.is_contiguous())
+    if err:
+        raise ValueError(err)
+    if weight.device != x.device or bias.device != x.device:
+        raise ValueError("all stem inputs must be on one device")
+    f, k = weight.shape[0], weight.shape[-1]
+    if f % 8:
+        pf = -f % 8
+        y, part = _launch_stem_tiles(x, F.pad(weight, (0, 0, 0, 0, 0, 0, 0, pf)),
+                                     F.pad(bias, (0, pf)))
+        return y[..., :f].contiguous(), part[..., :f]
+    b, h, w, _ = x.shape
+    # in the io dtype, as K1's weights; the model's forward casts its inputs
+    # to its parameters' dtype, so this copies nothing there. The bias rounds
+    # to it in _stem_conv too.
+    weight = weight.to(x.dtype).contiguous()
+    bias = bias.to(x.dtype).contiguous()
+    lib = _lib()
+    y = torch.empty((b, h, w, f), dtype=x.dtype, device=x.device)
+    part = torch.empty((b, lib.naf_gn_silu_conv_tiles(h, w), 2, f), dtype=torch.float32,
+                       device=x.device)
+    with torch.cuda.device(x.device):
+        err = lib.naf_stem_conv(x.data_ptr(), weight.data_ptr(), bias.data_ptr(), y.data_ptr(),
+                                part.data_ptr(), b, h, w, f, k, int(io_bf16),
+                                torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"stem kernel launch failed: cudaError {err}")
+    stem_conv_fused.launches += 1
+    return y, part
+
+
+def _launch_stem(x, weight, bias):
+    """The stem kernel: (y, psums (B,2,F)), its tiles summed as K1's are."""
+    y, part = _launch_stem_tiles(x, weight, bias)
+    return y, part.sum(dim=1)
+
+
+def stem_conv_fused(x, weight, bias):
+    """The encoder's stem: (y (B,H,W,F) in x's dtype, psums (B,2,F) f32 of
+    that rounded y), for x (B,H,W,3) f32/bf16, weight (F,3,k,k) with k in
+    {1,3} and bias (F,). CPU tensors take :func:`stem_conv_ref`; CUDA
+    tensors launch the stem kernel (count in ``stem_conv_fused.launches``),
+    inference-only: the stacks' gradient is their plain twin's."""
+    if x.device.type == "cpu":
+        return stem_conv_ref(x, weight, bias)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, weight, bias)):
+        raise NotImplementedError("the stem kernel is inference-only; differentiate "
+                                  "encoder_stack_fused_packed instead")
+    return _launch_stem(x, weight, bias)
+
+
+stem_conv_fused.launches = 0
+
+
 def gn_silu_conv_dual_ref(x, scale, shift, wp, ws, bp, bs):
     """Plain version of K6: one packed dual-stack layer. x (B,H,W,2C) is
     [pix|sem]; scale/shift (B,2C) or (2C,) f32; wp (C,C,1,1) the pixel
@@ -475,12 +584,12 @@ def _stack_spec(encoder):
     return (encoder.num_layers, encoder.num_groups, encoder.eps)
 
 
-def _run_stack(x, params, spec, layer, out=None, out_off=0):
-    """Stem + 2*num_layers fused layers; ``layer`` is K1's launch or the
-    plain version. The last layer writes into ``out`` when given."""
+def _run_stack(x, params, spec, stem, layer, out=None, out_off=0):
+    """Stem + 2*num_layers fused layers; ``stem`` is the stem kernel's
+    launch or its plain version, ``layer`` K1's launch or its plain
+    version. The last layer writes into ``out`` when given."""
     num_layers, num_groups, eps = spec
-    y = _stem_conv(x, params[0], params[1])
-    ps = _channel_sums(y)
+    y, ps = stem(x, params[0], params[1])
     hw = x.shape[1] * x.shape[2]
     n_lay = 2 * num_layers
     for li in range(n_lay):
@@ -508,7 +617,7 @@ def _split(params, specs):
 
 
 def _stacks_ref(x, params, specs):
-    outs = [_run_stack(x, p, spec, _ref_layer)
+    outs = [_run_stack(x, p, spec, stem_conv_ref, _ref_layer)
             for p, spec in zip(_split(params, specs), specs)]
     return outs[0] if len(outs) == 1 else torch.cat(outs, dim=-1)
 
@@ -613,9 +722,10 @@ def _twin_grads(saved, needs, specs, g):
 
 
 class _FusedStacks(torch.autograd.Function):
-    """One or more encoder stacks on K1; with several, their outputs are
-    packed side by side in one buffer by the last layer of each. With
-    ``dual``, the pixel and semantic stacks run as one packed stack on K6.
+    """One or more encoder stacks, each a stem kernel launch and K1 per
+    layer; with several, their outputs are packed side by side in one
+    buffer by the last layer of each. With ``dual``, the pixel and semantic
+    stacks run as one packed stack on K6 (after the merged plain stem).
     The backward differentiates the plain per-stack twin on either route,
     as the JAX package's ``_packed_vjp_bwd`` does."""
 
@@ -631,7 +741,7 @@ class _FusedStacks(torch.autograd.Function):
         out = torch.empty((b, h, w, sum(hidden)), dtype=x.dtype, device=x.device)
         off = 0
         for p, spec, hd in zip(stacks, specs, hidden):
-            _run_stack(x, p, spec, _launch, out, off)
+            _run_stack(x, p, spec, _launch_stem, _launch, out, off)
             off += hd
         return out
 
