@@ -27,9 +27,10 @@ and narrow routes (none in either fails), then, each phase on its own lines:
    256) and a one-head dv 3 (``K2_SHAPES``);
 3. the main path: ``NAFUpsampler`` with seeded random bf16 weights at the
    production config serves three 448^2 requests and one 448^2 -> 2048^2
-   request, with launch counters showing 8 K1, 1 K2 and 1 keys-kernel
-   launches per forward
-   (every bf16 K2 launch on the tensor-core route, here and in phases 10-12);
+   request, with launch counters showing 8 K1, 1 K2, 1 keys-kernel and 2
+   stem-kernel launches per forward and no K6 (the kernels line's K6
+   launches)
+   (every bf16 K2 launch on the tensor-core route, here and in phases 10 and 12);
    its output is held against the modular path (plain attention oracle) on
    the card and against an f32 copy of the model on the CPU (cosine > 0.999);
    a torch.profiler breakdown of device time per forward by kernel, with
@@ -105,22 +106,18 @@ and narrow routes (none in either fails), then, each phase on its own lines:
    448^2 -> 2048^2 (forward + twin backward: every kernel, K3 + K4, queued,
    and the call's own peak memory).
 
-Phases 9-12 run after phase 4:
+Phases 9, 10 and 12 run after phase 4:
 
 9. K6 (both encoder stacks' layer over the packed [pix|sem] buffer) against
    its plain version at the production layer (1, 448, 448, 256), C = 128 per
    stack, once at batch 2, at 2048^2 and at a band (1, 262, 452, 256), and at
    448^2 with C = 48 and 96 per stack: f32
-   atol = rtol = 2e-4, bf16 cosine > 0.9995 against the f32 plain version;
+   atol = rtol = 2e-4, bf16 cosine > 0.9995 against the f32 plain version
+   (these launches are the kernels line's K6 ``check_launches``);
 10. the banded variants against their plain versions at one interior band:
    K2 at 448^2 -> 2048^2 <- 128^2 (a slab, and ``out_acc`` + ``enc_banded``
    leaving every other row untouched) and K3 at 448^2 <- 28^2, same bars,
    and their bf16 times beside the plain versions';
-11. the dual route: ``DUAL_ROUTE`` on, ``NAFUpsampler`` (bf16, production
-   config) serves 3 x 448^2, one 448^2 -> 2048^2 and one 2048^2 + 128^2 x 384
-   -> 2048^2 request with 4 K6, 0 K1 and 1 K2 launches per forward, each at
-   cosine > 0.999 to the default route; ms per forward of both routes, in
-   turns, and each forward's own peak memory;
 12. the banded paths, each against the unbanded forward on the card (cosine
    > 0.999) with its launch counts, time and own peak memory beside the
    unbanded forward's: ``NAF(band_rows=256)`` at 448^2 + 128^2 x 384 ->
@@ -760,7 +757,11 @@ def phase_stem(dev, card):
 
 def phase_main(dev, card):
     from naf_torch import NAFUpsampler, load_naf_params
-    from naf_torch.kernels.encoder_fused import gn_silu_conv_fused, stem_conv_fused
+    from naf_torch.kernels.encoder_fused import (
+        gn_silu_conv_dual_fused,
+        gn_silu_conv_fused,
+        stem_conv_fused,
+    )
     from naf_torch.kernels.na2d_fused_q import naf_upsample_attention
     from naf_torch.kernels.rope_keys import rope_keys
 
@@ -785,10 +786,12 @@ def phase_main(dev, card):
     torch.cuda.synchronize()
     launches = {"k1": gn_silu_conv_fused.launches, "k2": naf_upsample_attention.launches,
                 "k2_wgmma": naf_upsample_attention.route_launches["wgmma"],
-                "keys": rope_keys.launches, "stem": stem_conv_fused.launches}
+                "keys": rope_keys.launches, "stem": stem_conv_fused.launches,
+                "k6": gn_silu_conv_dual_fused.launches}
     if launches != {"k1": 8 * len(reqs), "k2": len(reqs), "k2_wgmma": len(reqs),
-                    "keys": len(reqs), "stem": 2 * len(reqs)}:
-        raise AssertionError(f"launch counts {launches}: every bf16 K2 on the wgmma route")
+                    "keys": len(reqs), "stem": 2 * len(reqs), "k6": 0}:
+        raise AssertionError(f"launch counts {launches}: every bf16 K2 on the wgmma route, "
+                             "no K6")
     for (image, feats, out), o in zip(inputs, outs):
         if o.shape != (1, 384, *out) or o.dtype != torch.bfloat16 or not bool(o.isfinite().all()):
             raise AssertionError(f"bad output {tuple(o.shape)} {o.dtype} for {out}")
@@ -2082,11 +2085,14 @@ def _k6_inputs(dev, gen, b, h=448, w=448, c=128):
 
 
 def phase_k6(dev):
+    """K6 against its plain version; returns the largest f32 error and
+    K6's launches."""
     from naf_torch.kernels.encoder_fused import gn_silu_conv_dual_fused, gn_silu_conv_dual_ref
 
     gen = torch.Generator(device=dev).manual_seed(10)
     errs = {}
-    # the production layer at batch 1 and 2, the dual route's 2048^2 guide,
+    launches = gn_silu_conv_dual_fused.launches
+    # the production layer at batch 1 and 2, a 2048^2 guide,
     # and a band of 256 + 2 x 3 halo rows of a 452-wide image
     # and the production shape at C = 48 (the tensor-core kernel's N = 64)
     # and 96 (a partial N = 128) per stack
@@ -2112,7 +2118,7 @@ def phase_k6(dev):
               f"bf16 cos y {cy:.6f} psums {cp:.6f}", flush=True)
         del x, yb, psb, y_ref, ps_ref
     torch.cuda.empty_cache()
-    return max(errs.values())
+    return max(errs.values()), gn_silu_conv_dual_fused.launches - launches
 
 
 def phase_banded_kernels(dev):
@@ -2273,75 +2279,6 @@ def _peak_by_frame(fn, top: int = 5):
     ranked = sorted(groups.items(), key=lambda kv: -kv[1][0])
     return (peak / 2**20, sum(s for s, _ in groups.values()) / 2**20,
             [(k, s / 2**20, n) for k, (s, n) in ranked[:top]])
-
-
-def phase_dual(dev, card):
-    """The main path with DUAL_ROUTE on: every forward's encoder on K6 (4
-    launches) and no K1, held against the default route."""
-    import naf_torch.kernels.encoder_fused as ef
-    from naf_torch import NAFUpsampler
-
-    ups = NAFUpsampler(seed=0, device=dev, dtype=torch.bfloat16)
-    gen = torch.Generator(device=dev).manual_seed(12)
-    reqs = [(448, 28, 448)] * 3 + [(448, 28, 2048), (2048, 128, 2048)]
-    inputs = [(torch.randn(1, 3, im, im, generator=gen, device=dev),
-               torch.randn(1, 384, lr, lr, generator=gen, device=dev), (out, out))
-              for im, lr, out in reqs]
-    dual = []
-    try:
-        ef.DUAL_ROUTE = True
-        torch.cuda.synchronize()
-        _zero_counts()
-        for image, feats, out in inputs:
-            before = _all_counts()
-            dual.append(ups(image, feats, out))
-            after = _all_counts()
-            delta = {k: after[k] - before[k] for k in after}
-            if (delta["k6"], delta["k1"], delta["k2"], delta["k2_wgmma"]) != (4, 0, 1, 1):
-                raise AssertionError(f"dual route forward launched {delta}, want K6 4, K1 0, K2 1 "
-                                     "(wgmma)")
-        torch.cuda.synchronize()
-        launches = _all_counts()
-    finally:
-        ef.DUAL_ROUTE = False
-    print(f"dual route: 3 x 448^2, 448^2 -> 2048^2 and 2048^2 -> 2048^2 <- 128^2 served; "
-          f"launches {launches}", flush=True)
-    coss = []
-    for (image, feats, out), o in zip(inputs, dual):
-        o_def = ups(image, feats, out)
-        coss.append(_check_cos(f"dual vs default route {image.shape[-1]}^2 -> {out[0]}^2",
-                               o.float(), o_def.float(), 0.999))
-        del o_def
-    del dual
-
-    def timed(route, fn, iters):
-        ef.DUAL_ROUTE = route
-        try:
-            return _time_ms(fn, iters=iters)
-        finally:
-            ef.DUAL_ROUTE = False
-
-    def peak(route, fwd):
-        ef.DUAL_ROUTE = route
-        try:
-            return _peak_mib(fwd)
-        finally:
-            ef.DUAL_ROUTE = False
-
-    ms, peaks = {}, {}
-    for label, (image, feats, out), iters in (("448", inputs[0], 10), ("2048", inputs[4], 3)):
-        fwd = lambda: ups(image, feats, out)
-        # in turns: default, dual, dual, default
-        t = [timed(r, fwd, iters) for r in (False, True, True, False)]
-        ms[label] = {"default": (t[0] + t[3]) / 2, "dual": (t[1] + t[2]) / 2}
-        peaks[label] = {"default": peak(False, fwd), "dual": peak(True, fwd)}
-        print(f"forward {image.shape[-1]}^2 -> {out[0]}^2 bf16: default route "
-              f"{ms[label]['default']:.3f} ms ({t[0]:.3f}, {t[3]:.3f}), peak "
-              f"{peaks[label]['default']:.1f} MiB; dual route {ms[label]['dual']:.3f} ms "
-              f"({t[1]:.3f}, {t[2]:.3f}), peak {peaks[label]['dual']:.1f} MiB ({card})",
-              flush=True)
-    print("dual vs default route cosines: " + ", ".join(f"{c:.6f}" for c in coss), flush=True)
-    return launches, dict(ms=ms, peak_mib=peaks, cos=coss)
 
 
 def _k2_band_check(label, model, image, feats, out, band_rows, enc_banded, got):
@@ -4011,9 +3948,8 @@ def main() -> int:
     launches, stats, c96, guide_peak = phase_main(dev, card)
     phase_grads(dev)
     k34_err = phase_k34(dev)
-    k6_err = phase_k6(dev)
+    k6_err, k6_launches = phase_k6(dev)
     k2_band, k3_band = phase_banded_kernels(dev)
-    dual_launches, dual = phase_dual(dev, card)
     band_launches, banded = phase_banded(dev, card)
     with tempfile.TemporaryDirectory(dir=os.path.dirname(os.path.abspath(__file__))) as work:
         train_launches, train = phase_train(dev, card, work)
@@ -4098,11 +4034,12 @@ def main() -> int:
              ldgsts=ldgsts),
     ]
     kernels.append(
-        # K6: launches from the dual-route main path (4 per forward), times at
-        # the production layer
+        # K6: no route of the program takes it, so the main path launches it
+        # 0 times; phase 9's checks launch it; times at the production layer
         dict(name="gn_silu_conv_dual_fused", route="cuda",
              source="naf_torch/kernels/csrc/encoder_dual.cu",
-             replaces="naf_tpu/kernels/encoder_fused.py:272", launches=dual_launches["k6"],
+             replaces="naf_tpu/kernels/encoder_fused.py:272", launches=launches["k6"],
+             check_launches=k6_launches,
              max_abs_err=k6_err, **timing["k6"], hgmma=hgmma["encoder_dual"]))
     kernels.append(
         # the keys kernel: launches from the main path (1 per forward), error
@@ -4176,7 +4113,7 @@ def main() -> int:
                       "peak_frames_2048_guide": guide_peak,
                       "forward_profile": {k: v[2] for k, v in stats.items()},
                       "train": {k: train[k] for k in train_keys},
-                      "baselines": baselines, "k5_splits": k5_splits, "dual_route": dual,
+                      "baselines": baselines, "k5_splits": k5_splits,
                       "banded": banded, "naf_dim96_cos_cpu": c96, "k2_grad": timing["k2_grad"],
                       "denoiser": denoiser, "denoise_plans": den_kernels["plans"],
                       "restorers": restorers, "parallel": parallel, "backbones": backbones,

@@ -26,7 +26,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from naf_torch.models.naf import NAF, band_cells
+from naf_torch.models.naf import NAF, band_cells, band_encoder_rows
 from naf_torch.utils.spans import span, to_device
 
 __all__ = ["naf", "load_naf_params", "NAFUpsampler", "naf_streamed"]
@@ -166,20 +166,14 @@ def _naf_streamed_banded_encoder(model: NAF, image, lr_feats, oh: int, ow: int, 
     if not ienc.use_encoder:
         raise ValueError("stream_encoder needs the image encoder (use_encoder=True)")
     hk, wk = lr_feats.shape[1], lr_feats.shape[2]
-    r_h = oh // hk
-    if (cells_per_band * r_h * hi) % oh:
-        raise ValueError("an attention band does not map to whole encoder rows; adjust "
-                         "band_rows or the image size")
-    eb = cells_per_band * r_h * hi // oh  # encoder rows per band
+    eb = band_encoder_rows(oh, hk, cells_per_band, hi)
     if tuple(image.shape[1:3]) != (hi, wi):
         image = resize_bilinear(image, (hi, wi))
     image = image.contiguous()
     stacks = (ienc.encoder, ienc.sem_encoder)
     stats = [encoder_stack_stats(s, image, band_rows=eb) for s in stacks]
     rope = ienc.rope
-    sin_r, cos_r, sin_c, cos_c = rope.tables(oh, ow)
-    rows_tab = torch.cat([cos_r, sin_r], dim=-1)
-    cols_tab = torch.cat([cos_c, sin_c], dim=-1)
+    rows_tab, cols_tab = rope.k2_tables(oh, ow)
 
     def enc_band(r0):
         return torch.cat([encoder_stack_banded_rows(s, image, r0, eb, st)
@@ -197,7 +191,7 @@ def _naf_streamed_banded_encoder(model: NAF, image, lr_feats, oh: int, ow: int, 
                       device=image.device)
     for c0 in range(0, hk, cells_per_band):
         naf_upsample_attention(
-            enc_band(c0 * r_h * hi // oh), keys, lr_feats, rows_tab, cols_tab, rope.d_head,
+            enc_band(c0 // cells_per_band * eb), keys, lr_feats, rows_tab, cols_tab, rope.d_head,
             num_heads=model.heads_attn, kernel_size=model.kernel_size, row_cell0=c0,
             band_cells=cells_per_band, out_acc=out, enc_banded=True)
     return out

@@ -17,81 +17,47 @@ per image, so each stack is split into
      (K2 with ``enc_banded``) streams encoder bands and the full-resolution
      encoder output never exists.
 
-Halo rule: rows [r0, r1) at depth d need image rows [r0 - H, r1 + H),
-H = k_stem//2 + d*(k_res//2). An interior band edge is not an image edge,
-so the reflect padding of each conv there is wrong; those halo rows are
-computed and then sliced away, and the padding is trusted only where the
-band edge is the image edge.
-
-Every band layer runs through ``gn_silu_conv_fused``: kernel K1 on CUDA
-tensors, its plain version on CPU tensors. Modules are the port's
-``Encoder`` (no residual, convs with biases).
+Each band runs the encoder's one chain (``encoder_fused._chain``), with its
+halo rule and its choice between the kernels (the stem kernel and K1, on
+CUDA tensors, inference-only) and their plain versions. The statistics
+passed between the phases are each layer's input channel sums [sum, sumsq]
+over the whole image, (B, 2, C) f32, which the chain folds into the
+GroupNorm's scale and shift where it reads them. The JAX package passes the
+folded pairs; here the fold stays in the chain, the one place that folds
+GroupNorm statistics, at the price of refolding each layer's (B, C) pair at
+every band call. Modules are the port's ``Encoder`` (no residual, convs
+with biases).
 """
 
 from __future__ import annotations
 
 import torch
 
-from naf_torch.kernels.encoder_fused import (
-    _channel_sums,
-    _gn_affine,
-    _stack_params,
-    _stack_spec,
-    _stem_conv,
-    gn_silu_conv_fused,
-)
+from naf_torch.kernels.encoder_fused import _chain, _channel_sums, _stack_params, _stack_spec
 
 __all__ = ["encoder_stack_stats", "encoder_stack_banded_rows", "encoder_stack_banded"]
 
 
-def _layer_params(encoder):
-    """[(weight, bias, gamma, beta), ...] of the L = 2*num_layers
-    GN -> SiLU -> conv layers, in execution order, and the stem's
-    (weight, bias)."""
-    params = _stack_params(encoder)
-    layers = [(w, b, g, beta) for g, beta, w, b in
-              (params[i : i + 4] for i in range(2, len(params), 4))]
-    return (params[0], params[1]), layers
-
-
-def _band_chain(encoder, x, r0: int, r1: int, depth: int, stats):
-    """Rows [r0, r1) of conv_depth's output (depth 0 is the stem), computed
-    from the image rows the chain needs; ``stats`` holds the (scale, shift)
-    of the ``depth`` GroupNorms the chain passes through."""
-    (stem_w, stem_b), layers = _layer_params(encoder)
-    h = x.shape[1]
-    halo = stem_w.shape[-1] // 2 + depth * (layers[0][0].shape[-1] // 2 if layers else 0)
-    a, b = max(0, r0 - halo), min(h, r1 + halo)
-    y = _stem_conv(x[:, a:b].contiguous(), stem_w, stem_b)
-    for d in range(depth):
-        weight, bias, _, _ = layers[d]
-        scale, shift = stats[d]
-        y, _ = gn_silu_conv_fused(y, scale, shift, weight, bias)
-    return y[:, r0 - a : r1 - a]
-
-
 def encoder_stack_stats(encoder, x, band_rows: int = 512):
-    """Each layer's folded GroupNorm (scale, shift), (B, C) f32 each, in
-    layer order, from banded sweeps of ``band_rows`` image rows: peak memory
-    is one band's activations. x (B, H, W, 3) NHWC."""
-    _, num_groups, eps = _stack_spec(encoder)
-    _, layers = _layer_params(encoder)
-    _, h, w, _ = x.shape
-    stats = []
-    for depth, (_, _, gamma, beta) in enumerate(layers):
-        psums = None
-        for r0 in range(0, h, band_rows):
-            y = _band_chain(encoder, x, r0, min(h, r0 + band_rows), depth, stats)
-            ps = _channel_sums(y)
-            psums = ps if psums is None else psums + ps
-        stats.append(_gn_affine(psums, gamma, beta, h * w, num_groups, eps))
-    return stats
+    """Each layer's GroupNorm statistics, in layer order: the channel sums
+    (B, 2, C) f32 [sum, sumsq] of its input over the whole image, from
+    banded sweeps of ``band_rows`` image rows: peak memory is one band's
+    activations. x (B, H, W, 3) NHWC."""
+    params, spec = _stack_params(encoder), _stack_spec(encoder)
+    h = x.shape[1]
+    sums = []
+    for depth in range(2 * encoder.num_layers):
+        sums.append(sum(_channel_sums(_chain(x, params, spec, (r0, min(h, r0 + band_rows)),
+                                             depth, lambda i, f: sums[i]))
+                        for r0 in range(0, h, band_rows)))
+    return sums
 
 
 def encoder_stack_banded_rows(encoder, x, row0: int, nrows: int, stats):
     """Rows [row0, row0 + nrows) of the stack's output, from the image and
     ``stats`` (:func:`encoder_stack_stats`)."""
-    return _band_chain(encoder, x, row0, row0 + nrows, 2 * encoder.num_layers, stats)
+    return _chain(x, _stack_params(encoder), _stack_spec(encoder), (row0, row0 + nrows),
+                  stats=lambda i, f: stats[i])
 
 
 def encoder_stack_banded(encoder, x, band_rows: int = 512):

@@ -16,10 +16,13 @@ JAX package computes the stem as plain XLA; that kernel replaces none.
 
 :func:`encoder_stack_fused_packed` runs the pixel (k=1) and semantic (k=3)
 stacks and has each stack's last layer write its half of one
-(B, H, W, 2*hidden) buffer, so the pix|sem concat never happens. With
-:data:`DUAL_ROUTE` set it runs them as one packed stack instead: one merged
-stem conv, then one launch of kernel K6 (``csrc/encoder_dual.cu``) per layer
-computing both stacks' layers over the packed buffer.
+(B, H, W, 2*hidden) buffer, so the pix|sem concat never happens. Every
+encoder route (the whole stacks, a spatial band in ``parallel``, the banded
+encoder of ``encoder_banded``) runs one chain, :func:`_chain`, which decides
+in one place between the kernels and their plain versions. Kernel K6
+(``csrc/encoder_dual.cu``: both stacks' layer over a packed [pix|sem]
+buffer in one launch) is the counterpart of the JAX package's dual kernel;
+it lost to the K1 pair on the card and no route of the encoder takes it.
 
 Every function has a plain PyTorch version beside it (``*_ref``). The
 wrappers take it for CPU tensors only; for CUDA tensors they launch the
@@ -46,7 +49,6 @@ from naf_torch.kernels import _build
 from naf_torch.utils.spans import span, to_device
 
 __all__ = [
-    "DUAL_ROUTE",
     "gn_silu_conv_fused",
     "gn_silu_conv_ref",
     "gn_silu_conv_dual_fused",
@@ -554,8 +556,7 @@ def gn_silu_conv_dual_fused(x, scale, shift, wp, ws, bp, bs):
     """One packed dual-stack layer: (y (B,H,W,2C), psums (B,2,2C) f32),
     arguments as in :func:`gn_silu_conv_dual_ref`. CPU tensors take the
     plain version; CUDA tensors launch K6 (count in
-    ``gn_silu_conv_dual_fused.launches``), inference-only: the dual route's
-    gradient is the per-stack twin's (``_FusedStacks.backward``)."""
+    ``gn_silu_conv_dual_fused.launches``), inference-only."""
     if x.device.type == "cpu":
         return gn_silu_conv_dual_ref(x, scale, shift, wp, ws, bp, bs)
     if torch.is_grad_enabled() and any(
@@ -584,28 +585,6 @@ def _stack_spec(encoder):
     return (encoder.num_layers, encoder.num_groups, encoder.eps)
 
 
-def _run_stack(x, params, spec, stem, layer, out=None, out_off=0):
-    """Stem + 2*num_layers fused layers; ``stem`` is the stem kernel's
-    launch or its plain version, ``layer`` K1's launch or its plain
-    version. The last layer writes into ``out`` when given."""
-    num_layers, num_groups, eps = spec
-    y, ps = stem(x, params[0], params[1])
-    hw = x.shape[1] * x.shape[2]
-    n_lay = 2 * num_layers
-    for li in range(n_lay):
-        gamma, beta, weight, bias = params[2 + 4 * li : 6 + 4 * li]
-        scale, shift = _gn_affine(ps, gamma, beta, hw, num_groups, eps)
-        if li == n_lay - 1 and out is not None:
-            y, ps = layer(y, scale, shift, weight, bias, out, out_off)
-        else:
-            y, ps = layer(y, scale, shift, weight, bias)
-    return y
-
-
-def _ref_layer(x, scale, shift, weight, bias, out=None, out_off=0):
-    return gn_silu_conv_ref(x, scale, shift, weight, bias)
-
-
 def _split(params, specs):
     """Per-stack slices of the flat parameter list."""
     out, i = [], 0
@@ -616,58 +595,83 @@ def _split(params, specs):
     return out
 
 
-def _stacks_ref(x, params, specs):
-    outs = [_run_stack(x, p, spec, stem_conv_ref, _ref_layer)
-            for p, spec in zip(_split(params, specs), specs)]
-    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=-1)
+def _takes_kernels(x, twin: bool) -> bool:
+    """The encoder's one route decision: CUDA tensors launch the stem kernel
+    and K1; CPU tensors, and the backward's plain twin (``twin``), take
+    their plain versions."""
+    return x.is_cuda and not twin
 
 
-# The packed route of the JAX package's encoder_fused.py: both stacks as one
-# packed stack on K6. Off by default, as there; the choice is made from the
-# shapes alone (:func:`_dual_applies`), before any launch.
-DUAL_ROUTE = False
+def _chain(x, params, spec, rows=None, depth=None, stats=None, out=None, out_off: int = 0,
+           twin: bool = False):
+    """One stack from the image ``x`` (B, H, W, 3): its stem, then its first
+    ``depth`` (by default all 2*num_layers) GN -> SiLU -> conv layers, each
+    GroupNorm folded by :func:`_gn_affine` from channel sums (B, 2, C)
+    [sum, sumsq]. Every encoder route runs this chain: on the stem kernel
+    and K1 where :func:`_takes_kernels` says so, else on their plain
+    versions. The kernels are inference-only: a forward that autograd
+    records goes through :class:`_FusedStacks` or :class:`_FusedBand`,
+    whose backward differentiates the twin.
 
+    ``rows``: None for the whole image, else (r0, r1): those output rows,
+    computed from image rows [r0 - halo, r1 + halo), halo = k_stem//2 + the
+    layers' k//2. At an interior band edge each conv's reflect padding is
+    wrong, but the rows it reaches stay in the halo and are cut at the end,
+    so no kept row reads them and they get no gradient.
 
-def _stem_dual_conv(x, wp, bp, ws, bs):
-    """Both stems as one 3x3 conv, 3 -> 2C: the pixel stack's 1x1 stem sits
-    at the centre tap (the zero taps add exact zeros to the f32 sum, which
-    only its order changes). Counterpart of ``_stem_dual_matmul``."""
-    return _stem_conv(x, torch.cat([F.pad(wp, (1, 1, 1, 1)), ws]), torch.cat([bp, bs]))
+    ``stats``: None, each layer's channel sums are the layer before's own
+    over the whole image (the kernels' tile sums; in the plain version,
+    those of the f32 conv output). Else ``stats(i, f)`` gives layer i's sums
+    from ``f``, the layer before's output on rows [r0, r1) (on the kernels
+    the rounded y, in the plain version the f32 conv output): the band's
+    own sums through a reduction, or the whole image's from the streamed
+    encoder's sweeps (``encoder_banded.encoder_stack_stats``).
 
-
-def _dual_applies(x, params, specs) -> bool:
-    """Whether the packed pair of stacks takes the K6 route: DUAL_ROUTE is
-    set, the stacks are a 1x1 pixel and a 3x3 semantic stack of one width
-    and depth, and K6 takes the layer shape."""
-    if not DUAL_ROUTE or len(specs) != 2 or specs[0] != specs[1]:
-        return False
-    pix, sem = _split(params, specs)
-    c = pix[0].shape[0]
-    if sem[0].shape[0] != c or pix[0].shape[-1] != 1 or sem[0].shape[-1] != 3:
-        return False
-    b, h, w, _ = x.shape
-    return all(_dual_shape_error((b, h, w, 2 * c), wp.shape, ws.shape) is None
-               for wp, ws in zip(pix[4::4], sem[4::4]))
-
-
-def _run_dual(x, params, spec, layer):
-    """Merged stem + 2*num_layers packed layers, each both stacks' layer in
-    one call of ``layer`` (K6's launch or its plain version), with each
-    half's GroupNorm affine from its half of the channel sums."""
+    With ``out`` the last layer writes at channels [out_off, out_off + F)
+    of ``out`` (B, H, W, total), which is returned."""
     num_layers, num_groups, eps = spec
-    pix, sem = _split(params, (spec, spec))
-    c = pix[0].shape[0]
-    y = _stem_dual_conv(x, pix[0], pix[1], sem[0], sem[1])
-    ps = _channel_sums(y)
-    hw = x.shape[1] * x.shape[2]
-    for li in range(2 * num_layers):
-        gp, betap, wp, bp = pix[2 + 4 * li : 6 + 4 * li]
-        gs, betas, ws, bs = sem[2 + 4 * li : 6 + 4 * li]
-        sc_p, sh_p = _gn_affine(ps[:, :, :c], gp, betap, hw, num_groups, eps)
-        sc_s, sh_s = _gn_affine(ps[:, :, c:], gs, betas, hw, num_groups, eps)
-        y, ps = layer(y, torch.cat([sc_p, sc_s], dim=-1), torch.cat([sh_p, sh_s], dim=-1),
-                      wp, ws, bp, bs)
-    return y
+    layers = [params[i : i + 4] for i in range(2, 2 + 8 * num_layers, 4)][:depth]
+    _, h, w, _ = x.shape
+    r0, r1 = rows or (0, h)
+    a = 0
+    if rows is not None:
+        halo = params[0].shape[-1] // 2 + sum(weight.shape[-1] // 2 for _, _, weight, _ in layers)
+        a = max(0, r0 - halo)
+        x = x[:, a : min(h, r1 + halo)].contiguous()
+    kernels = _takes_kernels(x, twin)
+    if kernels and torch.is_grad_enabled() and any(t.requires_grad for t in (x, *params)):
+        raise NotImplementedError("the encoder's kernels are inference-only; differentiate "
+                                  "encoder_stack_fused_packed or encoder_stack_band instead")
+    if kernels and stats is None:
+        y, ps = _launch_stem(x, params[0], params[1])
+    elif kernels:
+        y, _ = _launch_stem_tiles(x, params[0], params[1])  # the band's sums come from stats
+    else:
+        y = _stem_conv(x, params[0], params[1])
+        ps = _channel_sums(y) if stats is None else None
+    f = y
+    for i, (gamma, beta, weight, bias) in enumerate(layers):
+        if stats is not None:
+            ps = stats(i, f[:, r0 - a : r1 - a])
+        scale, shift = _gn_affine(ps, gamma, beta, h * w, num_groups, eps)
+        last = out is not None and i == len(layers) - 1
+        if kernels:
+            y, ps = _launch(y, scale, shift, weight, bias, *((out, out_off) if last else ()))
+            f = y
+        else:
+            f = _gn_silu_conv_f32(y, scale, shift, weight, bias)
+            y = f.to(y.dtype)
+            ps = _channel_sums(f) if stats is None else None
+            if last:
+                out[..., out_off : out_off + y.shape[-1]] = y
+                y = out
+    return y if rows is None else y[:, r0 - a : r1 - a]
+
+
+def _stacks_ref(x, params, specs):
+    """The stacks' plain twin, their outputs concatenated."""
+    outs = [_chain(x, p, spec, twin=True) for p, spec in zip(_split(params, specs), specs)]
+    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=-1)
 
 
 # Saved tensors of fewer elements stay as they are (weights, statistics).
@@ -722,131 +726,77 @@ def _twin_grads(saved, needs, specs, g):
 
 
 class _FusedStacks(torch.autograd.Function):
-    """One or more encoder stacks, each a stem kernel launch and K1 per
-    layer; with several, their outputs are packed side by side in one
-    buffer by the last layer of each. With ``dual``, the pixel and semantic
-    stacks run as one packed stack on K6 (after the merged plain stem).
-    The backward differentiates the plain per-stack twin on either route,
-    as the JAX package's ``_packed_vjp_bwd`` does."""
+    """One or more encoder stacks (:func:`_chain`), their outputs packed
+    side by side in one buffer by the last layer of each. The backward
+    differentiates the plain per-stack twin, as the JAX package's
+    ``_packed_vjp_bwd`` does."""
 
     @staticmethod
-    def forward(ctx, x, specs, dual, *params):
+    def forward(ctx, x, specs, *params):
         ctx.specs = specs
         ctx.save_for_backward(x, *params)
-        if dual:
-            return _run_dual(x, params, specs[0], _launch_dual)
         stacks = _split(params, specs)
         hidden = [p[0].shape[0] for p in stacks]  # stem weight (F, 3, k, k)
         b, h, w, _ = x.shape
         out = torch.empty((b, h, w, sum(hidden)), dtype=x.dtype, device=x.device)
         off = 0
         for p, spec, hd in zip(stacks, specs, hidden):
-            _run_stack(x, p, spec, _launch_stem, _launch, out, off)
+            _chain(x, p, spec, out=out, out_off=off)
             off += hd
         return out
 
     @staticmethod
     def backward(ctx, g):
-        needs = (ctx.needs_input_grad[0],) + ctx.needs_input_grad[3:]
+        needs = (ctx.needs_input_grad[0],) + ctx.needs_input_grad[2:]
         with span("naf.encoder.backward"):
             grads = _twin_grads(ctx.saved_tensors, needs, ctx.specs, g)
-        return (grads[0], None, None, *grads[1:])
-
-
-def _band_layer(x, scale, shift, weight, bias):
-    """K1 on a band's held rows. Its statistics are read from its output y
-    in x's dtype: K1's own sums cover every held row, halo included, and a
-    band needs its own rows' alone. So in bf16 the forward normalises with
-    sums of the rounded y, while the twin (:func:`_band_layer_ref`) and the
-    whole stack take them from the f32 conv output: the backward
-    differentiates a function a rounding away from the one the forward
-    computed (f32 is exact)."""
-    y = gn_silu_conv_fused(x, scale, shift, weight, bias)[0]
-    return y, y
-
-
-def _band_layer_ref(x, scale, shift, weight, bias):
-    """K1's plain math on a band's held rows, its statistics read from the
-    f32 conv output before y rounds to x's dtype, as the whole stack's twin
-    reads them (``gn_silu_conv_ref``'s psums)."""
-    f = _gn_silu_conv_f32(x, scale, shift, weight, bias)
-    return f.to(x.dtype), f
-
-
-def _run_band(x, params, spec, layer, r0: int, r1: int, reduce_sums):
-    """Rows [r0, r1) of one stack's output, computed from the image ``x``
-    (B, H, W, 3) on these rows plus a halo of ``k_stem//2 + L*(k//2)``
-    rows: the stem, then each GN -> SiLU -> conv layer over every held row.
-    ``layer(x, scale, shift, weight, bias) -> (y, f)`` is
-    :func:`_band_layer` or :func:`_band_layer_ref`; the next layer's
-    GroupNorm statistics are the channel sums of ``f`` over rows [r0, r1)
-    alone, passed through ``reduce_sums`` (the identity for a whole stack,
-    a sum over the ranks that hold the other rows for a spatial band). The
-    reflect padding at an interior band edge is wrong; the rows it reaches
-    lie in the halo and are dropped, ``k//2`` each side after each conv,
-    before any kept row reads them, so they get no gradient either."""
-    _, num_groups, eps = spec
-    stem_w, stem_b = params[:2]
-    layers = [params[i : i + 4] for i in range(2, len(params), 4)]  # gamma, beta, weight, bias
-    _, h, w, _ = x.shape
-    p_stem = stem_w.shape[-1] // 2
-    halo = p_stem + sum(weight.shape[-1] // 2 for _, _, weight, _ in layers)
-    a, b = max(0, r0 - halo), min(h, r1 + halo)
-
-    def drop(ts, p):
-        """Drop the p rows a conv's padding reached at each interior edge."""
-        nonlocal a, b
-        a2, b2 = (min(a + p, r0) if a else a), (max(b - p, r1) if b < h else b)
-        ts = [t[:, a2 - a : t.shape[1] - (b - b2)] for t in ts]
-        a, b = a2, b2
-        return ts
-
-    (y,) = drop([_stem_conv(x[:, a:b].contiguous(), stem_w, stem_b)], p_stem)
-    f = y
-    for gamma, beta, weight, bias in layers:
-        psums = reduce_sums(_channel_sums(f[:, r0 - a : r1 - a]))
-        scale, shift = _gn_affine(psums, gamma, beta, h * w, num_groups, eps)
-        y, f = drop(layer(y.contiguous(), scale, shift, weight, bias), weight.shape[-1] // 2)
-    return y[:, r0 - a : r1 - a]
+        return (grads[0], None, *grads[1:])
 
 
 class _FusedBand(torch.autograd.Function):
-    """One stack's band (:func:`_run_band`) on K1, differentiated through
-    the plain twin recomputed from the image rows, as :class:`_FusedStacks`
-    differentiates a whole stack. The gradient that reaches a conv's output
-    from the next layer and from the GroupNorm statistics (two terms that
-    nearly cancel) is summed in f32 and stays f32 through that conv's
-    weight gradient; a chain of per-layer K1 gradients would round it to
-    bf16 at each K1 output and lose most of the earlier layers' gradients
-    (5-10x the twin's error in bf16)."""
+    """One stack's band (:func:`_chain` over rows [r0, r1), its statistics
+    through ``reduce_sums``), differentiated through the plain twin
+    recomputed from the image rows, as :class:`_FusedStacks` differentiates
+    a whole stack. The gradient that reaches a conv's output from the next
+    layer and from the GroupNorm statistics (two terms that nearly cancel)
+    is summed in f32 and stays f32 through that conv's weight gradient; a
+    chain of per-layer K1 gradients would round it to bf16 at each K1 output
+    and lose most of the earlier layers' gradients (5-10x the twin's error
+    in bf16). In bf16 the kernels' statistics are sums of the rounded y
+    (K1's own sums cover every held row, halo included), the twin's of the
+    f32 conv output: the backward differentiates a function a rounding away
+    from the one the forward computed (f32 is exact)."""
 
     @staticmethod
     def forward(ctx, x, spec, r0, r1, reduce_sums, *params):
         ctx.band = (spec, r0, r1, reduce_sums)
         ctx.save_for_backward(x, *params)
-        return _run_band(x, params, spec, _band_layer, r0, r1, reduce_sums)
+        return _chain(x, params, spec, (r0, r1), stats=_band_stats(reduce_sums))
 
     @staticmethod
     def backward(ctx, g):
         spec, r0, r1, reduce_sums = ctx.band
         needs = (ctx.needs_input_grad[0],) + ctx.needs_input_grad[5:]
-        grads = _recompute_grads(ctx.saved_tensors, needs, lambda x, params: _run_band(
-            x, params, spec, _band_layer_ref, r0, r1, reduce_sums), g)
+        grads = _recompute_grads(ctx.saved_tensors, needs, lambda x, params: _chain(
+            x, params, spec, (r0, r1), stats=_band_stats(reduce_sums), twin=True), g)
         return (grads[0], None, None, None, None, *grads[1:])
+
+
+def _band_stats(reduce_sums):
+    """:func:`_chain`'s ``stats`` for a band: the channel sums of its own
+    rows, through ``reduce_sums``."""
+    return lambda i, f: reduce_sums(_channel_sums(f))
 
 
 def encoder_stack_band(encoder, x, r0: int, r1: int, reduce_sums):
     """Rows [r0, r1) of one stack's output from the image ``x`` (B, H, W,
     3), computed on those rows plus a halo, with each GroupNorm's channel
     sums over the band's own rows passed through ``reduce_sums`` before
-    they normalise (:func:`_run_band`): with a sum over the ranks that hold
-    the other bands, the rows of the whole stack. CUDA tensors launch K1
-    for every layer and differentiate the plain twin (:class:`_FusedBand`);
-    CPU tensors run the twin itself."""
-    params, spec = _stack_params(encoder), _stack_spec(encoder)
-    if x.device.type == "cpu":
-        return _run_band(x, params, spec, _band_layer_ref, r0, r1, reduce_sums)
-    return _FusedBand.apply(x.contiguous(), spec, r0, r1, reduce_sums, *params)
+    they normalise: with a sum over the ranks that hold the other bands,
+    the rows of the whole stack. The gradient is the plain twin's
+    (:class:`_FusedBand`)."""
+    return _FusedBand.apply(x.contiguous(), _stack_spec(encoder), r0, r1, reduce_sums,
+                            *_stack_params(encoder))
 
 
 def encoder_stack_ref(encoder, x):
@@ -856,23 +806,16 @@ def encoder_stack_ref(encoder, x):
 
 
 def encoder_stack_fused(encoder, x):
-    """``Encoder`` forward with every GN -> SiLU -> conv layer on K1.
-    x (B,H,W,3) NHWC -> (B,H,W,hidden)."""
-    if x.device.type == "cpu":
-        return encoder_stack_ref(encoder, x)
-    return _FusedStacks.apply(x.contiguous(), (_stack_spec(encoder),), False,
-                              *_stack_params(encoder))
+    """``Encoder`` forward with every GN -> SiLU -> conv layer on K1 (on
+    CUDA tensors; their plain versions on the CPU). x (B,H,W,3) NHWC ->
+    (B,H,W,hidden)."""
+    return _FusedStacks.apply(x.contiguous(), (_stack_spec(encoder),), *_stack_params(encoder))
 
 
 def encoder_stack_fused_packed(enc_pix, enc_sem, x):
     """Both image-encoder stacks into one packed (B,H,W,2*hidden) buffer,
-    pixel stack first (the reference's torch.cat order): each stack on K1,
-    or, with DUAL_ROUTE where K6 takes the shapes, both on K6 per layer."""
+    pixel stack first (the reference's torch.cat order), the last layer of
+    each writing its half."""
     specs = (_stack_spec(enc_pix), _stack_spec(enc_sem))
-    params = _stack_params(enc_pix) + _stack_params(enc_sem)
-    dual = _dual_applies(x, params, specs)
-    if x.device.type == "cpu":
-        if dual:
-            return _run_dual(x, params, specs[0], gn_silu_conv_dual_ref)
-        return _stacks_ref(x, params, specs)
-    return _FusedStacks.apply(x.contiguous(), specs, dual, *params)
+    return _FusedStacks.apply(x.contiguous(), specs, *_stack_params(enc_pix),
+                              *_stack_params(enc_sem))

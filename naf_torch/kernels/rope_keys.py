@@ -4,7 +4,7 @@ What ``NAF._fused_q_inputs`` hands kernel K2 besides the encoder output:
 
     keys     (B, hk, wk, C) = adaptive_pool(rope(adaptive_pool(enc, up_hw)), down_hw)
     rows_tab (oh, 2C) f32   = cat([cos_r, sin_r], -1) of ``RoPE.tables(oh, ow)``
-    cols_tab (ow, 2C) f32   = cat([cos_c, sin_c], -1)
+    cols_tab (ow, 2C) f32   = cat([cos_c, sin_c], -1)      (``RoPE.k2_tables``)
 
 ``csrc/rope_keys.cu`` computes all three in one launch: it reads enc once
 and writes nothing at full resolution, factoring each RoPE channel into a
@@ -16,7 +16,7 @@ plain jnp. The keys are summed in f32 and rounded once to enc's dtype.
 
 :func:`rope_keys` launches it for CUDA tensors that need no gradient
 (count in ``rope_keys.launches``); it takes the plain version
-:func:`rope_keys_ref`, which is ``RoPE.pooled`` and ``RoPE.tables``, for
+:func:`rope_keys_ref`, which is ``RoPE.pooled`` and ``RoPE.k2_tables``, for
 CPU tensors and for inputs under autograd. A band's additive contribution
 to the keys (``RoPE.pooled``'s ``row0``/``full_h``: the streamed and
 sharded paths) still calls ``RoPE.pooled`` itself.
@@ -41,10 +41,9 @@ MIN_BLOCKS = 2048  # blocks a grid keeps as its threads take more rows: 8 waves 
 
 def rope_keys_ref(rope, enc: torch.Tensor, up_hw, down_hw):
     """Plain version: ``(keys, rows_tab, cols_tab)`` by ``rope.pooled(enc,
-    up_hw, down_hw)`` and ``rope.tables(*up_hw)``."""
-    sin_r, cos_r, sin_c, cos_c = rope.tables(int(up_hw[0]), int(up_hw[1]))
+    up_hw, down_hw)`` and ``rope.k2_tables(*up_hw)``."""
     keys = rope.pooled(enc, up_hw, down_hw).contiguous()
-    return keys, torch.cat([cos_r, sin_r], dim=-1), torch.cat([cos_c, sin_c], dim=-1)
+    return keys, *rope.k2_tables(int(up_hw[0]), int(up_hw[1]))
 
 
 def _lo(o: int, n: int, m: int) -> int:

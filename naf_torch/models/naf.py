@@ -50,7 +50,7 @@ from naf_torch.ops.pool import adaptive_avg_pool2d
 from naf_torch.ops.resize import resize_bilinear
 from naf_torch.utils.spans import span
 
-__all__ = ["NAF", "ImageEncoder", "band_cells"]
+__all__ = ["NAF", "ImageEncoder", "band_cells", "band_encoder_rows"]
 
 
 class ImageEncoder(nn.Module):
@@ -204,3 +204,14 @@ def band_cells(out_h: int, lr_h: int, band_rows: int) -> int:
         raise ValueError("band_rows must divide output height and be a multiple of the "
                          "cell stride (output_height // lr_height)")
     return band_rows // (out_h // lr_h)
+
+
+def band_encoder_rows(out_h: int, lr_h: int, cells: int, enc_h: int) -> int:
+    """Encoder rows per band of ``cells`` LR cell rows (:func:`band_cells`)
+    of an ``out_h``-row output whose encoder output has ``enc_h`` rows;
+    raises unless a band maps to whole encoder rows."""
+    rows = cells * (out_h // lr_h) * enc_h
+    if rows % out_h:
+        raise ValueError(f"a band of {cells} cell rows maps to no whole encoder rows ({enc_h} "
+                         f"rows for {out_h} output rows); adjust band_rows or the image size")
+    return rows // out_h

@@ -160,6 +160,12 @@ class RoPE(nn.Module):
         cos_c = torch.cat([one_v, av.cos(), one_v, av.cos()], -1).repeat(1, n)
         return sin_r, cos_r, sin_c, cos_c
 
+    def k2_tables(self, h: int, w: int):
+        """The RoPE tables in the layout kernel K2 reads: f32 (rows_tab (h,
+        2C), cols_tab (w, 2C)), each cos|sin of :meth:`tables`."""
+        sin_r, cos_r, sin_c, cos_c = self.tables(h, w)
+        return torch.cat([cos_r, sin_r], dim=-1), torch.cat([cos_c, sin_c], dim=-1)
+
     def rotate_matrix(self, dtype=torch.float32) -> torch.Tensor:
         """(C, C) signed-permutation rotate-half matrix for this head shape."""
         return to_device(_rotate_half_matrix(self.num_heads, self.d_head), self.periods.device,

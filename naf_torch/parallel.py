@@ -185,7 +185,7 @@ def _spatial_band(mesh, model, image: torch.Tensor, lr_feats: torch.Tensor, out_
     Raises where the band rules refuse (see :func:`naf_spatial_forward`)."""
     from naf_torch.kernels.encoder_fused import encoder_stack_band
     from naf_torch.kernels.na2d_fused_q import naf_upsample_attention
-    from naf_torch.models.naf import band_cells
+    from naf_torch.models.naf import band_cells, band_encoder_rows
     from naf_torch.ops.resize import resize_bilinear
 
     oh, ow = int(out_hw[0]), int(out_hw[1])
@@ -203,10 +203,7 @@ def _spatial_band(mesh, model, image: torch.Tensor, lr_feats: torch.Tensor, out_
     if not ienc.use_encoder:
         raise ValueError("the spatial forward needs the image encoder (use_encoder=True)")
     hi, wi = ienc.guard_size(image.shape[1], image.shape[2], oh, ow)
-    if (cells * (oh // hk) * hi) % oh:
-        raise ValueError(f"a band of {cells} cell rows maps to no whole encoder rows "
-                         f"({hi} rows for {oh} output rows)")
-    eb = cells * (oh // hk) * hi // oh  # encoder rows per band
+    eb = band_encoder_rows(oh, hk, cells, hi)
     image, feats = shard_batch(mesh, image), shard_batch(mesh, lr_feats).contiguous()
     if tuple(image.shape[1:3]) != (hi, wi):
         image = resize_bilinear(image, (hi, wi))
@@ -222,11 +219,9 @@ def _spatial_band(mesh, model, image: torch.Tensor, lr_feats: torch.Tensor, out_
     rope = ienc.rope
     keys = rope.pooled(enc, (oh, ow), (hk, wk), row0=e0, full_h=hi).float()
     keys = sum_space(keys).to(enc.dtype).contiguous()
-    sin_r, cos_r, sin_c, cos_c = rope.tables(oh, ow)
     return naf_upsample_attention(
-        enc, keys, feats, torch.cat([cos_r, sin_r], dim=-1), torch.cat([cos_c, sin_c], dim=-1),
-        rope.d_head, num_heads=model.heads_attn, kernel_size=model.kernel_size,
-        row_cell0=s * cells, band_cells=cells, enc_banded=True)
+        enc, keys, feats, *rope.k2_tables(oh, ow), rope.d_head, num_heads=model.heads_attn,
+        kernel_size=model.kernel_size, row_cell0=s * cells, band_cells=cells, enc_banded=True)
 
 
 @torch.inference_mode()
@@ -246,7 +241,7 @@ def naf_spatial_forward(mesh, model, image: torch.Tensor, lr_feats: torch.Tensor
     ``row0``), summed in f32 over ``space`` and cast once, and one banded K2
     call (``row_cell0``, ``band_cells``, ``enc_banded``, the whole RoPE
     tables) writes the band's output rows. On CUDA tensors every rank
-    launches K1 (8 times) and K2 (once).
+    launches the stem kernel (twice), K1 (8 times) and K2 (once).
 
     Raises where ``space`` does not divide the LR rows or ``data`` the
     batch (as the JAX package does), and where the port's band rules refuse:

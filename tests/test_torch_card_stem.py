@@ -10,8 +10,10 @@ on >= 99.9% of its elements; f32 y lies within (3k^2 + 1) 2^-24 of the sum
 of its terms' magnitudes of a float64 conv; the sums and per-tile partials
 within 1e-5 of the sums of magnitudes of the kernel's own y. Also: both
 stacks (``encoder_stack_fused_packed``) against their plain twin at
-``test_torch_card_encoder.py``'s bars, two launches a forward, and the 2048^2
-encoder forward's peak above its start.
+``test_torch_card_encoder.py``'s bars, two launches a forward, the 2048^2
+encoder forward's peak above its start, and the banded routes (a spatial
+band, the streamed encoder's sweeps and rows) on the stem kernel, one
+launch a stack and band.
 
 Every test here needs the card (marker ``cuda``) and skips without one. The
 file imports no JAX:
@@ -152,3 +154,48 @@ def test_encoder_peak_at_2048(cuda_device):
           f"({torch.cuda.get_device_name(0)})")
     assert out.shape == (1, 2048, 2048, 256)
     assert peak <= 4400
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_banded_forwards_take_the_stem_kernel(cuda_device, dtype):
+    """The banded routes launch the stem kernel as the whole stack does:
+    the spatial band's forward (``encoder_stack_band``, here one rank's
+    identity reduction) once a stack and band, each band against the plain
+    twin over the same rows at the whole stacks' bars; the streamed
+    encoder's sweeps and rows (``encoder_stack_stats`` and
+    ``encoder_stack_banded_rows``) once a stack, depth and band, and once a
+    stack and band."""
+    from naf_torch.kernels.encoder_banded import encoder_stack_banded_rows, encoder_stack_stats
+
+    pix, sem = _stacks(cuda_device, dtype)
+    x = torch.randn(1, 448, 448, 3, device=cuda_device).to(dtype)
+    bands = [(0, 112), (112, 336), (336, 448)]
+    before = launch_counts()
+    with torch.no_grad():
+        got = [[ef.encoder_stack_band(st, x, r0, r1, lambda t: t) for st in (pix, sem)]
+               for r0, r1 in bands]
+    torch.cuda.synchronize()
+    after = launch_counts()
+    assert (after["stem"] - before["stem"], after["k1"] - before["k1"]) == (6, 24)
+    for (r0, r1), outs in zip(bands, got):
+        for st, o in zip((pix, sem), outs):
+            params = [p.float() for p in ef._stack_params(st)]
+            with torch.no_grad():
+                want = ef._chain(x.float(), params, ef._stack_spec(st), (r0, r1),
+                                 stats=ef._band_stats(lambda t: t), twin=True)
+            assert o.dtype == dtype and o.shape == want.shape
+            if dtype == torch.float32:
+                torch.testing.assert_close(o, want, atol=2e-4, rtol=2e-4)
+            else:
+                assert _cos(o.float(), want) > 0.9995
+    before = launch_counts()
+    with torch.no_grad():
+        for st in (pix, sem):
+            stats = encoder_stack_stats(st, x, band_rows=112)
+            for r0 in range(0, 448, 112):
+                encoder_stack_banded_rows(st, x, r0, 112, stats)
+    torch.cuda.synchronize()
+    after = launch_counts()
+    # per stack: 4 depths x 4 bands in the sweeps, then 4 bands of rows
+    assert (after["stem"] - before["stem"], after["k1"] - before["k1"]) == (40, 2 * (24 + 16))

@@ -29,6 +29,9 @@ NOT_PORTED = {
     ("kernels/encoder_fused.py", "dual_encoder_applicable"): _ROUTE,
     ("kernels/encoder_fused.py", "fused_encoder_applicable"): _ROUTE,
     ("kernels/encoder_fused.py", "carry_layout"): _TILING,
+    ("kernels/encoder_fused.py", "DUAL_ROUTE"):
+        "the switch to the K6 route, which lost to the K1 pair on the card; K6 is kept as an op "
+        "(gn_silu_conv_dual_fused) and no route of the port takes it",
     ("kernels/na2d_fused.py", "fused_applicable"): _ROUTE,
     ("kernels/na2d_fused.py", "pick_cell_blocks"): _TILING,
     ("kernels/na2d_fused.py", "pick_cell_blocks_bwd"): _TILING,

@@ -140,48 +140,27 @@ def test_dual_layer_ref_matches_pallas():
     torch.testing.assert_close(ps, got_ps)
 
 
-def test_dual_route_matches_pallas_dual_and_per_stack(monkeypatch):
-    """With DUAL_ROUTE on, the packed stacks take the merged stem and one
-    packed layer per depth (K6's plain version here): against the JAX dual
-    forward in interpret mode (2e-4), and against the port's per-stack route
-    at the JAX package's own bar for the two routes (atol 1e-5, rtol 1e-4)."""
+def test_packed_stacks_match_pallas_dual_forward():
+    """The per-stack packed encoder (K1's plain version here) against the
+    JAX package's dual forward (both stacks as one packed stack, its dual
+    kernel in interpret mode) at the JAX package's own bar for the two
+    routes (atol 1e-5, rtol 1e-4)."""
     x = np.random.RandomState(4).randn(1, 32, 32, 3).astype(np.float32)
     (tp, ts), (mp, ms) = _jax_stacks(x)
     want = j_enc._dual_fwd_impl(tp, ts, jnp.asarray(x), 128, 2, 8, 1e-5, True)
-    calls = []
-    monkeypatch.setattr(t_enc, "gn_silu_conv_dual_ref",
-                        lambda *a: calls.append(1) or gn_silu_conv_dual_ref(*a))
     with torch.no_grad():
-        per_stack = encoder_stack_fused_packed(mp, ms, torch.from_numpy(x))
-        assert not calls
-        monkeypatch.setattr(t_enc, "DUAL_ROUTE", True)
         got = encoder_stack_fused_packed(mp, ms, torch.from_numpy(x))
-    assert len(calls) == 4  # one packed layer per depth
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
-    np.testing.assert_allclose(got.numpy(), per_stack.numpy(), atol=1e-5, rtol=1e-4)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=1e-4)
 
 
-def test_dual_route_rule_is_shapes_alone(monkeypatch):
-    """The K6 route is chosen from the shapes, before any launch: off by
-    default, on for a 1x1 pixel and a 3x3 semantic stack of one width with
-    C % 16 == 0 and H, W >= 2; K6's own shape rule names what it refuses."""
-    x = torch.zeros(1, 8, 8, 3)
-    pix = Encoder(32, kernel_size=1, ks_res=1, num_layers=1)
-    sem = Encoder(32, kernel_size=3, ks_res=3, num_layers=1)
-    params = t_enc._stack_params(pix) + t_enc._stack_params(sem)
-    specs = (t_enc._stack_spec(pix), t_enc._stack_spec(sem))
-    assert not t_enc._dual_applies(x, params, specs)
-    monkeypatch.setattr(t_enc, "DUAL_ROUTE", True)
-    assert t_enc._dual_applies(x, params, specs)
-    assert not t_enc._dual_applies(x[:, :1], params, specs)  # reflect padding
-    swapped = t_enc._stack_params(sem) + t_enc._stack_params(pix)
-    assert not t_enc._dual_applies(x, swapped, specs[::-1])
-    narrow = Encoder(24, kernel_size=1, ks_res=1, num_layers=1)
-    narrow_sem = Encoder(24, kernel_size=3, ks_res=3, num_layers=1)
-    assert not t_enc._dual_applies(
-        x, t_enc._stack_params(narrow) + t_enc._stack_params(narrow_sem), specs)
+def test_k6_shape_rule_and_refusals():
+    """K6's own shape rule names what it refuses (C % 16, the weights'
+    shapes), its source is built with the others, and its wrapper raises on
+    tensors that are neither CPU nor CUDA."""
     assert "C % 16" in t_enc._dual_shape_error((1, 8, 8, 48), (24, 24, 1, 1), (24, 24, 3, 3))
     assert t_enc._dual_shape_error((1, 8, 8, 64), (32, 32, 1, 1), (32, 32, 3, 3)) is None
+    assert "must be" in t_enc._dual_shape_error((1, 8, 8, 64), (32, 32, 3, 3), (32, 32, 1, 1))
+    assert "reflect" in t_enc._dual_shape_error((1, 1, 8, 64), (32, 32, 1, 1), (32, 32, 3, 3))
     assert "encoder_dual" in _build.SOURCES
     meta = torch.zeros(1, 8, 8, 64, device="meta")
     with pytest.raises(ValueError, match="CUDA"):

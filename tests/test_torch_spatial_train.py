@@ -276,8 +276,8 @@ def test_spatial_step_raises_on_the_xla_path():
 
 @pytest.mark.parametrize("k", [1, 3])
 def test_band_twin_keeps_the_whole_stack_twin_s_bf16_gradients(k):
-    """A band's encoder backward (``encoder_fused._run_band``'s twin, on
-    the whole grid here) gives in bf16 the gradients of the whole stack's twin
+    """A band's encoder backward (the twin of ``encoder_fused._chain`` over
+    a band, the whole grid here) gives in bf16 the gradients of the whole stack's twin
     (``encoder_fused._stacks_ref``, what the one-process step
     differentiates): the gradient reaching each conv's output is summed and
     kept in f32. Rounded to bf16 there, the earlier layers' gradients were
@@ -296,7 +296,7 @@ def test_band_twin_keeps_the_whole_stack_twin_s_bf16_gradients(k):
         return [p.grad.float() for p in params]
 
     want = grads(lambda xx, ps: ef._stacks_ref(xx, ps, (spec,)))
-    got = grads(lambda xx, ps: ef._run_band(xx, ps, spec, ef._band_layer_ref, 0, 48,
-                                            lambda t: t))  # a group of one rank
+    got = grads(lambda xx, ps: ef._chain(xx, ps, spec, (0, 48),
+                                         stats=ef._band_stats(lambda t: t), twin=True))  # a group of one rank
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, atol=1e-6, rtol=1e-3)

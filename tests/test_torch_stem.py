@@ -6,16 +6,25 @@ kernel's order of work (the reflected halo of each 8 x 16 tile, the weights'
 shared-memory layout as each thread reads it, slices of 64 channels, a
 thread per (8-channel group, tile column, half of the tile's rows), the two
 roundings, the partials' fixed order: the columns of a half of the rows,
-half by half) against the plain stem; the shape rules; and which
-runner takes the kernel: ``_FusedStacks``' forward takes it, the plain twin
-(``_stacks_ref``, which the backward differentiates) never does. The kernel
-itself runs on the card: ``tests/test_torch_card_stem.py``."""
+half by half) against the plain stem; the shape rules; which runner
+takes the kernel: ``_FusedStacks``' forward takes it, the plain twin
+(``_stacks_ref``, which the backward differentiates) never does, and a
+chain that autograd records is refused on the kernels; and the
+one encoder chain (``_chain``) across its routes: a band that is the whole
+image is the whole stack, and the banded encoder's rows from its sweeps'
+statistics are the spatial band's whose sums are all-reduced over the
+bands (threads here). The kernel itself runs on the card:
+``tests/test_torch_card_stem.py``."""
+
+import threading
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pytest
 import torch
 
 from naf_torch.kernels import encoder_fused as ef
+from naf_torch.kernels.encoder_banded import encoder_stack_banded_rows, encoder_stack_stats
 from naf_torch.nn import Encoder
 
 torch.set_num_threads(1)
@@ -204,10 +213,10 @@ def _stacks(hidden=32, layers=1):
 
 
 def test_fused_stacks_take_the_kernel_and_the_twin_never_does(monkeypatch):
-    """``_FusedStacks`` on CPU tensors with the launches replaced by their
-    plain versions: its forward calls the stem kernel's launch once a stack
-    and K1's once a layer; its backward differentiates ``_stacks_ref``,
-    which calls neither."""
+    """``_FusedStacks`` on CPU tensors with the route made to answer "the
+    kernels" and the launches replaced by their plain versions: its forward
+    calls the stem kernel's launch once a stack and K1's once a layer; its
+    backward differentiates ``_stacks_ref``, which calls neither."""
     stems, layers = [], []
 
     def stem(x, weight, bias):
@@ -224,9 +233,10 @@ def test_fused_stacks_take_the_kernel_and_the_twin_never_does(monkeypatch):
 
     monkeypatch.setattr(ef, "_launch_stem", stem)
     monkeypatch.setattr(ef, "_launch", layer)
+    monkeypatch.setattr(ef, "_takes_kernels", lambda x, twin: not twin)
     params, specs = _stacks()
     x = torch.randn(1, 12, 20, 3, requires_grad=True)
-    got = ef._FusedStacks.apply(x, specs, False, *params)
+    got = ef._FusedStacks.apply(x, specs, *params)
     assert stems == [1, 3] and layers == [1, 1, 3, 3]
     want = ef._stacks_ref(x, params, specs)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
@@ -255,3 +265,119 @@ def test_the_twin_never_reaches_the_kernel(monkeypatch):
     needs = [True] * len(saved)
     grads = ef._twin_grads(saved, needs, specs, torch.ones(out.shape, dtype=torch.bfloat16))
     assert len(grads) == len(saved) and all(g is not None for g in grads)
+
+
+def test_the_route_is_the_plain_pair_on_the_cpu(monkeypatch):
+    """CPU tensors take the plain pair with or without autograd: the
+    packed stacks launch nothing there."""
+    def boom(*args, **kwargs):
+        raise AssertionError("a CPU tensor reached a kernel launch")
+
+    for name in ("_launch_stem", "_launch_stem_tiles", "_launch"):
+        monkeypatch.setattr(ef, name, boom)
+    params, specs = _stacks()
+    x = torch.randn(1, 12, 20, 3)
+    assert not ef._takes_kernels(x, False)
+    with torch.no_grad():
+        got = ef._FusedStacks.apply(x, specs, *params)
+    torch.testing.assert_close(got, ef._stacks_ref(x, params, specs), rtol=0, atol=0)
+
+
+def test_the_kernels_refuse_a_chain_that_autograd_records(monkeypatch):
+    """With the route made to answer "the kernels" and the launches replaced
+    by their plain versions: the streamed encoder's functions, which call
+    the chain directly, run under no_grad, each band's stem on the tile
+    launch (its sums come from the statistics); under autograd they raise.
+    The spatial band's Function, whose backward is the twin's, runs."""
+    stems, tiles = [], []
+
+    def stem(x, weight, bias):
+        stems.append(weight.shape[-1])
+        return ef.stem_conv_ref(x, weight, bias)
+
+    def stem_tiles(x, weight, bias):
+        tiles.append(weight.shape[-1])
+        y, _ = ef.stem_conv_ref(x, weight, bias)
+        return y, ef.stem_tile_sums_ref(y)
+
+    def layer(x, scale, shift, weight, bias):
+        return ef.gn_silu_conv_ref(x, scale, shift, weight, bias)
+
+    monkeypatch.setattr(ef, "_launch_stem", stem)
+    monkeypatch.setattr(ef, "_launch_stem_tiles", stem_tiles)
+    monkeypatch.setattr(ef, "_launch", layer)
+    monkeypatch.setattr(ef, "_takes_kernels", lambda x, twin: not twin)
+    torch.manual_seed(3)
+    enc = Encoder(16, kernel_size=3, ks_res=3, num_layers=2)
+    x = torch.randn(1, 24, 20, 3)
+    with torch.no_grad():
+        stats = encoder_stack_stats(enc, x, band_rows=8)
+        encoder_stack_banded_rows(enc, x, 8, 8, stats)
+    assert stems == [] and tiles == [3] * (4 * 3 + 1)  # 4 depths x 3 bands, then the rows
+    with pytest.raises(NotImplementedError, match="inference-only"):
+        encoder_stack_banded_rows(enc, x, 8, 8, stats)
+    with pytest.raises(NotImplementedError, match="inference-only"):
+        encoder_stack_stats(enc, x, band_rows=8)
+    ef.encoder_stack_band(enc, x, 0, 24, lambda t: t).square().sum().backward()
+    assert all(p.grad is not None for p in enc.parameters())
+
+
+@pytest.mark.parametrize("k", [1, 3])
+def test_a_band_of_the_whole_image_is_the_whole_stack(k):
+    """The chain over rows [0, H) with the identity reduction (the spatial
+    band's route on one rank) equals the whole stack's plain twin, f32."""
+    torch.manual_seed(k)
+    enc = Encoder(32, kernel_size=k, ks_res=k, num_layers=2)
+    with torch.no_grad():
+        for p in enc.parameters():
+            p.add_(0.05 * torch.randn_like(p))
+        params, spec = ef._stack_params(enc), ef._stack_spec(enc)
+        x = torch.randn(2, 28, 20, 3)
+        got = ef._chain(x, params, spec, (0, 28), stats=ef._band_stats(lambda t: t))
+        want = ef._stacks_ref(x, params, (spec,))
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+        torch.testing.assert_close(ef.encoder_stack_band(enc, x, 0, 28, lambda t: t), want,
+                                   rtol=0, atol=0)
+
+
+class _ThreadSum:
+    """A sum over n threads, each passing its part: an all-reduce."""
+
+    def __init__(self, n: int):
+        self.parts, self.barrier = [None] * n, threading.Barrier(n, timeout=60)
+
+    def __call__(self, j: int, t):
+        self.parts[j] = t
+        self.barrier.wait()
+        total = sum(self.parts)
+        self.barrier.wait()  # every part read before the next layer's replaces it
+        return total
+
+
+@pytest.mark.parametrize("k", [1, 3])
+def test_streamed_rows_are_the_spatial_band_summed_over_every_band(k):
+    """``encoder_stack_banded_rows`` from ``encoder_stack_stats`` (the
+    streamed encoder: statistics from banded sweeps) equals the spatial
+    band's route (``encoder_stack_band``) over the same rows when each
+    layer's band sums are summed over all bands, each band on a thread of
+    its own, f32."""
+    torch.manual_seed(10 + k)
+    enc = Encoder(16, kernel_size=k, ks_res=k, num_layers=2)
+    with torch.no_grad():
+        for p in enc.parameters():
+            p.add_(0.05 * torch.randn_like(p))
+    x = torch.randn(2, 32, 24, 3)
+    bands = [(0, 8), (8, 20), (20, 32)]
+    reduce = _ThreadSum(len(bands))
+
+    def band(j):
+        r0, r1 = bands[j]
+        with torch.no_grad():
+            return ef.encoder_stack_band(enc, x, r0, r1, lambda t: reduce(j, t))
+
+    with ThreadPoolExecutor(len(bands)) as pool:
+        got = [f.result(timeout=120) for f in [pool.submit(band, j) for j in range(len(bands))]]
+    with torch.no_grad():
+        stats = encoder_stack_stats(enc, x, band_rows=8)
+        for (r0, r1), g in zip(bands, got):
+            torch.testing.assert_close(g, encoder_stack_banded_rows(enc, x, r0, r1 - r0, stats))

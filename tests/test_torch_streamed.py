@@ -22,6 +22,7 @@ from naf_torch.kernels.encoder_banded import (
     encoder_stack_banded_rows,
     encoder_stack_stats,
 )
+from naf_torch.kernels.encoder_fused import _gn_affine, _stack_params
 from naf_torch.kernels.na2d_fused import cross_scale_na2d_fused, cross_scale_na2d_fused_ref
 from naf_torch.kernels.na2d_fused_q import naf_upsample_attention, naf_upsample_attention_ref
 from naf_torch.models.naf import NAF
@@ -109,7 +110,11 @@ def test_banded_encoder_rows_stream_any_range():
     j_stats = j_banded.encoder_stack_stats(params, jnp.asarray(x), 3, 3, band_rows=8)
     with torch.no_grad():
         stats = encoder_stack_stats(enc, torch.from_numpy(x), band_rows=8)
-        for (s, t), (js, jt) in zip(stats, j_stats):
+        # the port passes each layer's channel sums; its chain folds them as
+        # the JAX sweep does
+        tp = _stack_params(enc)
+        for ps, gamma, beta, (js, jt) in zip(stats, tp[2::4], tp[3::4], j_stats):
+            s, t = _gn_affine(ps, gamma, beta, x.shape[1] * x.shape[2], enc.num_groups, enc.eps)
             np.testing.assert_allclose(s.numpy(), np.asarray(js), rtol=1e-5, atol=1e-6)
             np.testing.assert_allclose(t.numpy(), np.asarray(jt), rtol=1e-5, atol=1e-6)
         for r0, n in ((0, 8), (8, 16), (24, 8), (4, 12)):
