@@ -1047,13 +1047,15 @@ def phase_k34(dev):
         q, k, v, g = _k34_inputs(dev, gen, shape)
         want = cross_scale_na2d_fused_ref(q, k, v, ks)
         want_g = cross_scale_na2d_fused_bwd_ref(q, k, v, g, ks)
-        before = (routes["wgmma"], routes["wgmma_bwd"])
+        keys = ("wgmma", "wgmma_bwd", "wgmma_chunked_bwd")
+        before = [routes[r] for r in keys]
         ins = [t.bfloat16().requires_grad_() for t in (q, k, v)]
         out = cross_scale_na2d_fused(*ins, ks)
         got_g = torch.autograd.grad(out, ins, g.bfloat16())
         torch.cuda.synchronize()
-        if (routes["wgmma"], routes["wgmma_bwd"]) != (before[0] + 1, before[1] + 1):
-            raise AssertionError(f"K3/K4 bf16 {label} did not run on the wgmma route")
+        if [routes[r] - n for r, n in zip(keys, before)] != [1, 1, 1]:
+            raise AssertionError(f"K3/K4 bf16 {label} did not run on the wgmma route, K4 on "
+                                 "its chunked boxes' two launches")
         c3 = _check_cos(f"K3 bf16 {label}", out.float(), want, 0.9995)
         c4 = [_check_cos(f"K4 bf16 {label} d{n}", a.float(), w, 0.9995)
               for a, w, n in zip(got_g, want_g, "qkv")]
@@ -1061,7 +1063,8 @@ def phase_k34(dev):
         nb = _plan_tc(hq, hq, hk, hk, ks, -(-d // 16) * 16, -(-dv // 16) * 16, True,
                       str(dev))[4]
         print(f"K3/K4 bf16 {label} {tuple(shape)}, k {ks}: box of {nb} cells in chunks of "
-              f"{TC_CHUNK} (wgmma); cos K3 {c3:.6f} K4 dq/dk/dv "
+              f"{TC_CHUNK} (wgmma; K4 from K3's log-sum-exp, query- and key-major); cos K3 "
+              f"{c3:.6f} K4 dq/dk/dv "
               + "/".join(f"{c:.6f}" for c in c4), flush=True)
         del q, k, v, g, want, want_g, out, got_g, ins
     _k4_bands(dev, gen)
@@ -1286,7 +1289,7 @@ def phase_train(dev, card, workdir):
 
     launches["routes"] = dict(cross_scale_na2d_fused.route_launches)
     if launches["routes"] != {"wgmma": STEPS, "fma": 0, "fma_chunked": 0, "wgmma_bwd": STEPS,
-                              "fma_bwd": 0, "fma_chunked_bwd": 0}:
+                              "wgmma_chunked_bwd": 0, "fma_bwd": 0, "fma_chunked_bwd": 0}:
         raise AssertionError(f"K3/K4 routes over the bf16 steps: {launches['routes']}")
     loop_ms = [a.elapsed_time(b) for a, b in zip(events[1:], events[2:])]
     run = os.path.join(cfg.log_dir, "version_0")
@@ -2465,7 +2468,10 @@ def phase_denoise_kernels(dev):
         grads = torch.autograd.grad(out, ins, g.to(dt))
         torch.cuda.synchronize()
         delta = _route_delta(r34, before)
-        if set(delta) != {route, f"{route}_bwd"} or delta[route] != 1:
+        # bf16: one chunked K4 call (its two launches); f32: its row bands
+        extra = {"wgmma_chunked_bwd"} if route == "wgmma" else set()
+        if (set(delta) != {route, f"{route}_bwd", *extra} or delta[route] != 1
+                or (extra and (delta[f"{route}_bwd"], delta["wgmma_chunked_bwd"]) != (1, 1))):
             raise AssertionError(f"K3/K4 {dt} at the denoiser's shape: routes {delta}")
         res[f"k4_launches_{route}"] = delta[f"{route}_bwd"]
         if dt == torch.float32:
@@ -2502,7 +2508,8 @@ def phase_denoise_kernels(dev):
                       for n, p in plans.items())
           + f"; bf16 (wgmma, boxes of {nb2} / {nb34} cells in chunks of {na.TC_CHUNK}) cos K2 "
           f"{res['k2_cos']:.6f} K3 {res['k3_cos']:.6f} K4 {res['k4_cos']:.6f} "
-          f"({res['k4_launches_wgmma']} K4 band(s)); (1, 64^2 <- 16^2, d 32) stays on fma",
+          f"({res['k4_launches_wgmma']} K4 call: a query-major and a key-major launch); "
+          f"(1, 64^2 <- 16^2, d 32) stays on fma",
           flush=True)
     res["plans"] = plans
     del enc, keys, values, q, k, v, g, want, want_g
@@ -2557,9 +2564,11 @@ def phase_denoiser(dev, card, workdir):
     r34 = dict(na.cross_scale_na2d_fused.route_launches)
     bands = c["k4"] // DENOISE_STEPS
     want = {"k1": 8 * DENOISE_STEPS, "k2": DENOISE_STEPS, "k3": DENOISE_STEPS}
+    # the chunked boxes' K4: one call a step (two launches, no bands)
     if ({k: c[k] for k in want} != want or r2["wgmma"] != DENOISE_STEPS
             or r34["wgmma"] != DENOISE_STEPS or r34["wgmma_bwd"] != c["k4"]
-            or c["k4"] != bands * DENOISE_STEPS or bands < 1 or c["k5"] or c["k6"]):
+            or r34["wgmma_chunked_bwd"] != c["k4"] or c["k4_chunked"] != c["k4"]
+            or c["k4"] != bands * DENOISE_STEPS or bands != 1 or c["k5"] or c["k6"]):
         raise AssertionError(f"denoiser launches over {DENOISE_STEPS} steps: {c}, K2 routes "
                              f"{r2}, K3/K4 routes {r34}")
     launches = dict(k1=c["k1"], k2=c["k2"], k3=c["k3"], k4=c["k4"], k4_bands=bands,
@@ -2793,7 +2802,9 @@ def _time_denoise_kernels(dev, card):
     """K2, K3 and K4 at the denoiser's attention: bf16 at the training batch
     (8, the chunked tensor-core kernels) and f32 at the validation batch (2,
     the chunked CUDA-core kernels; K3 and K4 there are the f32 step's):
-    device time (torch.profiler), the plain version, the bound. No library
+    device time (torch.profiler), the plain version, the bound. bf16 K4 is
+    its two launches from K3's statistics, as autograd runs it ("k4"), and
+    a direct call that runs the K3 feeding them first ("k4_k3"). No library
     call computes this attention: masked SDPA over every key would need a
     200,704 x 200,704 mask per image (40 GB as bool)."""
     from naf_torch.kernels import na2d_fused as na
@@ -2806,7 +2817,8 @@ def _time_denoise_kernels(dev, card):
     res = {}
     for dt, b, names in (
             (torch.bfloat16, DENOISE_BATCH, ("fused_q_wgmma_chunked", "na_fwd_wgmma_chunked",
-                                             ("na_bwd_wgmma_chunked", "na_bwd_reduce"))),
+                                             "na_bwd_wgmma_chunked",
+                                             ("na_fwd_wgmma_chunked", "na_bwd_wgmma_chunked"))),
             (torch.float32, 2, ("fused_q_chunked_kernel", "na_fwd_chunked_kernel",
                                 ("na_bwd_chunked_kernel", "na_bwd_reduce")))):
         (enc, keys, values, rt, ct, dh), (q, k, v, g) = _denoise_attention_inputs(dev, gen, b)
@@ -2820,19 +2832,23 @@ def _time_denoise_kernels(dev, card):
             return (max(nbytes / bw_peak, flops / peak) * 1e3,
                     "bytes" if nbytes / bw_peak > flops / peak else "operations")
 
+        stats = na._fwd(q, k, v, DENOISE_K, sc) if dt == torch.bfloat16 else None
+        b3 = (esz * pix * 2 * (d + dv), 2 * pix * slots * (d + dv))
+        b4 = (esz * pix * (2 * d + dv + 2 * (d + dv)), 2 * pix * slots * (3 * d + 2 * dv))
         calls = {
             "k2": (lambda: naf_upsample_attention(enc, keys, values, rt, ct, dh, **kw),
                    lambda: naf_upsample_attention_ref(enc, keys, values, rt, ct, dh, **kw),
                    bound(esz * pix * (2 * d + 2 * dv) + 4 * (rt.numel() + ct.numel()),
                          2 * pix * slots * (d + dv))),
             "k3": (lambda: na._launch_fwd(q, k, v, DENOISE_K, sc),
-                   lambda: na.cross_scale_na2d_fused_ref(q, k, v, DENOISE_K),
-                   bound(esz * pix * 2 * (d + dv), 2 * pix * slots * (d + dv))),
-            "k4": (lambda: na._launch_bwd(q, k, v, g, DENOISE_K, sc),
-                   lambda: na.cross_scale_na2d_fused_bwd_ref(q, k, v, g, DENOISE_K),
-                   bound(esz * pix * (2 * d + dv + 2 * (d + dv)),
-                         2 * pix * slots * (3 * d + 2 * dv))),
+                   lambda: na.cross_scale_na2d_fused_ref(q, k, v, DENOISE_K), bound(*b3)),
+            "k4": (lambda: na._launch_bwd(q, k, v, g, DENOISE_K, sc, stats=stats),
+                   lambda: na.cross_scale_na2d_fused_bwd_ref(q, k, v, g, DENOISE_K), bound(*b4)),
         }
+        if stats is not None:
+            calls["k4_k3"] = (lambda: na._launch_bwd(q, k, v, g, DENOISE_K, sc),
+                              lambda: na.cross_scale_na2d_fused_bwd_ref(q, k, v, g, DENOISE_K),
+                              bound(b3[0] + b4[0], b3[1] + b4[1]))
         tag = "bf16" if dt == torch.bfloat16 else "f32"
         for (name, (fn, plain_fn, (b_ms, b_by))), match in zip(calls.items(), names):
             ms = _kernel_ms(fn, match, reps=3)
@@ -2840,10 +2856,10 @@ def _time_denoise_kernels(dev, card):
             res[f"{name}_denoise_{tag}"] = dict(ms=ms, plain_ms=plain, bound_ms=b_ms,
                                                 bound_by=b_by, library_ms=None, batch=b)
             print(f"{name.upper()} {tag} denoiser attention ({b}, 448^2, d 256, dv 3, k 15, "
-                  f"ratio 1), chunked: kernel {ms:.4f} ms; plain {plain:.4f} ms; bound "
+                  f"ratio 1), chunked: kernels {match} {ms:.4f} ms; plain {plain:.4f} ms; bound "
                   f"{b_ms:.4f} ms ({b_by}); library: none feasible (masked SDPA needs a "
                   f"200,704 x 200,704 mask) ({card})", flush=True)
-        del enc, keys, values, q, k, v, g
+        del enc, keys, values, q, k, v, g, stats
         torch.cuda.empty_cache()
     return res
 
@@ -4091,7 +4107,7 @@ def main() -> int:
                        **{f"{k}_anyup": v for k, v in timing["k3_anyup"].items()},
                        **{f"{k}_banded": v for k, v in k3_band.items()}})
     # the denoising path (phases 13-16): launches from its 10 bf16 steps
-    # (K4 in bands) and its f32 validation (K2 on fma_chunked), the chunked
+    # (one chunked K4 call a step) and its f32 validation (K2 on fma_chunked), the chunked
     # kernels' errors and cosines at its attention, and their times
     for i, name in ((1, "k2"), (2, "k3"), (3, "k4")):
         kernels[i].update({
@@ -4104,6 +4120,8 @@ def main() -> int:
                                                  "tile's whole box fits shared memory")
     kernels[1]["launches_denoise_val_fma_chunked"] = den_launches["val_k2_fma_chunked"]
     kernels[3]["denoise_bands_per_step"] = den_launches["k4_bands"]
+    kernels[3].update({f"{k}_with_k3_denoise_bf16": v
+                       for k, v in timing["k4_k3_denoise_bf16"].items()})
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
              "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{**{k: kd[k] for k in order}, **kd} for kd in kernels]

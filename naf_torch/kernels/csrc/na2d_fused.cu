@@ -61,6 +61,12 @@
 // Where one launch's partials would exceed the wrapper's budget (15 GB at
 // 2048^2 <- 28^2), the wrapper runs the bf16 K4 once per band of query rows,
 // each reduce pass adding its sums to f32 dk, dv (add_f32), in band order.
+// The bf16 K4 on boxes above 192 cells writes no partials: K3 leaves each
+// query's log-sum-exp, and K4 runs as a query-major launch that writes dq and
+// a key-major one that writes dk and dv, each block summing its own rows
+// (na_tc.cuh, na_bwd_wgmma_chunked_kernel). At the denoiser's shape (one
+// head, d 256, k 15, 448^2 <- 448^2) the partials it replaced were 13.2 GB a
+// step of batch 8, written once and read once by 14 bands of reduce passes.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -723,11 +729,12 @@ cudaError_t launch_bwd_tc_nb(const void* q, const void* k, const void* v, const 
   return cudaGetLastError();
 }
 
-// Boxes above the largest NB: the chunked kernels over nbox cells.
+// Boxes above the largest NB: the chunked kernels over nbox cells. K3 also
+// writes each query's log-sum-exp (lse, f32 (B, Hq, Wq, n)).
 cudaError_t launch_fwd_tc_chunked(const void* q, const void* k, const void* v, const void* cnt_h,
                                   const void* cnt_w, const void* row_lo, const void* col_lo,
-                                  void* out, float scale, int B, const Geometry& g, int nbox,
-                                  cudaStream_t stream) {
+                                  void* out, void* lse, float scale, int B, const Geometry& g,
+                                  int nbox, cudaStream_t stream) {
   const auto kernel = natc::na_fwd_wgmma_chunked_kernel<natc::NBC>;
   const int smem = natc::smem_bytes_chunked(g.d, g.dv, false);
   cudaError_t err =
@@ -738,26 +745,39 @@ cudaError_t launch_fwd_tc_chunked(const void* q, const void* k, const void* v, c
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const uint8_t*>(cnt_h), static_cast<const uint8_t*>(cnt_w),
       static_cast<const int*>(row_lo), static_cast<const int*>(col_lo), static_cast<bf16*>(out),
-      nbox, scale, tc_geometry(g));
+      static_cast<float*>(lse), nbox, scale, tc_geometry(g));
   return cudaGetLastError();
 }
 
-cudaError_t launch_bwd_tc_chunked(const void* q, const void* k, const void* v, const void* dout,
-                                  const void* cnt_h, const void* cnt_w, const void* row_lo,
-                                  const void* col_lo, void* dq, void* partial, float scale, int B,
-                                  const Geometry& g, int nbox, cudaStream_t stream) {
-  const auto kernel = natc::na_bwd_wgmma_chunked_kernel<natc::NBC>;
-  const int smem = natc::smem_bytes_chunked(g.d, g.dv, true);
+// The key-major launch's transposed geometry: its rows are the LR grid's
+// keys in tiles of tkh x tkw, its boxes the qurh x qurw query cells from
+// (qlo_r[key tile row], qlo_c[key tile col]) of the query grid.
+natc::Geom kv_geometry(const Geometry& g, int tkh, int tkw, int qurh, int qurw) {
+  return natc::Geom{g.hk, g.wk, g.Hq, g.Wq, g.n, g.d, g.dv, tkh, tkw, qurh, qurw,
+                    (g.wk + tkw - 1) / tkw, 0, g.hk, 0};
+}
+
+// One of K4's two chunked launches (natc::Role) over boxes of nbox cells.
+template <natc::Role R>
+cudaError_t launch_bwd_role(const void* q, const void* k, const void* v, const void* dout,
+                            const void* out, const void* lse, const void* cnt_h,
+                            const void* cnt_w, const void* row_lo, const void* col_lo,
+                            const void* walk, void* dst, void* dst2, float scale, int B,
+                            const natc::Geom& tg, int nbox, cudaStream_t stream) {
+  const auto kernel = natc::na_bwd_wgmma_chunked_kernel<natc::NBC, R>;
+  const int smem = natc::smem_bytes_chunked(tg.d, tg.dv, true);
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   using natc::bf16;
-  kernel<<<dim3(tiles_of(g), g.n, B), natc::THREADS, smem, stream>>>(
+  const int tiles = ((tg.Hq + tg.tqh - 1) / tg.tqh) * tg.tiles_w;
+  kernel<<<dim3(tiles, tg.n, B), natc::THREADS, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(dout), static_cast<const uint8_t*>(cnt_h),
+      static_cast<const bf16*>(dout), static_cast<const bf16*>(out),
+      static_cast<const float*>(lse), static_cast<const uint8_t*>(cnt_h),
       static_cast<const uint8_t*>(cnt_w), static_cast<const int*>(row_lo),
-      static_cast<const int*>(col_lo), static_cast<bf16*>(dq), static_cast<float*>(partial),
-      nbox, scale, tc_geometry(g));
+      static_cast<const int*>(col_lo), static_cast<const int*>(walk), static_cast<bf16*>(dst),
+      static_cast<bf16*>(dst2), nbox, scale, tg);
   return cudaGetLastError();
 }
 
@@ -853,16 +873,20 @@ int naf_na_bwd_fma_chunked(const void* q, const void* k, const void* v, const vo
 
 // bf16, on the tensor cores (na_tc.cuh). cnt_h (Hq, urh) / cnt_w (Wq, urw)
 // uint8: how often each box cell occurs in the query's window. nb above 192:
-// the chunked kernels.
+// the chunked kernel, which also writes lse (f32 (B, Hq, Wq, n)); below, lse
+// is not read and may be null.
 int naf_na_fwd_wgmma(const void* q, const void* k, const void* v, const void* cnt_h,
                      const void* cnt_w, const void* row_lo, const void* col_lo, void* out,
-                     float scale, int B, int Hq, int Wq, int hk, int wk, int n, int d, int dv,
-                     int tqh, int tqw, int urh, int urw, int nb, void* stream) {
+                     void* lse, float scale, int B, int Hq, int Wq, int hk, int wk, int n, int d,
+                     int dv, int tqh, int tqw, int urh, int urw, int nb, void* stream) {
   const Geometry g = make_geometry(Hq, Wq, hk, wk, n, d, dv, 0, tqh, tqw, urh, urw);
   if (!tc_shape_ok(g, nb)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (nb > 192)
-    return launch_fwd_tc_chunked(q, k, v, cnt_h, cnt_w, row_lo, col_lo, out, scale, B, g, nb, s);
+  if (nb > 192) {
+    if (lse == nullptr) return cudaErrorInvalidValue;
+    return launch_fwd_tc_chunked(q, k, v, cnt_h, cnt_w, row_lo, col_lo, out, lse, scale, B, g,
+                                 nb, s);
+  }
   switch (nb) {
 #define X(N) \
   case N:    \
@@ -875,19 +899,17 @@ int naf_na_fwd_wgmma(const void* q, const void* k, const void* v, const void* cn
 
 // partial: (B, tiles, n, urh*urw, d+dv) f32 scratch, written before read.
 // add_f32 = 0: dk, dv bf16, written; 1: f32, the sums added to what they
-// hold (a band of query rows at a time, q / dO / dq the band's rows).
+// hold (a band of query rows at a time, q / dO / dq the band's rows). Boxes
+// of at most 192 cells; larger ones take naf_na_bwd_wgmma_chunked.
 int naf_na_bwd_wgmma(const void* q, const void* k, const void* v, const void* dout,
                      const void* cnt_h, const void* cnt_w, const void* row_lo,
                      const void* col_lo, void* dq, void* dk, void* dv_out, void* partial,
                      float scale, int B, int Hq, int Wq, int hk, int wk, int n, int d, int dv,
                      int tqh, int tqw, int urh, int urw, int nb, int add_f32, void* stream) {
   const Geometry g = make_geometry(Hq, Wq, hk, wk, n, d, dv, 0, tqh, tqw, urh, urw);
-  if (!tc_shape_ok(g, nb)) return cudaErrorInvalidValue;
+  if (!tc_shape_ok(g, nb) || nb > 192) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
-  if (nb > 192)
-    err = launch_bwd_tc_chunked(q, k, v, dout, cnt_h, cnt_w, row_lo, col_lo, dq, partial, scale,
-                                B, g, nb, s);
   switch (nb) {
 #define X(N)                                                                                   \
   case N:                                                                                      \
@@ -900,6 +922,39 @@ int naf_na_bwd_wgmma(const void* q, const void* k, const void* v, const void* do
   if (err != cudaSuccess) return err;
   if (add_f32) return launch_reduce<float>(partial, row_lo, col_lo, dk, dv_out, B, g, s, true);
   return launch_reduce<__nv_bfloat16>(partial, row_lo, col_lo, dk, dv_out, B, g, s);
+}
+
+// bf16 K4 on boxes above 192 cells (nb), from K3's out (B, Hq, Wq, n, dv) and
+// lse (f32 (B, Hq, Wq, n)): the query-major launch (K3's plan: tiles, boxes,
+// cnt_h, cnt_w, row_lo, col_lo) writes dq; the key-major one writes dk and dv
+// over tkh x tkw key tiles whose query boxes (qurh x qurw cells from qlo_r,
+// qlo_c, nbk a multiple of 128 above their cells) hold every query whose
+// window holds one of the tile's keys, with cntt_h (hk, qurh) / cntt_w (wk,
+// qurw) uint8: how often the key occurs in the window of each query of its
+// box, and walk (int32, per key tile row) the box cells its blocks visit. A
+// band of query rows takes the band's rows of the tables: its dk and dv are
+// its queries' share.
+int naf_na_bwd_wgmma_chunked(const void* q, const void* k, const void* v, const void* dout,
+                             const void* out, const void* lse, const void* cnt_h,
+                             const void* cnt_w, const void* row_lo, const void* col_lo,
+                             const void* cntt_h, const void* cntt_w, const void* qlo_r,
+                             const void* qlo_c, const void* walk, void* dq, void* dk,
+                             void* dv_out, float scale,
+                             int B, int Hq, int Wq, int hk, int wk, int n, int d, int dv, int tqh,
+                             int tqw, int urh, int urw, int nb, int tkh, int tkw, int qurh,
+                             int qurw, int nbk, void* stream) {
+  const Geometry g = make_geometry(Hq, Wq, hk, wk, n, d, dv, 0, tqh, tqw, urh, urw);
+  if (!tc_shape_ok(g, nb) || nb <= 192 || tkh * tkw != natc::M || nbk % natc::NBC != 0 ||
+      (long long)qurh * qurw > nbk || (long long)nbk * qurw >= (1ll << 32))
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = launch_bwd_role<natc::Role::DQ>(q, k, v, dout, out, lse, cnt_h, cnt_w,
+                                                    row_lo, col_lo, nullptr, dq, nullptr, scale,
+                                                    B, tc_geometry(g), nb, s);
+  if (err != cudaSuccess) return err;
+  return launch_bwd_role<natc::Role::DKV>(q, k, v, dout, out, lse, cntt_h, cntt_w, qlo_r, qlo_c,
+                                          walk, dk, dv_out, scale, B,
+                                          kv_geometry(g, tkh, tkw, qurh, qurw), nbk, s);
 }
 
 }  // extern "C"

@@ -14,7 +14,9 @@
 // an 8 x 8 tile shares one window: 448^2 <- 28^2 has a 9 x 9 box, NB = 96; at
 // the training shape's ratio 2, a 4 x 16 tile has a 10 x 12 box, NB = 128).
 // A box above 192 cells (ratio 1 from k = 7, ratio 2 from k = 11) runs in
-// chunks of 128 cells (the *_chunked kernels, at the end of this file).
+// chunks of 128 cells (the *_chunked kernels, at the end of this file; K4
+// there is FlashAttention-2's backward, in a query-major and a key-major
+// launch).
 //
 // The window of query (y, x) over the box is a mask with multiplicity:
 // count_h[y][box row] * count_w[x][box col] (host-built per-axis tables, the
@@ -412,8 +414,9 @@ __device__ __forceinline__ void window_bias(float (&s)[NB / 32][16], const float
 // thread's own values of each row half. The counts are read from the host's
 // tables cnt_h (Hq, urh), cnt_w (Wq, urw) through the L1 cache (in shared
 // memory they would cost K4 its second block per SM at the training shape).
-// Rows past the grid's edge have no window cell.
-template <int NB>
+// Rows past the grid's edge have no window cell. WIDE: boxes of any size
+// (cell * urw < 2^32), for the chunked K4's key-major boxes of queries.
+template <int NB, bool WIDE = false>
 __device__ __forceinline__ void window_mask(float (&s)[NB / 32][16], const Geom& g, const Tile& t,
                                             const uint8_t* __restrict__ cnt_h,
                                             const uint8_t* __restrict__ cnt_w, int cell0,
@@ -432,8 +435,9 @@ __device__ __forceinline__ void window_mask(float (&s)[NB / 32][16], const Geom&
     wrow[half] = cnt_w + (size_t)min(x, g.Wq - 1) * g.urw;
   }
   // cell / urw as a multiply and shift: exact while cell * urw < 2^16 (the
-  // planner keeps the padded box's cells times urw below it)
+  // planner keeps the padded box's cells times urw below it); WIDE in 64 bits
   const uint32_t inv_urw = (65535u + g.urw) / g.urw;
+  const unsigned long long inv_wide = ((1ull << 32) + g.urw - 1) / g.urw;
   mx[0] = mx[1] = -CUDART_INF_F;
 #pragma unroll
   for (int j = 0; j < NB / 32; ++j)
@@ -442,7 +446,8 @@ __device__ __forceinline__ void window_mask(float (&s)[NB / 32][16], const Geom&
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int cell = cell0 + 32 * j + acc_col(jj) + e;
-        const int bi = (cell * inv_urw) >> 16;
+        const int bi = WIDE ? (int)(((unsigned long long)cell * inv_wide) >> 32)
+                            : (int)((cell * inv_urw) >> 16);
         const int bj = cell - bi * g.urw;
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
@@ -814,12 +819,13 @@ na_bwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 // ------------------------------------------- boxes above 192 cells, chunked
 // A box of nbox cells (a multiple of NBC) runs in chunks of NBC cells, each
-// staged in turn into one K (and V) tile. The softmax statistics come first,
+// staged in turn into one K (and V) tile. K3's softmax statistics come first,
 // from a pass over the chunks' logits (a running row max and sum); then P is
-// exact per chunk, as the single-pass kernels compute it. K3's output and
-// K4's dq sum over the chunks in f32 in shared memory, each thread in its own
-// slots (the accumulator elements it holds); K4 takes delta from a second
-// pass, and each chunk's rows of the box partials from the third.
+// exact per chunk, as the single-pass kernels compute it, and K3 leaves each
+// query's log-sum-exp for K4. K4 reads those statistics and walks its box
+// once per launch (na_bwd_wgmma_chunked_kernel, below). Output, dq, dk and
+// dv sum over the chunks in f32 in shared memory, each thread in its own
+// slots (the accumulator elements it holds).
 
 // Running row max m and sum l of exp(logit - m), updated with a chunk's
 // masked logits s, whose largest per row half of this thread is cmx.
@@ -878,18 +884,17 @@ __device__ __forceinline__ void stage_keys(const Geom& g, const Tile& t, const b
 }
 
 // The statistics of the tile's rows over all chunks, staging each chunk of
-// keys into ks in turn (the first one's copies already in flight where
-// first_staged).
+// keys into ks in turn (the first one's copies already in flight).
 template <int NB>
 __device__ __forceinline__ void chunk_stats(const Geom& g, const Tile& t, const bf16* __restrict__ k,
                                             const uint8_t* __restrict__ cnt_h,
                                             const uint8_t* __restrict__ cnt_w, int nbox,
                                             float scale, uint32_t qs_u, unsigned char* ks,
-                                            bool first_staged, float (&m)[2], float (&l)[2]) {
+                                            float (&m)[2], float (&l)[2]) {
   m[0] = m[1] = -CUDART_INF_F;
   l[0] = l[1] = 0.f;
   for (int cell0 = 0; cell0 < nbox; cell0 += NB) {
-    if (cell0 > 0 || !first_staged) stage_keys<NB>(g, t, k, cell0, ks);
+    if (cell0 > 0) stage_keys<NB>(g, t, k, cell0, ks);
     staged(NB, g.d, ks, scale);
     float s[NB / 32][16], cmx[2];
     box_logits<NB>(s, qs_u, smem_u32(ks), g.d);
@@ -974,19 +979,22 @@ inline bool nb_supported(int nb, int urw) {
   return ok;
 }
 
-// Shared memory of one block of the chunked K3 / K4: the query tile (K4: and
-// dO), one chunk of the K/V box, the f32 sums of out (K3) or dq (K4), and
-// K4's P^T / dS^T tile.
+// Shared memory of one block of the chunked K3 / K4. K3: the query tile, one
+// chunk of the K/V box and the f32 sums of out. K4 (either launch): the
+// block's 64 rows of two operands ([64 x d], [64 x dv]), one chunk of the
+// other two ([NBC x d], [NBC x dv]), the f32 sums of dq or dk ([64 x d]) and
+// of dv ([64 x dv]), and the lse and delta of NBC rows.
 __host__ __device__ inline int smem_bytes_chunked(int d, int dv, bool backward) {
   const int qkv = 1024 + tile_bytes(M, d) + tile_bytes(NBC, d) + tile_bytes(NBC, dv);
   if (!backward) return qkv + M * dv * 4;
-  return qkv + tile_bytes(M, dv) + tile_bytes(NBC, M) + M * d * 4;
+  return qkv + tile_bytes(M, dv) + M * (d + dv) * 4 + 2 * NBC * 4;
 }
 
 // The chunked forward of one tile (shared memory as fwd_tile, then the
 // f32 sums of out): the first chunk's key copies start, build_q(qs) runs
 // while they are in flight (as in fwd_tile), and the first chunk's staging
-// makes both visible.
+// makes both visible. lse (K3; K2 passes none): each query's f32 log-sum-exp
+// of its window's logits, m + log(sum exp(s - m)), at (pixel, n).
 template <int NB, bool K2, typename BuildQ>
 __device__ __forceinline__ void fwd_tile_chunked(BuildQ build_q, const bf16* __restrict__ k,
                                                  const bf16* __restrict__ v,
@@ -994,14 +1002,21 @@ __device__ __forceinline__ void fwd_tile_chunked(BuildQ build_q, const bf16* __r
                                                  const uint8_t* __restrict__ cnt_w,
                                                  const Tile& t, bf16* __restrict__ out,
                                                  int out_ch, int nbox, float scale,
-                                                 const Geom& g, unsigned char* qs) {
+                                                 const Geom& g, unsigned char* qs,
+                                                 float* __restrict__ lse = nullptr) {
   unsigned char* ks = qs + tile_bytes(M, g.d);
   unsigned char* vs = ks + tile_bytes(NB, g.d);
   float* os = reinterpret_cast<float*>(vs + tile_bytes(NB, g.dv));  // 64 x dv
   stage_keys<NB>(g, t, k, 0, ks);
   build_q(qs);
   float m[2], inv[2];
-  chunk_stats<NB>(g, t, k, cnt_h, cnt_w, nbox, scale, smem_u32(qs), ks, true, m, inv);
+  chunk_stats<NB>(g, t, k, cnt_h, cnt_w, nbox, scale, smem_u32(qs), ks, m, inv);
+  if (lse != nullptr && (threadIdx.x & 3) == 0)  // a row's quad holds its statistics
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const long long p = query_pix(g, t, acc_row(half));
+      if (p >= 0) lse[p * g.n + t.h] = m[half] - logf(inv[half]);
+    }
   for (int i = 0; i < g.dv / 2; ++i) os[i * THREADS + threadIdx.x] = 0.f;
   for (int cell0 = 0; cell0 < nbox; cell0 += NB) {
     stage_chunk<NB>(g, t, k, v, cell0, scale, ks, vs);
@@ -1023,107 +1038,157 @@ __global__ void __launch_bounds__(THREADS)
 na_fwd_wgmma_chunked_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                             const bf16* __restrict__ v, const uint8_t* __restrict__ cnt_h,
                             const uint8_t* __restrict__ cnt_w, const int* __restrict__ row_lo,
-                            const int* __restrict__ col_lo, bf16* __restrict__ out, int nbox,
-                            float scale, Geom g) {
+                            const int* __restrict__ col_lo, bf16* __restrict__ out,
+                            float* __restrict__ lse, int nbox, float scale, Geom g) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const uint32_t raw_u = smem_u32(smem_raw);
   unsigned char* qs = smem_raw + (((raw_u + 1023u) & ~1023u) - raw_u);
   const Tile t = tile_of(g, row_lo, col_lo);
   stage(M, g.d, q, g.n, t.h, [&](int r) { return query_pix(g, t, r); }, qs);
   fwd_tile_chunked<NB, false>([](unsigned char*) {}, k, v, cnt_h, cnt_w, t, out, g.dv, nbox,
-                              scale, g, qs);
+                              scale, g, qs, lse);
 }
 
-template <int NB>
+// K4 on chunked boxes: FlashAttention-2's backward over the window, two
+// launches of one kernel, each walking its box once with K3's per-query
+// log-sum-exp (lse) and delta = rowsum(dO * O) of K3's output, so that P is
+// exact per chunk with no statistics pass. A block owns its 64 rows of dq, or
+// of dk and dv, and writes them once: no partials, no reduce pass, no
+// atomics, the same sums in the same order on every run.
+//  DQ   query-major, a block per 64-query tile (K3's geometry, tables and
+//       boxes): S = Q K_c^T (+ log count), P = exp(S - lse), dP = dO V_c^T,
+//       dS = P (dP - delta), dQ += dS K_c (keys pre-scaled: dQ is scale dS K).
+//  DKV  key-major, a block per 64-key tile of the LR grid, on the transposed
+//       geometry (kv_geometry in na2d_fused.cu): the tile's rows are its keys,
+//       its box the queries whose windows hold any of them, its count tables
+//       (key row, query-box row) and (key col, query-box col):
+//       S^T = K Q_c^T (+ log count), P^T = exp(S^T - lse of each column),
+//       dP^T = V dO_c^T, dS^T = P^T (dP^T - delta), dV += P^T dO_c,
+//       dK += dS^T Q_c, dk = scale dK. P^T and dS^T are accumulators, so they
+//       feed the RS wgmma from registers as K3 feeds P . V.
+// The two launches read the same lse and delta, and each visits every
+// (query, window cell) pair of the box once.
+enum class Role : int { DQ = 0, DKV = 1 };
+
+// lse and delta = sum_c dO * O (f32) of `rows` query rows, row r at pixel
+// pix(r) (0 for -1): st[r] and st[NBC + r].
+template <typename Pix>
+__device__ __forceinline__ void row_stats(int rows, const Geom& g, int h, const float* __restrict__ lse,
+                                          const bf16* __restrict__ out,
+                                          const bf16* __restrict__ dout, Pix pix, float* st) {
+  for (int r = threadIdx.x; r < rows; r += THREADS) {
+    const long long p = pix(r);
+    float l = 0.f, delta = 0.f;
+    if (p >= 0) {
+      l = lse[p * g.n + h];
+      const uint4* o = reinterpret_cast<const uint4*>(out + (p * g.n + h) * g.dv);
+      const uint4* gd = reinterpret_cast<const uint4*>(dout + (p * g.n + h) * g.dv);
+      for (int c = 0; c < g.dv / 8; ++c) {
+        const uint4 a = o[c], b = gd[c];
+        const __nv_bfloat162* ha = reinterpret_cast<const __nv_bfloat162*>(&a);
+        const __nv_bfloat162* hb = reinterpret_cast<const __nv_bfloat162*>(&b);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float2 x = __bfloat1622float2(ha[i]), y = __bfloat1622float2(hb[i]);
+          delta += x.x * y.x + x.y * y.y;
+        }
+      }
+    }
+    st[r] = l;
+    st[NBC + r] = delta;
+  }
+}
+
+// Rows a, a2 of the block (DQ: the tile's q, dO; DKV: its keys, scaled, and
+// v) and chunks b, b2 of its box (DQ: keys, scaled, and v; DKV: q and dO).
+// DQ writes dq (dst); DKV writes dk (dst) and dv (dst2). walk (DKV): the box
+// cells to visit per tile row (the rows that hold a query of its keys, whole
+// box rows from the first; at the grid's edges a tile's box holds more rows
+// than most); DQ visits all nbox.
+template <int NB, Role R>
 __global__ void __launch_bounds__(THREADS)
 na_bwd_wgmma_chunked_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                             const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                            const bf16* __restrict__ out, const float* __restrict__ lse,
                             const uint8_t* __restrict__ cnt_h, const uint8_t* __restrict__ cnt_w,
                             const int* __restrict__ row_lo, const int* __restrict__ col_lo,
-                            bf16* __restrict__ dq, float* __restrict__ partial, int nbox,
-                            float scale, Geom g) {
-  static_assert(NB % 64 == 0, "P^T's rows are whole 64-cell blocks");
+                            const int* __restrict__ walk, bf16* __restrict__ dst,
+                            bf16* __restrict__ dst2, int nbox, float scale, Geom g) {
+  static_assert(NB == NBC, "the statistics hold one chunk of rows");
+  constexpr bool DQ = R == Role::DQ;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const uint32_t raw_u = smem_u32(smem_raw);
-  unsigned char* qs = smem_raw + (((raw_u + 1023u) & ~1023u) - raw_u);  // [64 x d]
-  unsigned char* gs = qs + tile_bytes(M, g.d);                           // dO [64 x dv]
-  unsigned char* ks = gs + tile_bytes(M, g.dv);                          // chunk [NB x d]
-  unsigned char* vs = ks + tile_bytes(NB, g.d);                          // chunk [NB x dv]
-  unsigned char* pst = vs + tile_bytes(NB, g.dv);  // P^T, then dS^T [NB x 64]
-  float* dqs = reinterpret_cast<float*>(pst + tile_bytes(NB, M));  // 64 x d
+  unsigned char* a = smem_raw + (((raw_u + 1023u) & ~1023u) - raw_u);  // [64 x d]
+  unsigned char* a2 = a + tile_bytes(M, g.d);                           // [64 x dv]
+  unsigned char* b = a2 + tile_bytes(M, g.dv);                          // chunk [NB x d]
+  unsigned char* b2 = b + tile_bytes(NB, g.d);                          // chunk [NB x dv]
+  float* acc = reinterpret_cast<float*>(b2 + tile_bytes(NB, g.dv));     // dq or dk, 64 x d
+  float* acc2 = acc + M * g.d;                                          // dv, 64 x dv
+  float* st = acc2 + M * g.dv;                                          // lse, delta
   const Tile t = tile_of(g, row_lo, col_lo);
 
-  auto qpix = [&](int r) { return query_pix(g, t, r); };
-  stage(M, g.d, q, g.n, t.h, qpix, qs);
-  stage(M, g.dv, dout, g.n, t.h, qpix, gs);
-  float m[2], inv[2];
-  chunk_stats<NB>(g, t, k, cnt_h, cnt_w, nbox, scale, smem_u32(qs), ks, false, m, inv);
+  auto rpix = [&](int r) { return query_pix(g, t, r); };
+  stage(M, g.d, DQ ? q : k, g.n, t.h, rpix, a);
+  stage(M, g.dv, DQ ? dout : v, g.n, t.h, rpix, a2);
+  if (DQ) row_stats(M, g, t.h, lse, out, dout, rpix, st);
+  for (int i = 0; i < g.d / 2; ++i) acc[i * THREADS + threadIdx.x] = 0.f;
+  if (!DQ)
+    for (int i = 0; i < g.dv / 2; ++i) acc2[i * THREADS + threadIdx.x] = 0.f;
 
-  // P (bf16) and dP of one chunk
-  auto p_dp = [&](int cell0, uint32_t (&pp)[NB / 32][8], float (&dp)[NB / 32][16]) {
-    stage_chunk<NB>(g, t, k, v, cell0, scale, ks, vs);
-    float s[NB / 32][16];
-    box_logits<NB>(s, smem_u32(qs), smem_u32(ks), g.d);
-    window_probs<NB>(s, g, t, cnt_h, cnt_w, cell0, m, inv);
-    pack_pairs<NB>(s, pp);
-    box_logits<NB>(dp, smem_u32(gs), smem_u32(vs), g.dv);
-  };
-  // delta = rowsum(P * dP) over the whole box, P as bf16 as dS reads it
-  float delta[2] = {0.f, 0.f};
-  for (int cell0 = 0; cell0 < nbox; cell0 += NB) {
-    uint32_t pp[NB / 32][8];
-    float dp[NB / 32][16];
-    p_dp(cell0, pp, dp);
+  const int ncells = DQ ? nbox : walk[t.tile / g.tiles_w];
+  for (int cell0 = 0; cell0 < ncells; cell0 += NB) {
+    auto cpix = [&](int c) { return cell_pix(g, t, cell0 + c); };
+    stage(NB, g.d, DQ ? k : q, g.n, t.h, cpix, b);
+    stage(NB, g.dv, DQ ? v : dout, g.n, t.h, cpix, b2);
+    if (!DQ) row_stats(NB, g, t.h, lse, out, dout, cpix, st);
+    asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+    if (DQ)
+      scale_tile(NB, g.d, b, scale);
+    else if (cell0 == 0)
+      scale_tile(M, g.d, a, scale);
+    fence_async_smem();
+    __syncthreads();
+
+    float s[NB / 32][16], dp[NB / 32][16], cmx[2];
+    box_logits<NB>(s, smem_u32(a), smem_u32(b), g.d);
+    window_mask<NB, true>(s, g, t, cnt_h, cnt_w, cell0, cmx);
+    box_logits<NB>(dp, smem_u32(a2), smem_u32(b2), g.dv);
+    float lr[2], dr[2];  // DQ: the thread's rows' lse and delta
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      lr[half] = st[acc_row(half)];
+      dr[half] = st[NBC + acc_row(half)];
+    }
 #pragma unroll
     for (int j = 0; j < NB / 32; ++j)
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const float2 p = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&pp[j][i]));
-        delta[i & 1] += p.x * dp[j][2 * i] + p.y * dp[j][2 * i + 1];
+      for (int i = 0; i < 16; ++i) {
+        const int half = (i >> 1) & 1;
+        const int col = 32 * j + acc_col(i >> 2) + (i & 1);  // DKV: the column's query
+        const float p = __expf(s[j][i] - (DQ ? lr[half] : st[col]));
+        s[j][i] = p;
+        dp[j][i] = p * (dp[j][i] - (DQ ? dr[half] : st[NBC + col]));
       }
-    __syncthreads();
-  }
-  delta[0] = quad_sum(delta[0]);
-  delta[1] = quad_sum(delta[1]);
-
-  const int ncell = g.urh * g.urw;
-  const int dc = g.d + g.dv;
-  float* part = partial + (((size_t)t.b * gridDim.x + t.tile) * g.n + t.h) * ncell * dc;
-  for (int i = 0; i < g.d / 2; ++i) dqs[i * THREADS + threadIdx.x] = 0.f;
-  for (int cell0 = 0; cell0 < nbox; cell0 += NB) {
-    uint32_t pp[NB / 32][8];
-    uint32_t dsp[NB / 32][8];
-    {
-      float dp[NB / 32][16];
-      p_dp(cell0, pp, dp);
-#pragma unroll
-      for (int j = 0; j < NB / 32; ++j)
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          const float2 p = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&pp[j][i]));
-          dsp[j][i] = pack2(p.x * (dp[j][2 * i] - delta[i & 1]),
-                            p.y * (dp[j][2 * i + 1] - delta[i & 1]));
-        }
+    uint32_t pp[NB / 32][8], dsp[NB / 32][8];
+    pack_pairs<NB>(s, pp);
+    pack_pairs<NB>(dp, dsp);
+    uint32_t fr[NB / 16][4];
+    if (!DQ) {  // dV += P^T . dO_c
+      to_frags<NB>(pp, fr);
+      rs_accumulate<NB>(acc2, fr, smem_u32(b2), g.dv);
     }
-    {  // dQ += dS . K_chunk (k pre-scaled)
-      uint32_t da[NB / 16][4];
-      to_frags<NB>(dsp, da);
-      rs_accumulate<NB>(dqs, da, smem_u32(ks), g.d);
-    }
-    // the chunk's rows of the box partials: dV = P^T . dO, dK = scale dS^T . Q
-    float* part_c = part + (size_t)cell0 * dc;
-    put_transposed<NB>(pp, pst, NB);
-    fence_async_smem();
-    __syncthreads();
-    box_product(smem_u32(pst), NB, smem_u32(gs), g.dv, part_c, ncell - cell0, dc, g.d, 1.f);
-    __syncthreads();
-    put_transposed<NB>(dsp, pst, NB);
-    fence_async_smem();
-    __syncthreads();
-    box_product(smem_u32(pst), NB, smem_u32(qs), g.d, part_c, ncell - cell0, dc, 0, scale);
+    to_frags<NB>(dsp, fr);  // dQ += dS . K_c, or dK += dS^T . Q_c
+    rs_accumulate<NB>(acc, fr, smem_u32(b), g.d);
     __syncthreads();  // every warp is done with the chunk before the next lands
   }
-  store_own(dqs, dq, g, t, g.d, g.d);
+  asm volatile("cp.async.wait_all;\n" ::: "memory");  // a tile whose box walks nothing
+  if (DQ) {
+    store_own(acc, dst, g, t, g.d, g.d);
+  } else {
+    for (int i = 0; i < g.d / 2; ++i) acc[i * THREADS + threadIdx.x] *= scale;
+    store_own(acc, dst, g, t, g.d, g.d);
+    store_own(acc2, dst2, g, t, g.dv, g.dv);
+  }
 }
 
 }  // namespace natc

@@ -21,9 +21,14 @@ k 15) takes the chunked kernels, which walk the box in chunks of whole box
 rows ("fma_chunked", :func:`_plan_fma`); the bf16 route takes 64-query
 tiles, the shape with the smallest box (boxes above 192 cells in chunks of
 128), and per-axis tables of how often each box cell occurs in each
-query's window (:func:`_plan_tc`). Either raises where nothing fits. K4's bf16 and
-chunked f32 launches run in bands of query rows where their f32 box
-partials would exceed ``PARTIAL_BUDGET`` (:func:`_bwd_bands`).
+query's window (:func:`_plan_tc`). Either raises where nothing fits. K4's
+whole-box bf16 and chunked f32 launches run in bands of query rows where
+their f32 box partials would exceed ``PARTIAL_BUDGET`` (:func:`_bwd_bands`).
+The bf16 route's chunked boxes take FlashAttention-2's backward instead: K3
+there also writes each query's f32 log-sum-exp, and K4 is two launches with
+no partials, a query-major one for dq on K3's plan and a key-major one for
+dk and dv, whose 64-key tiles walk the box of queries whose windows hold
+their keys (:func:`_plan_kv`).
 
 Widths the kernels do not take are padded, not refused: d and dv get zero
 channels up to the route's multiple (:func:`_pad_heads`). Zero channels of q
@@ -33,7 +38,10 @@ columns of out and dv, which are sliced off, as are those of dq and dk.
 ``cross_scale_na2d_fused`` is a ``torch.autograd.Function``: on CUDA tensors
 its forward launches K3 and its backward launches K4 (counts in
 ``cross_scale_na2d_fused.launches`` and ``cross_scale_na2d_fused.bwd_launches``,
-per route in ``cross_scale_na2d_fused.route_launches``); on CPU tensors both
+per route in ``cross_scale_na2d_fused.route_launches``: "wgmma_bwd" counts
+every bf16 K4 call or band, "wgmma_chunked_bwd" those of them on the chunked
+boxes' two launches); on the chunked bf16 route the forward saves K3's
+output and log-sum-exp for the backward. On CPU tensors both
 directions run the plain versions, the backward through the explicit
 recompute-P formulas of the TPU kernel's ``_bwd_kernel``.
 """
@@ -70,8 +78,9 @@ TC_TILES = ((8, 8), (4, 16), (16, 4), (2, 32), (32, 2), (1, 64), (64, 1))
 TC_NB = (32, 64, 96, 128, 160, 192)
 TC_CHUNK = 128
 PAD = {"wgmma": 16, "fma": 4}
-# Bytes of K4's f32 box partials one bf16 launch may write; above it K4 runs
-# in bands of query rows, summing dk and dv over the bands in f32.
+# Bytes of K4's f32 box partials one whole-box bf16 (or chunked f32) launch
+# may write; above it K4 runs in bands of query rows, summing dk and dv over
+# the bands in f32.
 PARTIAL_BUDGET = 2**30
 # Gathered K/V windows one row block of the plain backward may hold.
 _ROW_BLOCK_BYTES = 256 * 2**20
@@ -292,8 +301,10 @@ def _tc_smem(d: int, dv: int, nb: int, backward: bool) -> int:
     """Shared memory of one block of the bf16 K3 / K4 (``natc::smem_bytes``,
     ``natc::smem_bytes_chunked`` above TC_NB): tiles in 128-byte swizzle,
     ceil(cols / 64) blocks of rows x 128 bytes each, 1024-aligned: q and the
-    K/V box (chunked: one chunk of it, and the f32 sums of out or dq); K4
-    also dO and one tile for P^T, then dS^T."""
+    K/V box (chunked: one chunk of it, and the f32 sums of out); K4 also dO
+    and one tile for P^T, then dS^T. Chunked K4 (either launch): the block's
+    64 rows of two operands, one chunk of the other two, the f32 sums of dq
+    or dk and of dv, and lse and delta for a chunk of rows."""
     def tile(rows, cols):
         return -(-cols // 64) * rows * 128
 
@@ -301,7 +312,7 @@ def _tc_smem(d: int, dv: int, nb: int, backward: bool) -> int:
         qkv = 1024 + tile(64, d) + tile(TC_CHUNK, d) + tile(TC_CHUNK, dv)
         if not backward:
             return qkv + 64 * dv * 4
-        return qkv + tile(64, dv) + tile(TC_CHUNK, 64) + 64 * d * 4
+        return qkv + tile(64, dv) + 64 * (d + dv) * 4 + 2 * TC_CHUNK * 4
     qkv = 1024 + tile(64, d) + tile(nb, d) + tile(nb, dv)
     if not backward:
         return qkv
@@ -361,6 +372,63 @@ def _plan_tc(hq, wq, hk, wk, ks, d, dv, backward, device, rows=None):
             to(_window_counts(idx_w, col_lo, tqw, urw)), to(row_lo), to(col_lo))
 
 
+def _query_box(idx: np.ndarray, tile: int, lr: int):
+    """(lo, need, ext) of the tiles of ``tile`` LR cells on one axis (the
+    keys): each tile's box of ``ext`` queries from query lo holds every
+    query whose window holds one of the tile's cells, and the first
+    ``need`` of them reach the last such query (0 where there is none)."""
+    n_t = -(-lr // tile)
+    first, last = np.zeros(n_t, np.int64), np.full(n_t, -1)
+    for i in range(n_t):
+        ys = np.flatnonzero(((idx >= i * tile) & (idx < (i + 1) * tile)).any(1))
+        if ys.size:
+            first[i], last[i] = ys[0], ys[-1]
+    ext = max(int((last - first).max()) + 1, 1)
+    lo = np.minimum(first, idx.shape[0] - ext)
+    need = np.where(last >= 0, last - lo + 1, 0)
+    return lo.astype(np.int32), need, ext
+
+
+def _key_counts(idx: np.ndarray, lo: np.ndarray, tile: int, ext: int, lr: int) -> np.ndarray:
+    """(lr, ext) uint8: how often each LR cell occurs in the window of each
+    query of its tile's query box, on one axis (the transpose of
+    :func:`_window_counts`)."""
+    rows = idx[lo[:, None] + np.arange(ext)]  # (tiles, ext, k)
+    cell = np.arange(lr)
+    return (rows[cell // tile] == cell[:, None, None]).sum(-1).astype(np.uint8)
+
+
+@functools.lru_cache(maxsize=64)
+def _plan_kv(hq, wq, hk, wk, ks, device, rows=None):
+    """The key-major plan of the chunked bf16 K4's dk/dv launch (tables on
+    ``device``): of the 64-key tiles of the LR grid in TC_TILES, the first
+    with the fewest chunks of TC_CHUNK cells to walk over all tiles. A
+    tile's box of queries holds every query whose window holds one of its
+    keys (of the band's rows where ``rows``); the boxes share one size, and
+    a tile walks its box's rows from the first up to the last that holds
+    such a query, whole rows (at the grid's edges natten's windows shift,
+    and those tiles' boxes need a row more). Returns (tkh, tkw, qurh, qurw,
+    nbk, cntt_h, cntt_w, qlo_r, qlo_c, walk): the tile, the box, its cells
+    padded to chunks, the transposed count tables (hk, qurh) and (wk,
+    qurw), each key tile row's and column's first query row and column, and
+    the cells each key tile row walks."""
+    idx_h, idx_w = _tables(hq, wq, hk, wk, ks, rows)
+    best = None
+    for tkh, tkw in TC_TILES:
+        lo_r, need_r, ext_r = _query_box(idx_h, tkh, hk)
+        lo_c, _, ext_c = _query_box(idx_w, tkw, wk)
+        walk = -(-need_r * ext_c // TC_CHUNK) * TC_CHUNK
+        work = int(walk.sum()) * lo_c.size
+        if best is None or work < best[0]:
+            best = (work, tkh, tkw, ext_r, ext_c, lo_r, lo_c, walk)
+    _, tkh, tkw, qurh, qurw, lo_r, lo_c, walk = best
+    nbk = -(-qurh * qurw // TC_CHUNK) * TC_CHUNK
+    to = lambda a: to_device(np.ascontiguousarray(a), device)
+    return (tkh, tkw, qurh, qurw, nbk, to(_key_counts(idx_h, lo_r, tkh, qurh, hk)),
+            to(_key_counts(idx_w, lo_c, tkw, qurw, wk)), to(lo_r), to(lo_c),
+            to(walk.astype(np.int32)))
+
+
 @functools.cache
 def _lib():
     lib = _build.load("na2d_fused")
@@ -376,10 +444,12 @@ def _lib():
     lib.naf_na_bwd_fma.argtypes = [ptr] * 12 + [f32] + [i32] * 14 + [ptr]
     lib.naf_na_fwd_fma_chunked.argtypes = [ptr] * 8 + [f32] + [i32] * 15 + [ptr]
     lib.naf_na_bwd_fma_chunked.argtypes = [ptr] * 12 + [f32] + [i32] * 16 + [ptr]
-    lib.naf_na_fwd_wgmma.argtypes = [ptr] * 8 + [f32] + [i32] * 13 + [ptr]
+    lib.naf_na_fwd_wgmma.argtypes = [ptr] * 9 + [f32] + [i32] * 13 + [ptr]
     lib.naf_na_bwd_wgmma.argtypes = [ptr] * 12 + [f32] + [i32] * 14 + [ptr]
+    lib.naf_na_bwd_wgmma_chunked.argtypes = [ptr] * 18 + [f32] + [i32] * 18 + [ptr]
     for fn in (lib.naf_na_fwd_fma, lib.naf_na_bwd_fma, lib.naf_na_fwd_fma_chunked,
-               lib.naf_na_bwd_fma_chunked, lib.naf_na_fwd_wgmma, lib.naf_na_bwd_wgmma):
+               lib.naf_na_bwd_fma_chunked, lib.naf_na_fwd_wgmma, lib.naf_na_bwd_wgmma,
+               lib.naf_na_bwd_wgmma_chunked):
         fn.restype = i32
     return lib
 
@@ -412,12 +482,23 @@ def _launch_fwd(q, k, v, kernel_size, scale, row0: int = 0, full_hq=None):
     """Launch K3 on CUDA tensors; returns (B, Hq, Wq, n, dv) in q's dtype.
     A band (q = rows [row0, row0 + Hq) of a ``full_hq``-row grid) runs the
     same kernel on the band's rows of the global window tables."""
+    out, _ = _fwd(q, k, v, kernel_size, scale, row0, full_hq)
+    dv = v.shape[-1]
+    return out[..., :dv] if out.shape[-1] != dv else out
+
+
+def _fwd(q, k, v, kernel_size, scale, row0: int = 0, full_hq=None):
+    """K3 as :func:`_launch_fwd` launches it: (out with the route's padded
+    dv, lse). On the bf16 route's chunked boxes lse is each query's f32
+    log-sum-exp of its window's logits (B, Hq, Wq, n), which the chunked K4
+    reads; elsewhere None."""
     b, hq, wq, n, d, hk, wk, dv = _check(q, k, v)
     full = hq if full_hq is None else full_hq
     rows = None if full == hq else (row0, row0 + hq)
     route, qc, kc, vc = _operands(q, k, v)
     dp, dvp = qc.shape[-1], vc.shape[-1]
     out = torch.empty((b, hq, wq, n, dvp), dtype=q.dtype, device=q.device)
+    lse = None
     lib = _lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -425,10 +506,12 @@ def _launch_fwd(q, k, v, kernel_size, scale, row0: int = 0, full_hq=None):
         if route == "wgmma":
             tqh, tqw, urh, urw, nb, cnt_h, cnt_w, row_lo, col_lo = _plan_tc(
                 full, wq, hk, wk, kernel_size, dp, dvp, False, str(q.device), rows)
+            if nb > TC_NB[-1]:
+                lse = torch.empty((b, hq, wq, n), dtype=torch.float32, device=q.device)
             err = lib.naf_na_fwd_wgmma(
                 *ptrs, cnt_h.data_ptr(), cnt_w.data_ptr(), row_lo.data_ptr(),
-                col_lo.data_ptr(), out.data_ptr(), scale, b, hq, wq, hk, wk, n, dp, dvp, tqh,
-                tqw, urh, urw, nb, stream)
+                col_lo.data_ptr(), out.data_ptr(), None if lse is None else lse.data_ptr(),
+                scale, b, hq, wq, hk, wk, n, dp, dvp, tqh, tqw, urh, urw, nb, stream)
         else:
             route, plan = _plan_fma(_lib, "naf_na_fwd_smem", "naf_na_fwd_chunk_smem", _TILES,
                                     (SMEM_BUDGET, SMEM_MAX), full, wq, hk, wk, kernel_size, dp,
@@ -442,7 +525,7 @@ def _launch_fwd(q, k, v, kernel_size, scale, row0: int = 0, full_hq=None):
         raise RuntimeError(f"na2d_fused forward kernel ({route}) launch failed: cudaError {err}")
     cross_scale_na2d_fused.launches += 1
     cross_scale_na2d_fused.route_launches[route] += 1
-    return out[..., :dv] if dvp != dv else out
+    return out, lse
 
 
 def _bwd_bands(b, hq, wq, n, dc, tqh, tqw, ncell):
@@ -498,13 +581,47 @@ def _bwd_plan(route, hq, wq, hk, wk, ks, dp, dvp, dev, rows=None):
                      wq, hk, wk, ks, dp, dvp, dev, rows)
 
 
-def _launch_bwd(q, k, v, dout, kernel_size, scale, row0: int = 0, full_hq=None):
+def _bwd_chunked(plan, q, k, v, g, stats, scale, kernel_size, row0, full, rows):
+    """The bf16 K4 on chunked boxes, on prepared operands: the query-major
+    launch (K3's ``plan``) writes dq, the key-major one (:func:`_plan_kv`)
+    dk and dv, both from K3's padded output and lse (``stats``; one K3
+    launch here where None). Returns (dq, dk, dv) with padded widths."""
+    b, hq, wq, n, dp = q.shape
+    _, hk, wk, _, dvp = v.shape
+    out, lse = stats if stats is not None else _fwd(q, k, v, kernel_size, scale, row0, full)
+    out = _aligned(out)
+    tqh, tqw, urh, urw, nb, cnt_h, cnt_w, row_lo, col_lo = plan
+    tkh, tkw, qurh, qurw, nbk, cntt_h, cntt_w, qlo_r, qlo_c, walk = _plan_kv(
+        full, wq, hk, wk, kernel_size, str(q.device), rows)
+    dq = torch.empty_like(q)
+    dk = torch.empty_like(k)
+    dvv = torch.empty_like(v)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _lib().naf_na_bwd_wgmma_chunked(
+            *(t.data_ptr() for t in (q, k, v, g, out, lse, cnt_h, cnt_w, row_lo, col_lo,
+                                     cntt_h, cntt_w, qlo_r, qlo_c, walk, dq, dk, dvv)),
+            scale, b, hq, wq, hk, wk, n, dp, dvp, tqh, tqw, urh, urw, nb, tkh, tkw, qurh, qurw,
+            nbk, stream)
+    if err:
+        raise RuntimeError(f"na2d_fused chunked backward kernels (wgmma) launch failed: "
+                           f"cudaError {err}")
+    cross_scale_na2d_fused.bwd_launches += 1
+    cross_scale_na2d_fused.route_launches["wgmma_bwd"] += 1
+    cross_scale_na2d_fused.route_launches["wgmma_chunked_bwd"] += 1
+    return dq, dk, dvv
+
+
+def _launch_bwd(q, k, v, dout, kernel_size, scale, row0: int = 0, full_hq=None, stats=None):
     """Launch K4 on CUDA tensors; returns (dq, dk, dv) in q's / k's / v's
-    dtype. The tensor-core and chunked routes run one launch per band of
-    :func:`_bwd_bands` (a band's plan may take another f32 route: its boxes
-    are those of its own rows). A band of a ``full_hq``-row grid (q, dout =
-    rows [row0, row0 + Hq)) plans every launch on the global rows it holds,
-    as K3's banded launch does; its dk and dv cover the whole LR grid."""
+    dtype. The whole-box tensor-core route and the chunked f32 route run one
+    launch per band of :func:`_bwd_bands` (a band's plan may take another
+    f32 route: its boxes are those of its own rows); the bf16 chunked boxes
+    take :func:`_bwd_chunked`'s two launches, from ``stats`` = (out, lse) of
+    :func:`_fwd` where the caller has them. A band of a ``full_hq``-row
+    grid (q, dout = rows [row0, row0 + Hq)) plans every launch on the global
+    rows it holds, as K3's banded launch does; its dk and dv cover the whole
+    LR grid."""
     b, hq, wq, n, d, hk, wk, dv = _check(q, k, v, dout)
     if dout.shape != (b, hq, wq, n, dv):
         raise ValueError(f"dO {tuple(dout.shape)} does not fit the output {(b, hq, wq, n, dv)}")
@@ -514,6 +631,10 @@ def _launch_bwd(q, k, v, dout, kernel_size, scale, row0: int = 0, full_hq=None):
     dp, dvp = qc.shape[-1], vc.shape[-1]
     dev = str(q.device)
     route, plan = _bwd_plan(route, full, wq, hk, wk, kernel_size, dp, dvp, dev, rows)
+    if route == "wgmma" and plan[4] > TC_NB[-1]:
+        dq, dk, dvv = _bwd_chunked(plan, qc, kc, vc, gc, stats, scale, kernel_size, row0, full,
+                                   rows)
+        return dq[..., :d], dk[..., :d], dvv[..., :dv]
     bands = [(0, hq)]
     if route != "fma":
         bands = _bwd_bands(b, hq, wq, n, dp + dvp, plan[0], plan[1], plan[2] * plan[3])
@@ -543,15 +664,19 @@ class _FusedNA(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, kernel_size, scale, row_cell0, full_hq):
         ctx.meta = (kernel_size, scale, row_cell0, full_hq)
-        ctx.save_for_backward(q, k, v)
         if q.device.type == "cpu":
+            ctx.save_for_backward(q, k, v)
             return cross_scale_na2d_fused_ref(q, k, v, kernel_size, scale, row_cell0, full_hq)
-        return _launch_fwd(q, k, v, kernel_size, scale, *_band_rows(q, k, row_cell0, full_hq))
+        out, lse = _fwd(q, k, v, kernel_size, scale, *_band_rows(q, k, row_cell0, full_hq))
+        # the chunked K4 reads K3's statistics: its padded output and lse
+        ctx.save_for_backward(q, k, v, *(() if lse is None else (out, lse)))
+        dv = v.shape[-1]
+        return out[..., :dv] if out.shape[-1] != dv else out
 
     @staticmethod
     def backward(ctx, g):
         kernel_size, scale, row_cell0, full_hq = ctx.meta
-        q, k, v = ctx.saved_tensors
+        q, k, v, *stats = ctx.saved_tensors
         with span("naf.attention.backward"):
             g = g.to(q.dtype)
             if q.device.type == "cpu":
@@ -559,7 +684,7 @@ class _FusedNA(torch.autograd.Function):
                                                        row_cell0, full_hq)
             else:
                 grads = _launch_bwd(q, k, v, g, kernel_size, scale,
-                                    *_band_rows(q, k, row_cell0, full_hq))
+                                    *_band_rows(q, k, row_cell0, full_hq), stats=stats or None)
         return (*grads, None, None, None, None)
 
 
@@ -586,4 +711,5 @@ def cross_scale_na2d_fused(q, k, v, kernel_size: int, scale=None, row_cell0: int
 cross_scale_na2d_fused.launches = 0
 cross_scale_na2d_fused.bwd_launches = 0
 cross_scale_na2d_fused.route_launches = dict.fromkeys(
-    ("wgmma", "fma", "fma_chunked", "wgmma_bwd", "fma_bwd", "fma_chunked_bwd"), 0)
+    ("wgmma", "fma", "fma_chunked", "wgmma_bwd", "wgmma_chunked_bwd", "fma_bwd",
+     "fma_chunked_bwd"), 0)

@@ -8,7 +8,8 @@ edit of the core (one ``nvcc`` per variant, all started together, into
 ``build/naf_torch/na_ablate/``), and with ``--against`` once more from the
 unedited sources of another checkout rooted at TREE (variant ``against``:
 e.g. the parent commit unpacked with ``git archive``, so that both are
-timed in one process on one card), and times each kernel alone on its C entry
+timed in one process on one card; its C entries must take this checkout's
+arguments, K3's ``lse`` pointer included), and times each kernel alone on its C entry
 by its device time (torch.profiler, ``chip_smoke.py``'s ``_kernel_ms``) at
 the training shape (4, 32^2 <- 16^2, 4 heads, d 64, dv 192) and at 448^2 <-
 28^2 (d 64, dv 96), k 9, bf16, in two rounds, the second in reverse order.
@@ -108,7 +109,7 @@ def _build_variants(out_dir, against=None):
         print(f"{name}: " + ", ".join(f"{k}<{nb}> {r} regs, {s} B spills" for (k, nb), r, s in
                                       zip(entries, regs, spills) if nb), flush=True)
         cdll = ctypes.CDLL(str(out_dir / name / "lib.so"))
-        cdll.naf_na_fwd_wgmma.argtypes = [ptr] * 8 + [f32] + [i32] * 13 + [ptr]
+        cdll.naf_na_fwd_wgmma.argtypes = [ptr] * 9 + [f32] + [i32] * 13 + [ptr]
         cdll.naf_na_bwd_wgmma.argtypes = [ptr] * 12 + [f32] + [i32] * 14 + [ptr]
         cdll.naf_na_fwd_wgmma.restype = cdll.naf_na_bwd_wgmma.restype = i32
         libs[name] = cdll
@@ -148,8 +149,8 @@ def _calls(dev, gen, stream, shape, na):
         tqh, tqw, urh, urw, nb, ch, cw, rl, cl = pf
         return lambda: lib.naf_na_fwd_wgmma(
             qb.data_ptr(), kb.data_ptr(), vb.data_ptr(), ch.data_ptr(), cw.data_ptr(),
-            rl.data_ptr(), cl.data_ptr(), out.data_ptr(), sc, *geo, tqh, tqw, urh, urw, nb,
-            stream)
+            rl.data_ptr(), cl.data_ptr(), out.data_ptr(), None, sc, *geo, tqh, tqw, urh, urw,
+            nb, stream)
 
     def bwd(lib):
         tqh, tqw, urh, urw, nb, ch, cw, rl, cl = pb

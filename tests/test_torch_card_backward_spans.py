@@ -4,8 +4,9 @@ twin's), which run on the autograd engine's thread.
 
 - One profiled denoiser step (NAF as a restorer: one head, k 15, 448^2 <-
   448^2 values, bf16; batch 1): each backward span once a step, under
-  ``denoise.backward``; K3 and K4's chunked kernels and K4's reduce pass
-  inside ``naf.attention.backward``'s device ranges (K3/K4's own span
+  ``denoise.backward``; K3 and K4's chunked kernels (K4's two launches a
+  step, and no reduce pass: the chunked K4 writes no partials) inside
+  ``naf.attention.backward``'s device ranges (K3/K4's own span
   folds into K2's, so no range of that name overlaps another), the
   encoder twin's kernels inside ``naf.encoder.backward``'s, and none of the
   port's kernels there.
@@ -29,7 +30,7 @@ import pytest
 import torch
 
 STEPS = 2
-K34 = ("na_fwd_wgmma_chunked_kernel", "na_bwd_wgmma_chunked_kernel", "na_bwd_reduce_kernel")
+K34 = ("na_fwd_wgmma_chunked_kernel", "na_bwd_wgmma_chunked_kernel")
 PORT = ("gn_silu_conv", "fused_q_", "na_fwd_", "na_bwd_", "rope_keys")
 SPANS = ("naf.attention.backward", "naf.encoder.backward")
 ROOT = Path(__file__).resolve().parents[1]
@@ -110,6 +111,8 @@ def test_attention_backward_holds_k3_k4_and_counts_them_once(denoise_step):
     k34 = [op for op in dev if any(k in op[0] for k in K34)]
     under = _under(dev, ranges)
     assert {k for k in K34 if any(k in n for n, _, _ in k34)} == set(K34)
+    assert sum("na_bwd_wgmma_chunked_kernel" in n for n, _, _ in k34) == 2 * STEPS
+    assert not [n for n, _, _ in dev if "na_bwd_reduce_kernel" in n]
     assert all(op in under for op in k34)
     assert not _under(k34, ann["naf.encoder.backward"])
     ms = sum(t - s for _, s, t in under) / STEPS * 1e-6

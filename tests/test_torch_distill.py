@@ -258,15 +258,17 @@ def test_launches_since_reads_each_counter():
     from naf_torch.kernels.na2d_fused import cross_scale_na2d_fused
 
     before = launch_counts()
-    assert set(before) == {"k1", "k2", "k3", "k4", "k5", "k6", "keys", "stem"}
+    assert set(before) == {"k1", "k2", "k3", "k4", "k4_chunked", "k5", "k6", "keys", "stem"}
     gn_silu_conv_fused.launches += 3
     cross_scale_na2d_fused.bwd_launches += 2
+    cross_scale_na2d_fused.route_launches["wgmma_chunked_bwd"] += 1
     try:
-        assert launches_since(before) == {"k1": 3, "k2": 0, "k3": 0, "k4": 2, "k5": 0, "k6": 0,
-                                          "keys": 0, "stem": 0}
+        assert launches_since(before) == {"k1": 3, "k2": 0, "k3": 0, "k4": 2, "k4_chunked": 1,
+                                          "k5": 0, "k6": 0, "keys": 0, "stem": 0}
     finally:
         gn_silu_conv_fused.launches -= 3
         cross_scale_na2d_fused.bwd_launches -= 2
+        cross_scale_na2d_fused.route_launches["wgmma_chunked_bwd"] -= 1
 
 
 # ---------------------------------------------------------------- training ----
