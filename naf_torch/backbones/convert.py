@@ -8,7 +8,12 @@ with ``ViT(cfg).load_state_dict(state)``:
 - timm ``VisionTransformer`` (DINO, DINOv2 through timm, MAE, SigLIP-style
   trunks): ``convert_timm_vit``, the names already the port's;
 - HuggingFace ``Dinov2Model`` / ``Dinov2WithRegistersModel``:
-  ``convert_hf_dinov2``; ``DINOv3ViTModel``: ``convert_hf_dinov3``;
+  ``convert_hf_dinov2``; ``DINOv3ViTModel``: ``convert_hf_dinov3``, its GELU
+  MLP (``up_proj`` / ``down_proj``) or gated one (``gate_proj`` /
+  ``up_proj`` / ``down_proj``, ViT-7B/16);
+- the dinov3 repository's hub checkpoints (``storage_tokens``, a masked k
+  bias, ``mlp.fc1`` / ``fc2`` or SwiGLU's ``mlp.w1`` / ``w2`` / ``w3``):
+  ``convert_dinov3``;
 - RADIO and CAPI hub checkpoints, a timm trunk under a prefix, registers as
   ``register_tokens`` / ``storage_tokens``: ``convert_radio``, ``convert_capi``;
 - Franca, a timm trunk plus its RASA head: ``convert_franca``;
@@ -35,6 +40,7 @@ __all__ = [
     "convert_timm_vit",
     "convert_hf_dinov2",
     "convert_hf_dinov3",
+    "convert_dinov3",
     "convert_radio",
     "convert_franca",
     "convert_capi",
@@ -153,11 +159,29 @@ def convert_hf_dinov2(state: Mapping, num_heads: int) -> Tuple[dict, ViTConfig]:
     return _finish(out, cfg)
 
 
+def _ffn(state: Mapping, c: int, gated: str, plain: str) -> dict:
+    """The FFN's ``ViTConfig`` fields from block 0's tensors: SwiGLU where
+    ``gated`` (its gate's weight) is a key, else a GELU MLP whose first
+    weight is ``plain``."""
+    if gated in state:
+        return dict(ffn="swiglu", mlp_hidden=_t(state[gated]).shape[0])
+    return dict(mlp_ratio=_t(state[plain]).shape[0] / c)
+
+
+def _qkv_bias(parts, c: int):
+    """The fused qkv bias from its q, k and v parts (None where a part has
+    none: zeros), or None where no part has one."""
+    if all(b is None for b in parts):
+        return None
+    return torch.cat([torch.zeros(c) if b is None else _t(b) for b in parts])
+
+
 def convert_hf_dinov3(state: Mapping, num_heads: int,
                       rope_theta: float = 100.0) -> Tuple[dict, ViTConfig]:
     """HF DINOv3ViTModel state dict -> (state, config): rotary positions in
     every block and no learned ones, separate q/k/v projections (k without a
-    bias: zeros), up/down MLP names, LayerNorm eps 1e-5."""
+    bias: zeros; ViT-7B/16 with none at all), up/down MLP names or the gated
+    FFN's gate/up/down, LayerNorm eps 1e-5."""
     pe_w = _t(state["embeddings.patch_embeddings.weight"])
     c, _, ps, _ = pe_w.shape
     depth = _depth(state, "layer.", 1)
@@ -167,12 +191,13 @@ def convert_hf_dinov3(state: Mapping, num_heads: int,
         embed_dim=c,
         depth=depth,
         num_heads=num_heads,
-        mlp_ratio=_t(state["layer.0.mlp.up_proj.weight"]).shape[0] / c,
         num_reg_tokens=_t(state["embeddings.register_tokens"]).shape[1],
         layerscale=True,
         ln_eps=1e-5,
         rope_theta=rope_theta,
         use_cls_pos=False,
+        qkv_bias=any(f"layer.0.attention.{m}_proj.bias" in state for m in "qkv"),
+        **_ffn(state, c, "layer.0.mlp.gate_proj.weight", "layer.0.mlp.up_proj.weight"),
     )
     out = {
         "patch_embed.proj.weight": pe_w,
@@ -183,22 +208,85 @@ def convert_hf_dinov3(state: Mapping, num_heads: int,
     }
     if cfg.num_reg_tokens:
         out["reg_token"] = _t(state["embeddings.register_tokens"])
-    out.update(_blocks(state, cfg, {
-        "norm1.weight": p + "norm1.weight", "norm1.bias": p + "norm1.bias",
-        "attn.proj.weight": p + "attention.o_proj.weight",
-        "attn.proj.bias": p + "attention.o_proj.bias",
-        "ls1.gamma": p + "layer_scale1.lambda1", "ls2.gamma": p + "layer_scale2.lambda1",
-        "norm2.weight": p + "norm2.weight", "norm2.bias": p + "norm2.bias",
-        "mlp.fc1.weight": p + "mlp.up_proj.weight", "mlp.fc1.bias": p + "mlp.up_proj.bias",
-        "mlp.fc2.weight": p + "mlp.down_proj.weight", "mlp.fc2.bias": p + "mlp.down_proj.bias",
-    }))
+    mlp = {"fc1_g": "gate_proj", "fc1_x": "up_proj", "fc2": "down_proj"} if cfg.ffn == "swiglu" \
+        else {"fc1": "up_proj", "fc2": "down_proj"}
+    names = {"norm1.weight": p + "norm1.weight", "norm1.bias": p + "norm1.bias",
+             "attn.proj.weight": p + "attention.o_proj.weight",
+             "attn.proj.bias": p + "attention.o_proj.bias",
+             "ls1.gamma": p + "layer_scale1.lambda1", "ls2.gamma": p + "layer_scale2.lambda1",
+             "norm2.weight": p + "norm2.weight", "norm2.bias": p + "norm2.bias"}
+    for port, src in mlp.items():
+        names.update({f"mlp.{port}.{kind}": f"{p}mlp.{src}.{kind}" for kind in ("weight", "bias")})
+    out.update(_blocks(state, cfg, names))
     for i in range(depth):
         a = f"layer.{i}.attention."
         out[f"blocks.{i}.attn.qkv.weight"] = torch.cat(
             [_t(state[f"{a}{m}_proj.weight"]) for m in ("q", "k", "v")])
-        out[f"blocks.{i}.attn.qkv.bias"] = torch.cat(
-            [_t(state[f"{a}{m}_proj.bias"]) if f"{a}{m}_proj.bias" in state
-             else torch.zeros(c) for m in ("q", "k", "v")])
+        bias = _qkv_bias([state.get(f"{a}{m}_proj.bias") for m in ("q", "k", "v")], c)
+        if bias is not None:
+            out[f"blocks.{i}.attn.qkv.bias"] = bias
+    return _finish(out, cfg)
+
+
+# Keys of the dinov3 repository's state that the port's ViT has no use for:
+# the masked-token embedding, the cls token's own norms (the patch tokens take
+# ``norm``) and the RoPE periods (rebuilt from ``rope_theta``).
+_DINOV3_DROPPED = ("mask_token", "cls_norm.", "local_cls_norm.", "rope_embed.periods")
+
+
+def convert_dinov3(state: Mapping, num_heads: int,
+                   rope_theta: float = 100.0) -> Tuple[dict, ViTConfig]:
+    """The dinov3 repository's ``DinoVisionTransformer`` state dict (its hub
+    entries) -> (state, config): timm-like block names, registers as
+    ``storage_tokens``, rotary positions (``rope_embed.periods``, rebuilt
+    from ``rope_theta``) and no learned ones, LayerNorm eps 1e-5. The fused
+    qkv bias, where there is one, is multiplied by its ``bias_mask`` (the
+    masked k bias). The FFN is ``mlp.fc1`` / ``fc2`` or SwiGLU's ``mlp.w1``
+    (gate), ``w2`` (up), ``w3`` (down). The keys of ``_DINOV3_DROPPED`` are
+    dropped; any other key left unused raises, since the flags (registers,
+    LayerScale, biases) are read from which keys are there."""
+    pe_w = _t(state["patch_embed.proj.weight"])
+    c, _, ps, _ = pe_w.shape
+    depth = _depth(state, "blocks.", 1)
+    cfg = ViTConfig(
+        patch_size=ps,
+        embed_dim=c,
+        depth=depth,
+        num_heads=num_heads,
+        num_reg_tokens=_t(state["storage_tokens"]).shape[1] if "storage_tokens" in state else 0,
+        layerscale="blocks.0.ls1.gamma" in state,
+        ln_eps=1e-5,
+        rope_theta=rope_theta,
+        use_cls_pos=False,
+        qkv_bias="blocks.0.attn.qkv.bias" in state,
+        patch_bias="patch_embed.proj.bias" in state,
+        **_ffn(state, c, "blocks.0.mlp.w1.weight", "blocks.0.mlp.fc1.weight"),
+    )
+    out = {k: _t(state[k]) for k in ("patch_embed.proj.weight", "patch_embed.proj.bias",
+                                     "cls_token", "norm.weight", "norm.bias") if k in state}
+    used = set(out)
+    if cfg.num_reg_tokens:
+        out["reg_token"] = _t(state["storage_tokens"])
+        used.add("storage_tokens")
+    p = "blocks.{i}."
+    mlp = {"fc1_g": "w1", "fc1_x": "w2", "fc2": "w3"} if cfg.ffn == "swiglu" \
+        else {"fc1": "fc1", "fc2": "fc2"}
+    names = {k: p + k for k in ("norm1.weight", "norm1.bias", "attn.qkv.weight",
+                                "attn.proj.weight", "attn.proj.bias", "ls1.gamma", "ls2.gamma",
+                                "norm2.weight", "norm2.bias")}
+    for port, src in mlp.items():
+        names.update({f"mlp.{port}.{kind}": f"{p}mlp.{src}.{kind}" for kind in ("weight", "bias")})
+    blocks = _blocks(state, cfg, names)
+    out.update(blocks)
+    used.update(names[k.split(".", 2)[2]].format(i=k.split(".")[1]) for k in blocks)
+    for i in range(depth if cfg.qkv_bias else 0):
+        bias = _t(state[f"blocks.{i}.attn.qkv.bias"])
+        mask = state.get(f"blocks.{i}.attn.qkv.bias_mask")
+        out[f"blocks.{i}.attn.qkv.bias"] = bias if mask is None else bias * _t(mask)
+        used.update({f"blocks.{i}.attn.qkv.bias", f"blocks.{i}.attn.qkv.bias_mask"})
+    unused = sorted(k for k in set(state) - used if not k.startswith(_DINOV3_DROPPED))
+    if unused:
+        raise ValueError(f"dinov3 state has keys the conversion does not use: {unused[:5]}")
     return _finish(out, cfg)
 
 
@@ -324,6 +412,8 @@ def vit_from_torch(state: Mapping, num_heads: int) -> Tuple[dict, ViTConfig]:
         return convert_hf_dinov3(state, num_heads)
     if any(k.startswith("transformer.resblocks.") for k in state):
         return convert_pe(state, num_heads)
+    if "pos_embed" not in state and ("rope_embed.periods" in state or "storage_tokens" in state):
+        return convert_dinov3(state, num_heads)  # the dinov3 repository's rotary trunk
     if any(k.startswith("blocks.") for k in state):
         return convert_timm_vit(_canonicalize_trunk(state), num_heads)
     # a timm trunk nested under a wrapper's prefix (RADIO-style)

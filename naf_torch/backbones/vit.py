@@ -8,13 +8,15 @@ registry: conv patchify (with or without bias), a cls token and register
 tokens, learned position embeddings on a ``pos_grid`` x ``pos_grid`` grid
 (with or without a cls position) resized to the image's patch grid, an
 optional LayerNorm before the first block, pre-norm blocks with optional
-LayerScale, GELU MLP, and a rotary embedding of the patch tokens' q and k in
-every block: DINOv3's rotate-half RoPE (cell centres in [-1, 1]) or the
-Perception Encoder's interleaved one (integer patch coordinates). The prefix
-of cls and register tokens passes the RoPE unchanged. Parameter names are
-timm's (``reg_token``, ``norm_pre``), so a timm checkpoint loads with
+LayerScale, a qkv projection with or without bias, a GELU MLP or a SwiGLU
+FFN (DINOv3 ViT-7B/16: ``fc2(silu(fc1_g(x)) * fc1_x(x))``), and a rotary
+embedding of the patch tokens' q and k in every block: DINOv3's rotate-half
+RoPE (cell centres in [-1, 1]) or the Perception Encoder's interleaved one
+(integer patch coordinates). The prefix of cls and register tokens passes
+the RoPE unchanged. Parameter names are timm's (``reg_token``, ``norm_pre``,
+SwiGLU's ``fc1_g`` / ``fc1_x`` / ``fc2``), so a timm checkpoint loads with
 ``load_state_dict``; ``naf_torch.backbones.convert`` maps other layouts onto
-them.
+them. Each block's FFN runs under the span ``naf.backbone.mlp``.
 
 The position grid is resized as the JAX package resizes it,
 ``jax.image.resize(..., "bicubic")``: Keys' cubic kernel with a = -0.5, and,
@@ -37,9 +39,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from naf_torch.utils.spans import to_device
+from naf_torch.utils.spans import span, to_device
 
-__all__ = ["ViT", "ViTConfig", "rope_tables", "resize_weights", "resize_jax",
+__all__ = ["ViT", "ViTConfig", "SwiGLU", "rope_tables", "resize_weights", "resize_jax",
            "resize_bicubic_jax"]
 
 
@@ -60,10 +62,18 @@ class ViTConfig:
     use_abs_pos: Optional[bool] = None  # None: learned positions iff no RoPE
     ln_pre: bool = False  # LayerNorm before the first block (CLIP, PE)
     patch_bias: bool = True
+    ffn: str = "gelu"  # "gelu": fc2(gelu(fc1 x)); "swiglu": fc2(silu(fc1_g x) * fc1_x x)
+    mlp_hidden: Optional[int] = None  # the FFN's hidden width; None: embed_dim * mlp_ratio
+    qkv_bias: bool = True
 
     @property
     def abs_pos(self) -> bool:
         return self.rope_theta is None if self.use_abs_pos is None else self.use_abs_pos
+
+    @property
+    def hidden(self) -> int:
+        """The FFN's hidden width."""
+        return int(self.embed_dim * self.mlp_ratio) if self.mlp_hidden is None else self.mlp_hidden
 
 
 def _keys_cubic(x: np.ndarray) -> np.ndarray:
@@ -150,11 +160,12 @@ def _rotate(x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor, style: str) -
 
 
 class Attention(nn.Module):
-    def __init__(self, dim: int, num_heads: int, rope_style: str = "rotate_half"):
+    def __init__(self, dim: int, num_heads: int, rope_style: str = "rotate_half",
+                 qkv_bias: bool = True):
         super().__init__()
         self.num_heads = num_heads
         self.rope_style = rope_style
-        self.qkv = nn.Linear(dim, 3 * dim)
+        self.qkv = nn.Linear(dim, 3 * dim, bias=qkv_bias)
         self.proj = nn.Linear(dim, dim)
 
     def forward(self, x: torch.Tensor, rope=None, n_prefix: int = 0) -> torch.Tensor:
@@ -194,20 +205,42 @@ class Mlp(nn.Module):
         return self.fc2(F.gelu(self.fc1(x)))
 
 
+class SwiGLU(nn.Module):
+    """The gated FFN of DINOv3 ViT-7B/16: the gate ``fc1_g`` through SiLU
+    times the up projection ``fc1_x``, then the down projection ``fc2``
+    (the dinov3 repository's ``w1``, ``w2``, ``w3``; HF's ``gate_proj``,
+    ``up_proj``, ``down_proj``)."""
+
+    def __init__(self, dim: int, hidden: int):
+        super().__init__()
+        self.fc1_g = nn.Linear(dim, hidden)
+        self.fc1_x = nn.Linear(dim, hidden)
+        self.fc2 = nn.Linear(hidden, dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fc2(F.silu(self.fc1_g(x)) * self.fc1_x(x))
+
+
+_FFN = {"gelu": Mlp, "swiglu": SwiGLU}
+
+
 class Block(nn.Module):
-    def __init__(self, dim: int, num_heads: int, mlp_ratio: float, layerscale: bool,
-                 ln_eps: float, rope_style: str = "rotate_half"):
+    def __init__(self, dim: int, num_heads: int, hidden: int, layerscale: bool,
+                 ln_eps: float, rope_style: str = "rotate_half", ffn: str = "gelu",
+                 qkv_bias: bool = True):
         super().__init__()
         self.norm1 = nn.LayerNorm(dim, eps=ln_eps)
-        self.attn = Attention(dim, num_heads, rope_style)
+        self.attn = Attention(dim, num_heads, rope_style, qkv_bias)
         self.ls1 = LayerScale(dim) if layerscale else nn.Identity()
         self.norm2 = nn.LayerNorm(dim, eps=ln_eps)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio))
+        self.mlp = _FFN[ffn](dim, hidden)
         self.ls2 = LayerScale(dim) if layerscale else nn.Identity()
 
     def forward(self, x: torch.Tensor, rope=None, n_prefix: int = 0) -> torch.Tensor:
         x = x + self.ls1(self.attn(self.norm1(x), rope, n_prefix))
-        return x + self.ls2(self.mlp(self.norm2(x)))
+        with span("naf.backbone.mlp"):
+            y = self.mlp(self.norm2(x))
+        return x + self.ls2(y)
 
 
 class PatchEmbed(nn.Module):
@@ -233,8 +266,8 @@ class ViT(nn.Module):
         if config.ln_pre:
             self.norm_pre = nn.LayerNorm(c, eps=config.ln_eps)
         self.blocks = nn.ModuleList(
-            Block(c, config.num_heads, config.mlp_ratio, config.layerscale, config.ln_eps,
-                  config.rope_style)
+            Block(c, config.num_heads, config.hidden, config.layerscale, config.ln_eps,
+                  config.rope_style, config.ffn, config.qkv_bias)
             for _ in range(config.depth))
         self.norm = nn.LayerNorm(c, eps=config.ln_eps)
 

@@ -5,9 +5,11 @@ reference PretrainedViTWrapper, src/backbone/vit_wrapper.py:46-180).
 the name as the JAX package does (the patch size from ``patch(\\d+)``, with
 Franca and CAPI at 14 and ConvNeXt at 32; the width from a size fragment;
 the registry's normalisation and input size, and ImageNet statistics at 448
-for any other name), then loads a local checkpoint through the family's
-converter (``naf_torch.backbones.convert``; nothing is downloaded) or draws
-seeded random weights in the family's layout:
+for any other name; a name of ``PUBLISHED_SHAPES``, DINOv3 ViT-7B/16, at its
+published shape), then loads a local checkpoint through the family's
+converter (``naf_torch.backbones.convert``; nothing is downloaded), takes a
+state dict made elsewhere (``state=``, e.g. weights drawn on the card), or
+draws seeded random weights in the family's layout:
 
     wrapper = PretrainedViTWrapper("vit_base_patch16_dinov3.lvd1689m", device="cuda")
     wrapper(image_nhwc_normalised)  -> (B, H/ps, W/ps, C)
@@ -16,11 +18,13 @@ seeded random weights in the family's layout:
     wrapper.embed_dim, wrapper.patch_size
 
 The ``dvt_`` / ``fit3d_`` prefixes of finetuned weights are stripped
-(``finetune_tag``). Franca's RASA head runs after the trunk.
+(``finetune_tag``). Franca's RASA head runs after the trunk. A call is the
+span ``naf.backbone``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import re
 from typing import Optional, Sequence, Tuple
 
@@ -30,10 +34,10 @@ from torch import nn
 
 from naf_torch.api import _device
 from naf_torch.backbones.vit import ViT, ViTConfig
-from naf_torch.utils.spans import to_device
+from naf_torch.utils.spans import span, to_device
 
 __all__ = ["PretrainedViTWrapper", "load_multiple_backbones", "BACKBONE_REGISTRY",
-           "backbone_config", "RasaHead"]
+           "PUBLISHED_SHAPES", "backbone_config", "RasaHead"]
 
 IMAGENET_DEFAULT_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_DEFAULT_STD = (0.229, 0.224, 0.225)
@@ -64,6 +68,20 @@ BACKBONE_REGISTRY = {
     "vit_pe_spatial_tiny_patch16_512.fb": dict(input_size=512, **_HALF),
     "vit_pe_spatial_small_patch16_512.fb": dict(input_size=512, **_HALF),
 }
+
+
+# Names whose published shape the family rule below does not give (it reads
+# 4096 or 768 wide, 12 blocks, 64-wide heads, a GELU MLP, eps 1e-6): their
+# ViTConfig fields and input size. DINOv3 ViT-7B/16, from the dinov3 hub
+# entry ``dinov3_vit7b16`` and HF's DINOv3ViTConfig of
+# ``dinov3-vit7b16-pretrain-lvd1689m`` (arXiv 2508.10104): 40 blocks of 32
+# heads of 128, SwiGLU of hidden 8192 (the hub's ``swiglu64``: 2/3 of 3 x
+# 4096, aligned to 64), no qkv bias, LayerNorm eps 1e-5; the family rule
+# gives the 4 registers and RoPE base 100. 512 is the DINOv3 entries' size.
+_DINOV3_VIT7B = dict(input_size=512, embed_dim=4096, depth=40, num_heads=32, ffn="swiglu",
+                     mlp_hidden=8192, qkv_bias=False, ln_eps=1e-5)
+PUBLISHED_SHAPES = {"dinov3_vit7b16": _DINOV3_VIT7B,
+                    "vit_7b_patch16_dinov3.lvd1689m": _DINOV3_VIT7B}
 
 
 def _patch_size_from_name(name: str) -> int:
@@ -97,12 +115,15 @@ def backbone_config(name: str, num_heads: Optional[int] = None,
     registers, no cls position and RoPE theta 100; the Perception Encoder
     with the interleaved RoPE, learned positions, a pre-LayerNorm, no patch
     bias, no LayerScale and eps 1e-5; LayerScale on for every other family.
-    ``embed_dim`` / ``depth`` shrink a random backbone (heads follow the
-    width unless ``num_heads`` is given)."""
+    A name of ``PUBLISHED_SHAPES`` takes its published fields over the
+    rule's. ``embed_dim`` / ``depth`` shrink a random backbone (heads follow
+    the width unless ``num_heads`` is given; a published shape keeps its head
+    width and FFN ratio)."""
     name, _ = _strip_finetune_tag(name)
     ps = _patch_size_from_name(name)
     reg = BACKBONE_REGISTRY.get(name, {})
-    size = reg.get("input_size", 448)
+    pub = dict(PUBLISHED_SHAPES.get(name, {}))
+    size = pub.pop("input_size", reg.get("input_size", 448))
     config = {"mean": tuple(reg.get("mean", IMAGENET_DEFAULT_MEAN)),
               "std": tuple(reg.get("std", IMAGENET_DEFAULT_STD)),
               "input_size": (3, size, size), "ps": ps}
@@ -118,6 +139,12 @@ def backbone_config(name: str, num_heads: Optional[int] = None,
         use_abs_pos=True if is_pe else None, ln_pre=is_pe, patch_bias=not is_pe,
         layerscale=not is_pe, ln_eps=1e-5 if is_pe else 1e-6,
     )
+    if pub:
+        dim = embed_dim or pub["embed_dim"]
+        pub.update(embed_dim=dim, depth=depth or pub["depth"],
+                   num_heads=num_heads or max(dim * pub["num_heads"] // pub["embed_dim"], 1),
+                   mlp_hidden=pub["mlp_hidden"] * dim // pub["embed_dim"])
+        vit = dataclasses.replace(vit, **pub)
     return config, vit
 
 
@@ -165,7 +192,11 @@ def _load_checkpoint(name: str, path: str, heads: int):
 class PretrainedViTWrapper:
     """A frozen backbone. ``checkpoint``: a local torch checkpoint in any
     layout of ``naf_torch.backbones.convert``; without one the weights are
-    random, drawn from ``seed``. ``num_heads`` overrides the name's head
+    random, drawn from ``seed``. ``state``: the weights as a state dict in
+    the port's names for the name's shape, made elsewhere (on the card, where
+    a draw on the host would not fit): the model is built on the meta device
+    and takes those tensors as they are, then moves to ``device`` and
+    ``dtype``. ``num_heads`` overrides the name's head
     count; ``embed_dim`` and ``depth`` override its width and depth for a
     random backbone only (small test and smoke runs), since a checkpoint
     fixes both."""
@@ -173,12 +204,14 @@ class PretrainedViTWrapper:
     def __init__(self, name: str, checkpoint: Optional[str] = None,
                  num_heads: Optional[int] = None, dtype: torch.dtype = torch.float32,
                  seed: int = 0, device="cuda", embed_dim: Optional[int] = None,
-                 depth: Optional[int] = None):
+                 depth: Optional[int] = None, state: Optional[dict] = None):
         name, self.finetune_tag = _strip_finetune_tag(name)
         self.name = name
         if checkpoint is not None and (embed_dim is not None or depth is not None):
             raise ValueError("embed_dim and depth come from the checkpoint; give them only "
                              "for a random backbone")
+        if checkpoint is not None and state is not None:
+            raise ValueError("give a checkpoint or a state, not both")
         self.config, vit_config = backbone_config(name, num_heads, embed_dim, depth)
         self.rasa = None
         if checkpoint is not None:
@@ -188,6 +221,10 @@ class PretrainedViTWrapper:
             model.load_state_dict(state)
             if rasa is not None:
                 self.rasa = RasaHead(rasa).to(_device(device), dtype).eval().requires_grad_(False)
+        elif state is not None:
+            with torch.device("meta"):
+                model = ViT(vit_config)
+            model.load_state_dict(state, assign=True)
         else:
             model = ViT(vit_config)
             model.reset_parameters(torch.Generator().manual_seed(seed))
@@ -206,8 +243,9 @@ class PretrainedViTWrapper:
 
     def __call__(self, image: torch.Tensor) -> torch.Tensor:
         """(B, H, W, 3) normalised image -> (B, H/ps, W/ps, C)."""
-        feats = self.model(image)
-        return feats if self.rasa is None else self.rasa(feats)
+        with span("naf.backbone"):
+            feats = self.model(image)
+            return feats if self.rasa is None else self.rasa(feats)
 
     def normalize(self, image01: torch.Tensor) -> torch.Tensor:
         """Apply this backbone's normalisation to a [0, 1] NHWC image."""

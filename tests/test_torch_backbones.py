@@ -26,8 +26,11 @@ from naf_tpu.backbones.vit import ViTConfig as JViTConfig
 torch.set_num_threads(1)
 TOL = dict(atol=2e-4, rtol=2e-4)
 DIM, DEPTH, HEADS = 64, 2, 2
-# ViTConfig fields the two packages share (JAX's adds ``precision``)
-FIELDS = [f.name for f in dataclasses.fields(ViTConfig)]
+# ViTConfig fields the two packages share (JAX's adds ``precision``; the
+# port's adds the FFN kind, its hidden width and the qkv bias flag, which
+# the JAX ViT does not have: GELU, embed_dim * mlp_ratio, a bias)
+FIELDS = [f.name for f in dataclasses.fields(ViTConfig)
+          if f.name in {g.name for g in dataclasses.fields(JViTConfig)}]
 
 
 def _flax_params(state, cfg):
